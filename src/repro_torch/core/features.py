@@ -1,0 +1,78 @@
+"""Feature maps phi of the paper: phi(v) = f(A_k ... A_1 v) / sqrt(m).
+
+Port of ``repro.core.features`` (phi_scalar, phi_trig, phi_softmax_pos).
+Every phi takes a ``spinner.SpinnerPipeline`` plus its params tuple; the
+projection chain, f and the scaling run as one fused spinner call per
+block. ``grouped=True`` runs G independent pipelines (leading axis on x
+and on every param leaf) — the per-kv-head layout of SRF attention.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Union
+
+import torch
+
+from . import spinner
+from .spinner import SpinnerPipeline
+
+
+def _inv_sqrt_m(pipe: SpinnerPipeline) -> float:
+    return float(pipe.m_out) ** -0.5
+
+
+def phi_scalar(pipe: SpinnerPipeline, params, x: torch.Tensor,
+               f: Union[str, Callable], grouped: bool = False
+               ) -> torch.Tensor:
+    """phi(x) = f(proj(x)) / sqrt(m); a registered scalar f is fused as
+    the kernel epilogue, a callable runs after the projection."""
+    if isinstance(f, str):
+        try:
+            nl = spinner.nonlinearity(f)
+        except ValueError as e:
+            raise KeyError(str(e)) from None
+        if nl.out_mult != 1 or nl.needs_input:
+            raise KeyError(
+                f"phi_scalar needs a scalar pointwise f, got {f!r} "
+                "(use phi_softmax_pos / phi_trig for exp / cos_sin)")
+        return pipe.with_f(f).apply(params, x, out_scale=_inv_sqrt_m(pipe),
+                                    grouped=grouped)
+    y = pipe.with_f("identity").apply(params, x, grouped=grouped)
+    return f(y) / math.sqrt(pipe.m_out)
+
+
+def phi_trig(pipe: SpinnerPipeline, params, x: torch.Tensor,
+             sigma: float = 1.0, grouped: bool = False) -> torch.Tensor:
+    """Gaussian-kernel features [cos(y/s), sin(y/s)] / sqrt(m) (dim 2m);
+    a Python-number sigma fuses into the last block's call, a tensor
+    sigma (learnable bandwidth) applies the scale and trig outside."""
+    if isinstance(sigma, (int, float)):
+        return pipe.with_f("cos_sin").apply(params, x,
+                                            y_scale=1.0 / float(sigma),
+                                            out_scale=_inv_sqrt_m(pipe),
+                                            grouped=grouped)
+    y = pipe.with_f("identity").apply(params, x, grouped=grouped) / sigma
+    return torch.cat([torch.cos(y), torch.sin(y)], dim=-1) / \
+        math.sqrt(pipe.m_out)
+
+
+def phi_softmax_pos(pipe: SpinnerPipeline, params, x: torch.Tensor,
+                    scale: float = 1.0, stabilize: bool = True,
+                    grouped: bool = False) -> torch.Tensor:
+    """Positive softmax-kernel features (FAVOR+ form; f = exp):
+    phi(x) = exp(y - ||x||^2/2 - c) / sqrt(m),  y = proj(x * scale).
+
+    ``stabilize=False`` (keys): exp(y - ||x||^2/2) runs fused in the
+    kernel. ``stabilize=True`` (queries): the projection is fused, the
+    overflow-safe exp(z - max z) runs outside.
+    """
+    x = x * scale
+    if not stabilize:
+        return pipe.with_f("exp").apply(params, x,
+                                        out_scale=_inv_sqrt_m(pipe),
+                                        grouped=grouped)
+    y = pipe.with_f("identity").apply(params, x, grouped=grouped)
+    sq = 0.5 * torch.sum(x * x, dim=-1, keepdim=True)
+    z = y - sq
+    z = z - torch.amax(z, dim=-1, keepdim=True).detach()
+    return torch.exp(z) / math.sqrt(pipe.m_out)
