@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of ``repro``: structured nonlinear embeddings
-f(A·D1·H·D0·x) and the SRF-attention serving path, for one NVIDIA H100.
+f(A·D1·H·D0·x) and the paged serving path (full-KV or SRF attention),
+for one NVIDIA H100.
 
 Layout mirrors ``src/repro`` (``repro_torch/core/spinner.py`` ↔
 ``repro/core/spinner.py`` and so on). The package imports torch and

@@ -40,8 +40,8 @@ from . import structured, transforms
 
 SEEDED_NOT_PORTED = (
     "seeded (zero-storage) spinner blocks are not ported yet: they are "
-    "the next slice of the PyTorch port (ROADMAP.md, 'Port state', slice "
-    "1: seeded SRF)")
+    "the next slice of the PyTorch port (ROADMAP.md, section 1, item 1: "
+    "seeded SRF)")
 
 
 # ---------------------------------------------------------------------------
@@ -95,8 +95,9 @@ def _register_builtin(kind: str) -> None:
     register_kind(KindDef(
         name=kind,
         init=lambda gen, m, n, r=1, ldr_nnz=4, dtype=torch.float32,
-        device=None, _k=kind: structured.init(gen, _k, m, n, r, ldr_nnz,
-                                              dtype, device),
+        device=None, _k=kind: structured.init(
+            gen, _k, m, n, r, ldr_nnz, dtype,
+            gen.device if device is None else device),
         matvec=lambda params, x, m, _k=kind: structured.matvec(_k, params, x,
                                                                m),
         materialize=lambda params, m, n, _k=kind:
@@ -230,6 +231,9 @@ class SpinnerBlock:
 
     def init(self, gen: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, torch.Tensor]:
+        """Params drawn from ``gen``, on ``device`` (by default the
+        generator's own device)."""
+        device = gen.device if device is None else device
         params = kind_def(self.kind).init(gen, self.m, self.n, self.r,
                                           self.ldr_nnz, dtype, device)
         if self.use_hd:
@@ -356,7 +360,9 @@ class SpinnerPipeline:
 
     def init(self, gen: torch.Generator, dtype=torch.float32,
              device=None) -> Params:
-        """Tuple of per-block param dicts, drawn from ``gen`` in order."""
+        """Tuple of per-block param dicts, drawn from ``gen`` in order, on
+        ``device`` (by default the generator's own device)."""
+        device = gen.device if device is None else device
         return tuple(b.init(gen, dtype, device) for b in self.blocks)
 
     def block_params(self, params) -> Params:

@@ -50,7 +50,9 @@ def init(gen: torch.Generator, cfg: SRFConfig, n_kv_heads: int,
          dtype=torch.float32, device=None
          ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Per-kv-head independent pipelines: a tuple of per-block param
-    dicts, every leaf with a leading head axis."""
+    dicts, every leaf with a leading head axis, on ``device`` (by default
+    the generator's own device)."""
+    device = gen.device if device is None else device
     pipe = cfg.pipeline
     heads = [pipe.init(gen, dtype, device) for _ in range(n_kv_heads)]
     return tuple({k: torch.stack([hp[i][k] for hp in heads])

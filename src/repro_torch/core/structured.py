@@ -55,7 +55,9 @@ def init(gen: torch.Generator, kind: str, m: int, n: int, r: int = 1,
          device=None) -> Dict[str, torch.Tensor]:
     """Sample the generator parameters of one structured matrix from
     ``gen`` (shapes and laws as in the reference; the numbers differ,
-    since torch and jax draw differently)."""
+    since torch and jax draw differently), on ``device`` — by default
+    the generator's own device."""
+    device = gen.device if device is None else device
     b = n_blocks(kind, m, n)
 
     def normal(*shape):

@@ -86,7 +86,9 @@ def fwht_kron(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
 
 def sample_signs(gen: torch.Generator, n: int, dtype=torch.float32,
                  device=None) -> torch.Tensor:
-    """n Rademacher (+/-1) signs drawn from ``gen``."""
+    """n Rademacher (+/-1) signs drawn from ``gen``, on ``device`` (by
+    default the generator's own device)."""
+    device = gen.device if device is None else device
     bits = torch.randint(0, 2, (n,), generator=gen, device=device)
     return (2 * bits - 1).to(dtype)
 

@@ -1,7 +1,8 @@
 """Dispatchers between the CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``repro.kernels.ops`` for the two kernels of the SRF
-serving slice. Routing follows where the tensor lies:
+Counterpart of ``repro.kernels.ops`` for the kernels ported so far
+(the spinner, SRF decode and the two paged gathers). Routing follows
+where the tensor lies:
 
 * a CUDA tensor goes to the kernel, or raises if the kernel refuses it —
   there is no fallback that hides a kernel failure;
@@ -14,8 +15,10 @@ serving slice. Routing follows where the tensor lies:
 There is no interpret route and no block-size plan cache: block sizes
 are the kernels' own. Launch counts live on the kernel wrappers
 (``spinner.spinner_project_cuda.launches``,
-``srf_decode.srf_decode_cuda.launches``); :func:`launch_counts` reads
-them and :func:`reset_counts` zeroes them.
+``srf_decode.srf_decode_cuda.launches``,
+``paged_gather.paged_gather_cuda.launches``,
+``paged_gather.paged_gather_dequant_cuda.launches``);
+:func:`launch_counts` reads them and :func:`reset_counts` zeroes them.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.core import transforms
 
+from . import paged_gather as _pg
 from . import ref as _ref
 from . import spinner as _spin
 from . import srf_decode as _dec
@@ -33,13 +37,34 @@ from . import srf_decode as _dec
 def launch_counts() -> Dict[str, int]:
     return {"spinner": _spin.spinner_project_cuda.launches,
             "srf_decode": _dec.srf_decode_cuda.launches,
+            "paged_gather": _pg.paged_gather_cuda.launches,
+            "paged_gather_dequant": _pg.paged_gather_dequant_cuda.launches,
             "spinner_plain_on_cuda": spinner_project.plain_calls}
 
 
 def reset_counts() -> None:
     _spin.spinner_project_cuda.launches = 0
     _dec.srf_decode_cuda.launches = 0
+    _pg.paged_gather_cuda.launches = 0
+    _pg.paged_gather_dequant_cuda.launches = 0
     spinner_project.plain_calls = 0
+
+
+def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """pool (N, P, D), tables (R, M) -> (R, M*P, D) contiguous history."""
+    if pool.is_cuda:
+        return _pg.paged_gather_cuda(pool, tables)
+    return _ref.paged_gather_ref(pool, tables)
+
+
+def paged_gather_dequant(pool: torch.Tensor, scales: torch.Tensor,
+                         tables: torch.Tensor,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """int8 pool (N, P, D) + scales (N, P, 1), tables (R, M) ->
+    (R, M*P, D) dequantized history in ``out_dtype``."""
+    if pool.is_cuda:
+        return _pg.paged_gather_dequant_cuda(pool, scales, tables, out_dtype)
+    return _ref.paged_gather_dequant_ref(pool, scales, tables, out_dtype)
 
 
 def srf_decode(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,

@@ -123,3 +123,29 @@ def srf_decode_ref(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,
     num = torch.einsum("bhm,bhmd->bhd", phi_q, s2)
     den = torch.einsum("bhm,bhm->bh", phi_q, z2)
     return s2, z2, num / (den[..., None] + eps)
+
+
+def paged_gather_ref(pool: torch.Tensor, tables: torch.Tensor
+                     ) -> torch.Tensor:
+    """Gather cache pages into per-request contiguous views.
+
+    pool: (N, P, D) pooled pages; tables: (R, M) integer page ids
+    -> (R, M*P, D). Out-of-range ids clamp to [0, N-1] (the kernel's
+    rule; callers mask what they read there)."""
+    n, p, d = pool.shape
+    r, m = tables.shape
+    idx = tables.long().clamp(0, n - 1)
+    return pool[idx].reshape(r, m * p, d)
+
+
+def paged_gather_dequant_ref(pool: torch.Tensor, scales: torch.Tensor,
+                             tables: torch.Tensor,
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """The fused int8 gather + dequant: pool (N, P, D) int8, scales
+    (N, P, 1) float32 row scales, tables (R, M) -> (R, M*P, D)
+    ``out_dtype``, computed as ``(float(q) * scale).to(out_dtype)``."""
+    n, p, d = pool.shape
+    r, m = tables.shape
+    idx = tables.long().clamp(0, n - 1)
+    out = pool[idx].float() * scales[idx]
+    return out.to(out_dtype).reshape(r, m * p, d)

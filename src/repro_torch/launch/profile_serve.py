@@ -2,8 +2,8 @@
 engine under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        --arch qwen3-4b --attn srf --requests 8 --prompt-len 128 \
-        --max-new 32 --max-len 256
+        --arch qwen3-4b [--attn srf] [--quantize-kv] --requests 8 \
+        --prompt-len 128 --max-new 32 --max-len 256
 
 Takes ``launch.serve``'s flags as they are. Builds the model they name
 (full width unless ``--reduced``; random weights from ``--seed``),
@@ -16,7 +16,9 @@ untraced and once with the profiler on, and prints:
   device kernel and copy time over the wall time of the traced run —
   the profiler's own host cost inflates the wall time, so the share is
   a lower bound);
-* device time by kernel name, the ``TOP`` largest.
+* device time by kernel name, the ``TOP`` largest, and apart from them
+  every row of the port's own CUDA kernels (``PORT_KERNELS``: the paged
+  gathers, the spinner, srf_decode), however small.
 
 Requires a CUDA device; there is no CPU fallback.
 """
@@ -34,6 +36,8 @@ import torch
 from repro_torch.launch import serve
 
 TOP = 15                            # kernel rows printed
+PORT_KERNELS = ("paged_gather_kernel", "paged_gather_dequant_kernel",
+                "spinner_kernel", "srf_decode_kernel")
 
 
 def _device_us(evt) -> float:
@@ -89,7 +93,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
         "top_device": [{"name": k[:80], "ms": us / 1e3, "calls": c}
-                       for k, us, c in rows[:TOP]]}}))
+                       for k, us, c in rows[:TOP]],
+        "port_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                         for k, us, c in rows
+                         if any(p in k for p in PORT_KERNELS)]}}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

@@ -1,15 +1,19 @@
-"""Serving launcher for the port: the paged engine with SRF attention.
+"""Serving launcher for the port: the paged engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
-        --attn srf [--requests 16 --slots 8 --prompt-len 16 --max-new 24 \
+        [--attn full|srf] [--quantize-kv] [--prefix-cache \
+        --cache-bytes 0 --chunk-tokens 0 --shared-prefix 0] \
+        [--requests 16 --slots 8 --prompt-len 16 --max-new 24 \
         --max-len 128 --seed 0] [--reduced] [--device cuda]
 
 Full width is the default: ``--reduced`` opts into the tiny same-family
-config of ``configs.registry.reduced``. Weights are random, drawn from a
-``torch.Generator`` seeded with ``--seed`` on the device; prompts are
-random tokens from ``numpy.random.default_rng(--seed)``. Decoding is
-greedy. The flags are the reference CLI's (``repro.launch.serve``) for
-this slice, plus ``--device``; the port serves ``--attn srf`` only.
+config of ``configs.registry.reduced``. Without ``--attn`` the config's
+own attention serves (``full``: paged KV). Weights are random, drawn
+from a ``torch.Generator`` seeded with ``--seed`` on the device; prompts
+are random tokens from ``numpy.random.default_rng(--seed)``, the first
+``--shared-prefix`` of them common to every request. Decoding is greedy.
+The flags are the reference CLI's (``repro.launch.serve``) for what the
+port serves, plus ``--device``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serving import Engine, Request
+from repro_torch.serving import Engine, PagedConfig, Request
+from repro_torch.serving.prefix import ChunkConfig, PrefixConfig
 
 
 def parser() -> argparse.ArgumentParser:
@@ -39,6 +44,21 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--quantize-kv", action="store_true",
+                    help="int8 KV pages + per-page-row scales (kv family)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache: requests sharing a cached "
+                         "prompt prefix reuse its KV pages (COW) instead "
+                         "of re-prefilling (serving/prefix)")
+    ap.add_argument("--cache-bytes", type=int, default=0,
+                    help="prefix-cache byte budget (0 = unbounded; LRU "
+                         "eviction above the budget)")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="chunked-prefill token budget per step (0 = the "
+                         "full step shape); long cold prompts admit in "
+                         "chunks interleaved with decode")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="synthetic prompts share their first N tokens")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -53,20 +73,44 @@ def build(args):
 
 
 def requests(args, cfg) -> List[Request]:
+    """``args.requests`` greedy requests of ``args.prompt_len`` random
+    tokens, the first ``args.shared_prefix`` common to all."""
     rng = np.random.default_rng(args.seed)
-    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, args.prompt_len
-                                               ).astype(np.int32),
-                    max_new=args.max_new)
-            for i in range(args.requests)]
+    common = rng.integers(0, cfg.vocab, max(args.shared_prefix, 0)
+                          ).astype(np.int32)
+    out = []
+    for i in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32)
+        k = min(len(common), args.prompt_len)
+        prompt[:k] = common[:k]
+        out.append(Request(uid=i, prompt=prompt, max_new=args.max_new))
+    return out
 
 
-def serve(args, cfg=None, params=None) -> Dict:
-    """Serve ``args.requests`` requests; returns the finished requests,
-    the engine and the measured wall time, tokens/s and TTFT."""
-    if cfg is None:
-        cfg, params = build(args)
-    eng = Engine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
-                 device=args.device)
+def prefix_config(args) -> Optional[PrefixConfig]:
+    if not (args.prefix_cache or args.cache_bytes or args.chunk_tokens):
+        return None
+    return PrefixConfig(cache_bytes=args.cache_bytes,
+                        chunk=ChunkConfig(chunk_tokens=args.chunk_tokens))
+
+
+def engine(args, cfg, params) -> Engine:
+    return Engine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
+                  device=args.device,
+                  paged=PagedConfig(quantize_kv=args.quantize_kv),
+                  prefix=prefix_config(args))
+
+
+def serve(args, cfg=None, params=None, eng: Optional[Engine] = None
+          ) -> Dict:
+    """Serve ``args.requests`` requests (on ``eng`` if given, else on a
+    new engine); returns the finished requests, the engine and the
+    measured wall time, tokens/s and TTFT."""
+    if eng is None:
+        if cfg is None:
+            cfg, params = build(args)
+        eng = engine(args, cfg, params)
+    cfg = eng.cfg
     reqs = requests(args, cfg)
     t0 = time.perf_counter()
     for r in reqs:
@@ -100,6 +144,13 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"wall={res['wall_s']:.3f}s tok/s={res['tok_s']:.1f} "
           f"ttft_p50={res['ttft_s']['p50']:.4f}s")
     print(f"  sched: {dict(eng.sched.stats)}  report: {eng.cache_report()}")
+    if eng.prefix is not None:
+        v = eng.metrics.value_sum
+        print(f"  prefix: hits={int(v('prefix_hits_total'))} "
+              f"hit_tokens={int(v('prefix_hit_tokens_total'))} "
+              f"cow_forks={int(v('prefix_cow_forks_total'))} "
+              f"evictions={int(v('prefix_evictions_total'))} "
+              f"cache_bytes={int(v('prefix_cache_bytes'))}")
     for r in res["done"][:3]:
         print(f"  req{r.uid}: out={r.out_tokens[:8]}...")
     return 0

@@ -1,1 +1,2 @@
-"""Decoder LM pieces for the SRF serving slice (dense family)."""
+"""Decoder LM pieces for the paged serving path (dense family, full-KV or
+SRF attention)."""

@@ -1,22 +1,30 @@
-"""GQA attention with the paper's SRF state for the paged serving engine.
+"""GQA attention for the paged serving engine: full-KV pages or the
+paper's SRF state.
 
-Port of the SRF paged path of ``repro.models.attention``: ``srf_cfg``,
-``attn_init`` and ``attention`` in mode ``"paged"`` with
-``attn_impl="srf"``, whose per-request state is one constant-size page
-{"s": (Hq, m, dv), "z": (Hq, m)} at the request's slot. Decode (C == 1)
-runs the fused CUDA srf_decode kernel; chunked prefill (C > 1) is plain
-einsum math, as in the reference.
+Port of the paged paths of ``repro.models.attention``: ``srf_cfg``,
+``attn_init`` and ``attention`` in mode ``"paged"``.
 
-Not ported in this slice (they raise NotImplementedError): the full-KV
-paged path, MLA, cross attention and the train / prefill / decode modes
-of the non-paged cache.
+* ``attn_impl="full"`` (the configs' default): the chunk's k/v rows are
+  scattered into the request's KV pages (bf16/f32, or int8 with one f32
+  scale per token), then the whole table width is gathered back through
+  the paged_gather / paged_gather_dequant CUDA kernels and attended with
+  an f32 softmax (``_paged_full``).
+* ``attn_impl="srf"``: the per-request state is one constant-size page
+  {"s": (Hq, m, dv), "z": (Hq, m)} at the request's slot. Decode
+  (C == 1) runs the fused CUDA srf_decode kernel; chunked prefill
+  (C > 1) is plain einsum math, as in the reference.
 
-Unlike the reference, which returns new pools, the paged path writes the
-updated state rows into the pool IN PLACE (the pool is the engine's
-preallocated buffer; nothing else holds a view of those rows).
+Not ported yet (they raise NotImplementedError): MLA, cross attention,
+mesh tensor parallelism (``tp_axis``) and the train / prefill / decode
+modes of the non-paged cache.
+
+Unlike the reference, which returns new pools, both paths write into
+the pool IN PLACE (the pool is the engine's preallocated buffer; nothing
+else holds a view of those rows).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -28,8 +36,8 @@ from repro_torch.kernels import ops as kops
 
 from . import layers
 
-NOT_IN_SLICE = ("not ported yet: the PyTorch port serves the dense SRF "
-                "family only (ROADMAP.md, 'Port state')")
+NOT_IN_SLICE = ("not ported yet: the PyTorch port serves the dense "
+                "full-KV and SRF families only (ROADMAP.md, 'Port state')")
 
 
 def srf_cfg(cfg) -> SRFConfig:
@@ -90,6 +98,114 @@ def _repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
     return torch.repeat_interleave(x, g, dim=1)
 
 
+def _paged_scatter(pool_arr: torch.Tensor, new: torch.Tensor,
+                   tables: torch.Tensor, positions: torch.Tensor,
+                   q_valid: torch.Tensor) -> None:
+    """Write per-token rows into cache pages, in place.
+
+    pool_arr: (N, P, ...) pages; new: (B, C, ...) one row per token;
+    tables: (B, M) page ids; positions: (B, C) absolute positions. The
+    page lookup clamps to the table width, as the reference's does.
+    Invalid tokens (q_valid False) are written to row ``position % P`` of
+    the reserved null page 0 instead of being dropped: the shapes stay
+    static (a boolean-mask index would sync the host every layer), and
+    no live request reads page 0 unmasked — it backs only the unused
+    tail of a table, whose columns lie past every row's position."""
+    n, p = pool_arr.shape[:2]
+    m = tables.shape[1]
+    page = torch.gather(tables, 1, (positions // p).clamp(0, m - 1).long())
+    dest = torch.where(q_valid, page * p + positions % p, positions % p)
+    flat = pool_arr.view((n * p,) + tuple(pool_arr.shape[2:]))
+    flat.index_copy_(0, dest.reshape(-1).long(),
+                     new.reshape((-1,) + tuple(new.shape[2:]))
+                     .to(pool_arr.dtype))
+
+
+def _flat_pages(pool_arr: torch.Tensor) -> torch.Tensor:
+    """(N, P, ...) -> (N, P, D): a view, never a copy of the pool."""
+    n, p = pool_arr.shape[:2]
+    return pool_arr.view(n, p, -1)
+
+
+def _paged_hist(pool_arr: torch.Tensor, tables: torch.Tensor
+                ) -> torch.Tensor:
+    """Request-contiguous history: (N, P, ...) + (B, M) -> (B, M*P, ...)
+    through the paged_gather kernel."""
+    hist = kops.paged_gather(_flat_pages(pool_arr), tables)
+    return hist.view((tables.shape[0], -1) + tuple(pool_arr.shape[2:]))
+
+
+def _paged_hist_dq(pool_arr: torch.Tensor, scale_arr: torch.Tensor,
+                   tables: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 variant of :func:`_paged_hist`: (N, P, ...) int8 pages and
+    (N, P, 1) f32 scales -> (B, M*P, ...) ``dtype`` history, the dequant
+    fused into the gather (paged_gather_dequant kernel)."""
+    hist = kops.paged_gather_dequant(_flat_pages(pool_arr), scale_arr,
+                                     tables, out_dtype=dtype)
+    return hist.view((tables.shape[0], -1) + tuple(pool_arr.shape[2:]))
+
+
+def _quantize_paged_kv(x: torch.Tensor):
+    """(B, C, Hkv, hd) chunk rows -> (int8 rows, (B, C, 1) f32 scales):
+    one scale per cached token, max|x| / 127 floored at 1e-8, values
+    rounded half to even and clipped to +-127."""
+    xf = x.float()
+    mx = xf.abs().amax(dim=(-2, -1))
+    s = torch.clamp(mx / 127.0, min=1e-8)[..., None]           # (B, C, 1)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _paged_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, positions: torch.Tensor) -> torch.Tensor:
+    """Batched chunk attention against gathered pages.
+
+    q: (B, Hq, C, hd); k, v: (B, Hkv, T, hd); positions: (B, C). Column t
+    is visible to chunk row i iff t <= positions[:, i] (the new tokens
+    were scattered into the history first, so the diagonal is included).
+    Logits and softmax in f32, masked with -1e30; the weights are cast to
+    v's dtype for the value product, as in the reference."""
+    b, hq, c, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, c, hd)
+    logits = torch.einsum("bhgld,bhsd->bhgls", qg.float(), k.float()) * scale
+    cols = torch.arange(t, device=q.device)
+    mask = (cols[None, :] <= positions.reshape(b * c, 1)).view(b, 1, 1, c, t)
+    logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgls,bhsd->bhgld", w, v)
+    return out.reshape(b, hq, c, v.shape[-1]).to(q.dtype)
+
+
+def _paged_full(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                positions: torch.Tensor, ctx: Dict) -> torch.Tensor:
+    """Full-KV paged path: scatter the chunk's k/v into the pages (in
+    place), gather the whole table width (M*P columns), attend. Decode
+    (C=1) and chunked prefill alike; bf16/f32 pools, or int8 pools
+    (detected by their scale leaves) with the dequant fused into the
+    gather."""
+    pool, tables, q_valid = ctx["pool"], ctx["tables"], ctx["q_valid"]
+    kt = k.transpose(1, 2)                             # (B, C, Hkv, hd)
+    vt = v.transpose(1, 2)
+    if "k_scale" in pool:
+        for name, rows in (("k", kt), ("v", vt)):
+            qr, sc = _quantize_paged_kv(rows)
+            _paged_scatter(pool[name], qr, tables, positions, q_valid)
+            _paged_scatter(pool[f"{name}_scale"], sc, tables, positions,
+                           q_valid)
+        kf = _paged_hist_dq(pool["k"], pool["k_scale"], tables, q.dtype)
+        vf = _paged_hist_dq(pool["v"], pool["v_scale"], tables, q.dtype)
+    else:
+        _paged_scatter(pool["k"], kt, tables, positions, q_valid)
+        _paged_scatter(pool["v"], vt, tables, positions, q_valid)
+        kf = _paged_hist(pool["k"], tables)
+        vf = _paged_hist(pool["v"], tables)
+    kf = kf.transpose(1, 2).to(q.dtype)                # (B, Hkv, T, hd)
+    vf = vf.transpose(1, 2).to(q.dtype)
+    return _paged_softmax(q, kf, vf, 1.0 / math.sqrt(cfg.head_dim),
+                          positions)
+
+
 def _paged_srf(pool: Dict[str, torch.Tensor], slots: torch.Tensor,
                phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
                q_valid: torch.Tensor) -> torch.Tensor:
@@ -133,15 +249,16 @@ def _paged_srf(pool: Dict[str, torch.Tensor], slots: torch.Tensor,
 
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
               cache: Dict) -> torch.Tensor:
-    """Paged GQA attention with SRF state: (B, C, d) -> (B, C, d); the
-    slot pool in ``cache["pool"]`` is updated in place."""
+    """Paged GQA attention: (B, C, d) -> (B, C, d). ``cache["pool"]`` is
+    the layer's KV page pool (full) or slot pool (srf), updated in
+    place."""
     if mode != "paged":
         raise NotImplementedError(f"attention mode {mode!r} is "
                                   f"{NOT_IN_SLICE}")
     if cfg.is_mla:
         raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
-    if cfg.attn_impl != "srf":
-        raise NotImplementedError(f"full-KV paged attention is "
+    if cache.get("tp_axis"):
+        raise NotImplementedError(f"tensor-parallel attention (tp_axis) is "
                                   f"{NOT_IN_SLICE}")
     if cfg.m_rope:
         raise NotImplementedError(f"M-RoPE is {NOT_IN_SLICE}")
@@ -158,6 +275,9 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
         k = layers.head_rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.attn_impl != "srf":
+        out = _paged_full(cfg, q, k, v, positions, cache)
+        return _merge_heads(out) @ p["wo"]
 
     sc = srf_cfg(cfg)
     g = cfg.n_heads // cfg.n_kv_heads

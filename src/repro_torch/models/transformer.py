@@ -1,4 +1,4 @@
-"""Dense decoder LM for the paged SRF serving path.
+"""Dense decoder LM for the paged serving path (full-KV or SRF attention).
 
 Port of the serving half of ``repro.models.transformer`` for the dense
 family: ``init``, ``paged_step``, ``_paged_layer`` and ``_logits`` as
@@ -13,8 +13,9 @@ for leaf:
      "head": (d, V)}                                  # absent when tied
 
 Layers run as a Python loop over the stacked layer axis (the reference
-scans). Other families (MoE, MLA, SSM, hybrid, enc-dec, vision) are not
-ported in this slice and raise NotImplementedError.
+scans). Attention is full-KV (paged pools) or SRF (slot pools), as the
+config's ``attn_impl`` says. Other families (MoE, MLA, SSM, hybrid,
+enc-dec, vision) are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -87,34 +88,40 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
                positions: torch.Tensor, q_valid: torch.Tensor,
                tables: torch.Tensor, slots: torch.Tensor
                ) -> Tuple[torch.Tensor, Dict]:
-    """One batched step against the pooled SRF states (serving hot path).
+    """One batched step against the pooled caches (serving hot path).
 
     tokens: (B, C) int — C = 1 for batched decode, C = prefill chunk for
     chunked prefill; positions: (B, C) absolute positions; q_valid:
-    (B, C) validity; tables: (B, M) page ids (unused by the constant-state
-    SRF family, kept for the reference's signature); slots: (B,) slot
-    ids into the slot-domain pools (0 = null slot for padded rows).
-    ``pools`` is the container from ``serving.paged_cache.init_pools``;
-    its slot pools are updated IN PLACE and the same container is
-    returned. Returns (logits (B, C, V_padded), pools).
+    (B, C) validity; tables: (B, M) page ids into the paged-domain pools
+    (full-KV attention; 0 = null page); slots: (B,) slot ids into the
+    slot-domain pools (SRF attention; 0 = null slot for padded rows).
+    ``pools`` is the container from ``serving.paged_cache.init_pools``
+    ({"paged", "slot"} per-segment lists); the layer's paged pool (kv
+    plan) or slot pool (srf plan) is updated IN PLACE and the same
+    container is returned. Returns (logits (B, C, V_padded), pools).
     """
     dt = dtype_of(cfg)
     x = hooks.constrain(layers.embed(params["embed"], tokens).to(dt),
                         "activation")
-    for seg_params, sseg, (kind, count) in zip(
-            params["segments"], pools["slot"], segments(cfg)):
+    for seg_params, pseg, sseg, (kind, count) in zip(
+            params["segments"], pools["paged"], pools["slot"],
+            segments(cfg)):
         for i in range(count):
             x = _paged_layer(tree_index(seg_params, i), cfg, kind, x,
-                             positions, q_valid, tree_index(sseg, i),
+                             positions, q_valid,
+                             None if pseg is None else tree_index(pseg, i),
+                             None if sseg is None else tree_index(sseg, i),
                              tables, slots)
     return _logits(params, cfg, x), pools
 
 
 def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
-                 lslot, tables, slots) -> torch.Tensor:
-    """Single-layer paged step; ``lslot["attn"]`` is updated in place."""
+                 lpaged, lslot, tables, slots) -> torch.Tensor:
+    """Single-layer paged step; the attention pool (``lslot["attn"]`` for
+    SRF, ``lpaged["attn"]`` for full KV) is updated in place."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    ctx = {"pool": lslot["attn"], "tables": tables, "slots": slots,
+    attn_pools = lslot if cfg.attn_impl == "srf" else lpaged
+    ctx = {"pool": attn_pools["attn"], "tables": tables, "slots": slots,
            "q_valid": q_valid}
     x = x + attention.attention(p["attn"], cfg, h, positions, "paged", ctx)
     return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,

@@ -1,23 +1,32 @@
-"""Paged continuous-batching serving engine (SRF family).
+"""Paged continuous-batching serving engine (full-KV and SRF families).
 
 Port of ``repro.serving.engine``: requests share pooled, pre-allocated
-SRF states (``paged_cache``), one constant-size slot per request; the
-scheduler (a copy of the reference's) handles admission, chunked
+caches (``paged_cache``): full-KV pages indexed through per-request
+block tables (``blocks``), or one constant-size SRF slot per request.
+The scheduler (a copy of the reference's) handles admission, chunked
 prefill and preemption; prefill and decode both run as batched
 ``transformer.paged_step`` calls with fixed shapes (prefill_batch x
-chunk, max_batch x 1), inactive rows masked onto the null slot 0.
+chunk, max_batch x 1), inactive rows masked onto the null page / slot 0.
 Sampling is greedy.
 
-Not ported in this slice, and refused if asked for: the prefix cache,
-live quality probes, mesh-sharded pools, per-request projection seeds,
-enc-dec memories and sampled (temperature > 0) decoding.
+``paged=PagedConfig(quantize_kv=True)`` stores KV pages as int8 with one
+f32 scale per token; ``prefix=PrefixConfig(...)`` shares the KV pages of
+cached prompt prefixes across requests (radix trie, copy-on-write forks,
+chunked prefill; ``serving/prefix``). Preempted requests' pages and
+slots are snapshotted to pinned host memory and restored at
+re-admission.
+
+Not ported yet, and refused if asked for: live quality probes,
+mesh-sharded pools, per-request projection seeds, enc-dec memories and
+sampled (temperature > 0) decoding.
 """
 from __future__ import annotations
 
+import hashlib
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +37,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 from . import paged_cache
+from .prefix import ChunkPolicy, PrefixCache, PrefixConfig, cow
 from .sampler import sample_greedy
 from .scheduler import SchedConfig, Scheduler, Sequence
 
@@ -59,29 +69,56 @@ class Request:
 
 def _default_sched(cfg, batch_slots: int, max_len: int, plan,
                    policy: str) -> SchedConfig:
-    """The reference's default geometry (constant-state plans: the slot
-    domain is the whole geometry)."""
+    """The reference's default geometry."""
     page = 16 if max_len >= 64 else 8
+    if not plan.has_paged:
+        # constant-state only: the slot domain is the whole geometry
+        return SchedConfig(max_batch=batch_slots, prefill_batch=batch_slots,
+                           prefill_chunk=min(32, max(8, page)),
+                           page_size=page, num_pages=2, table_width=1,
+                           num_slots=batch_slots + 1, policy=policy)
+    width = max(1, -(-max_len // page))
     return SchedConfig(max_batch=batch_slots, prefill_batch=batch_slots,
-                       prefill_chunk=min(32, max(8, page)), page_size=page,
-                       num_pages=2, table_width=1,
-                       num_slots=batch_slots + 1, policy=policy)
+                       prefill_chunk=min(32, 2 * page), page_size=page,
+                       num_pages=2 * batch_slots * width + 1,
+                       table_width=width, num_slots=batch_slots + 1,
+                       policy=policy)
+
+
+def _cache_namespace(req) -> int:
+    """Prefix-cache trie namespace of a request: partitioned by tenant
+    (requests of different namespaces never share cache state); the
+    default tenant is ``0``. (The reference also partitions by enc-dec
+    encoder content and by seeded-SRF ``embed_seed``; the port refuses
+    both kinds of request.)"""
+    tenant = getattr(req, "namespace", "")
+    if not tenant:
+        return 0
+    h = hashlib.blake2b(tenant.encode("utf-8"), digest_size=8)
+    return int.from_bytes(h.digest(), "big")
 
 
 _ENGINE_IDS = itertools.count()
 
 
 class Engine:
-    """Continuous batching over the pooled SRF states on ``device``."""
+    """Continuous batching over pooled caches on ``device``.
+
+    ``batch_slots`` and ``max_len`` size the default geometry; pass
+    ``sched=SchedConfig(...)`` to size the pools explicitly (e.g. tight
+    pools to exercise preemption). ``paged`` and ``prefix`` as in the
+    module docstring; ``prefix`` is silently off for a plan with no
+    paged domain (SRF), which has no pages to share."""
 
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 512, sched: Optional[SchedConfig] = None,
                  policy: str = "fcfs",
                  metrics: Optional[obs_metrics.MetricsRegistry] = None,
-                 device="cuda", mesh=None, prefix=None,
+                 device="cuda", mesh=None,
+                 paged: Optional[paged_cache.PagedConfig] = None,
+                 prefix: Optional[PrefixConfig] = None,
                  quality_every: int = 0):
         for name, asked in (("mesh-sharded serving", mesh is not None),
-                            ("the prefix cache", prefix is not None),
                             ("live quality probes", quality_every)):
             if asked:
                 raise NotImplementedError(f"{name} is "
@@ -89,6 +126,7 @@ class Engine:
         self.cfg = cfg
         self.device = torch.device(device)
         self.plan = paged_cache.plan_for(cfg)
+        self.paged = paged or paged_cache.PagedConfig()
         self.metrics = metrics if metrics is not None \
             else obs_metrics.MetricsRegistry()
         self.engine_id = str(next(_ENGINE_IDS))
@@ -101,10 +139,25 @@ class Engine:
         self.pools = paged_cache.init_pools(cfg, sched.num_pages,
                                             sched.page_size,
                                             num_slots=self.sched.num_slots,
-                                            device=self.device)
+                                            device=self.device,
+                                            paged=self.paged)
         self.params = params
         self.clock = time.perf_counter
         self.nonfinite_rows = 0          # sampled logit rows with inf/nan
+        self._pending_snaps: List[paged_cache.PendingSnapshot] = []
+        # (src, dst) tail-page copies owed to the prefix cache, flushed as
+        # one batched copy at the end of the prefill step so donors keep
+        # exclusive ownership of their tail pages (no mid-decode forks)
+        self._cache_copies: List[Tuple[int, int]] = []
+        self.prefix: Optional[PrefixCache] = None
+        self._chunk: Optional[ChunkPolicy] = None
+        if prefix is not None and prefix.enabled and self.plan.has_paged:
+            self.prefix = PrefixCache(
+                self.sched.alloc, sched.page_size,
+                paged_cache.page_bytes(self.pools), prefix,
+                metrics=self.metrics, labels={"engine": self.engine_id})
+            self.sched.attach_prefix(self.prefix)
+            self._chunk = ChunkPolicy(prefix.chunk)
         self._init_metrics()
 
     def _init_metrics(self) -> None:
@@ -126,6 +179,9 @@ class Engine:
                                 "copy-on-preempt evictions")
         self._c_expired = c("engine_expired_total",
                             "waiting requests expired past deadline")
+        self._c_cow_forks = c("prefix_cow_forks_total",
+                              "copy-on-write page forks applied (admission "
+                              "boundary + decode divergence)")
         self._h_step = h("engine_step_seconds", "wall time of one engine "
                          "step")
         self._h_ttft = h("request_ttft_seconds", "time to first token")
@@ -160,7 +216,17 @@ class Engine:
         if req.trace is None:
             req.trace = obs_trace.Trace(uid=req.uid)
         req.trace.stamp("queued", now)
-        self.sched.submit(req)
+        seq = self.sched.submit(req)
+        if self.prefix is not None:
+            seq.ns = _cache_namespace(req)
+
+    def prefix_peek(self, req: Request) -> int:
+        """Tokens of ``req``'s prompt this engine could serve from its
+        prefix cache right now (non-pinning, no LRU touch)."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.peek(_cache_namespace(req), req.prompt,
+                                want_state=bool(self.plan.slot_families))
 
     def run(self) -> List[Request]:
         """Drain all submitted requests; returns the completed ones."""
@@ -172,7 +238,8 @@ class Engine:
             if stall > 2:
                 raise RuntimeError(
                     "scheduler stalled: pool too small for the remaining "
-                    f"requests ({self.sched.free_slots} free slots)")
+                    f"requests (free={self.sched.alloc.free_pages} pages, "
+                    f"{self.sched.free_slots} slots)")
         return [r for r in tracked if r.done]
 
     def step(self) -> bool:
@@ -195,15 +262,31 @@ class Engine:
         for seq in admitted:
             seq.req.trace.stamp("admitted", now)
             if seq.snapshot is not None:
-                paged_cache.restore_slot_rows(self.pools, [seq.slot],
+                paged_cache.restore_page_rows(self.pools, seq.table.pages,
+                                              self._slot_ids(seq),
                                               seq.snapshot)
                 self.sched.restored(seq)
                 seq.req.trace.stamp("restored", now)
-            elif seq.slot is not None:
-                fresh.append(seq)        # a reused slot starts from zero
+            else:
+                if seq.hit_tokens > 0:
+                    seq.req.trace.stamp("prefix_hit", now)
+                if seq.slot is not None:
+                    fresh.append(seq)    # a reused slot starts from zero
         if fresh:
             paged_cache.zero_slot_rows(self.pools, [s.slot for s in fresh])
+        self._apply_forks(admitted)
         work = self.sched.prefill_work()
+        sc = self.sched_cfg
+        if work and self._chunk is not None \
+                and self.sched.decode_ready() \
+                and self._chunk.spans_steps(work, sc.prefill_chunk,
+                                            sc.prefill_batch) \
+                and self._chunk.decode_turn():
+            # chunked-prefill interleave: yield this step to decode so a
+            # long cold prompt cannot starve running requests
+            if self._decode_step(self.sched.decode_ready()):
+                return True
+            work = self.sched.prefill_work()    # decode may have evicted
         if work:
             self._prefill_step(work)
             return True
@@ -211,6 +294,26 @@ class Engine:
         if ready:
             return self._decode_step(ready) or bool(expired)
         return bool(admitted) or bool(expired)
+
+    def _apply_forks(self, seqs: List[Sequence]) -> None:
+        """Apply pending COW forks as ONE batched copy (``copy_page_rows``
+        gathers every source before any write). Admission forks pin their
+        source in the cache until the copy is issued; released here."""
+        forks = [s.fork for s in seqs if s.fork is not None]
+        if not forks:
+            return
+        paged_cache.copy_page_rows(self.pools, [f.src for f in forks],
+                                   [f.dst for f in forks])
+        self._c_cow_forks.inc(len(forks))
+        for s in seqs:
+            if s.fork is not None:
+                if s.fork.pinned_src:
+                    self.prefix.release_fork(s.fork.src)
+                s.fork = None
+
+    @staticmethod
+    def _slot_ids(seq: Sequence) -> List[int]:
+        return [seq.slot] if seq.slot is not None else []
 
     def _expire(self, seq: Sequence) -> None:
         req = seq.req
@@ -224,7 +327,17 @@ class Engine:
 
     # -- device step ---------------------------------------------------------
 
+    def _fence_snapshots(self) -> None:
+        """Wait for pending copy-on-preempt host copies. Pool writes are
+        ordered behind the snapshot gathers on the stream already; the
+        fence bounds how long pinned host buffers stay in flight (the
+        engine syncs with the device every step anyway)."""
+        for snap in self._pending_snaps:
+            snap.fence()
+        self._pending_snaps.clear()
+
     def _run_step(self, tokens, pos, qv, tables, slots) -> torch.Tensor:
+        self._fence_snapshots()
         dev = self.device
         logits, self.pools = model_lib.paged_step(
             self.params, self.cfg, self.pools,
@@ -259,12 +372,24 @@ class Engine:
         slots = np.zeros((b,), np.int64)
         last_row = np.zeros((b,), np.int64)
         finishing: List[Optional[Sequence]] = [None] * b
-        planned = [(s, min(s.prompt_len - s.prefill_pos, c)) for s in work]
+        if self._chunk is not None:
+            planned = self._chunk.plan(work, c, b)
+        else:
+            planned = [(s, min(s.prompt_len - s.prefill_pos, c))
+                       for s in work]
         self._c_prefill_tokens.inc(sum(t for _, t in planned))
         for i, (seq, take) in enumerate(planned):
             start = seq.prefill_pos
-            if seq.req.trace.count("prefill") == 0:
-                seq.req.trace.stamp("prefill")
+            tr = seq.req.trace
+            if tr.count("prefill") == 0:
+                tr.stamp("prefill")
+            elif self._chunk is not None:
+                tr.stamp("chunked_prefill")
+            if self.prefix is not None:
+                # prefill writes land only in pages this request owns
+                # exclusively (shared prefixes are read-only)
+                cow.assert_writable(self.sched.alloc, seq.table.pages,
+                                    start, take, sc.page_size)
             chunk = np.asarray(seq.req.prompt[start:start + take], np.int64)
             n = len(chunk)
             tokens[i, :n] = chunk
@@ -286,6 +411,10 @@ class Engine:
         for i, seq in enumerate(finishing):
             if seq is None:
                 continue
+            if self.prefix is not None:
+                # cache the prefilled prompt BEFORE a finish frees its
+                # pages: the cache's references keep them alive
+                self._prefix_insert(seq)
             tok = int(toks[i])
             seq.req.out_tokens.append(tok)
             seq.req.t_first = now
@@ -294,7 +423,49 @@ class Engine:
             if tok == seq.req.eos_id or \
                     len(seq.req.out_tokens) >= seq.req.max_new:
                 self._finish(seq, now)
+        self._flush_cache_copies()
         self._c_prefill_steps.inc()
+
+    def _prefix_insert(self, seq: Sequence) -> None:
+        """Donate a fully prefilled prompt to the prefix cache. An
+        unaligned prompt's tail page would become shared the moment it is
+        cached, and the donor's next decode write would have to fork it;
+        so the CACHE takes a private copy of the tail page (batched into
+        this prefill step) and the donor keeps its own. If no page is
+        free for the copy, the tail is shared as is and the scheduler's
+        decode-fork site covers the donor's next write. (Slot-bearing
+        plans, whose donors also attach a state snapshot, are not
+        ported.)"""
+        pages = list(seq.table.pages)
+        tail_src, cp = None, None
+        if seq.prompt_len % self.sched_cfg.page_size:
+            got = self.sched.alloc.alloc(1)
+            if got is not None:
+                tail_src, cp = pages[-1], got[0]
+                pages[-1] = cp
+        newly = self.prefix.insert(seq.ns, seq.req.prompt, pages, None,
+                                   payload_tokens=0)
+        if cp is not None:
+            if cp in newly:
+                # the alloc ref on cp is held until the flush, so the page
+                # cannot be recycled into another copy's destination first
+                self._cache_copies.append((tail_src, cp))
+            else:                       # tail node existed: copy unused
+                self.sched.alloc.free([cp])
+                self.sched._sync_gauges()
+
+    def _flush_cache_copies(self) -> None:
+        """One batched copy for every tail page the cache adopted this
+        step, then drop the engine's transient refs (the cache's stay)."""
+        if not self._cache_copies:
+            return
+        paged_cache.copy_page_rows(self.pools,
+                                   [s for s, _ in self._cache_copies],
+                                   [d for _, d in self._cache_copies])
+        self._c_cow_forks.inc(len(self._cache_copies))
+        self.sched.alloc.free([d for _, d in self._cache_copies])
+        self._cache_copies.clear()
+        self.sched._sync_gauges()
 
     # -- completion ----------------------------------------------------------
 
@@ -318,7 +489,14 @@ class Engine:
     # -- decode -------------------------------------------------------------
 
     def _evict(self, victim: Sequence) -> None:
-        snap = paged_cache.snapshot_slot_rows(self.pools, [victim.slot])
+        if victim.fork is not None:
+            # a decode fork planned earlier in this grow loop: the table
+            # already points at the not-yet-copied destination, so the
+            # copy must land before the snapshot reads it
+            self._apply_forks([victim])
+        snap = paged_cache.snapshot_page_rows_async(
+            self.pools, victim.table.pages, self._slot_ids(victim))
+        self._pending_snaps.append(snap)
         self.sched.evicted(victim, snap)
         victim.req.trace.stamp("preempted")
         self._c_preemptions.inc()
@@ -338,6 +516,8 @@ class Engine:
                 batch.append(seq)
         if not batch:
             return False
+        self._apply_forks(batch)         # COW: writes into shared pages
+        #                                  fork first
         b, m = sc.max_batch, sc.table_width
         tokens = np.zeros((b, 1), np.int64)
         pos = np.zeros((b, 1), np.int64)
@@ -345,6 +525,9 @@ class Engine:
         tables = np.zeros((b, m), np.int64)
         slots = np.zeros((b,), np.int64)
         for i, seq in enumerate(batch):
+            if self.prefix is not None:
+                cow.assert_writable(self.sched.alloc, seq.table.pages,
+                                    seq.table.length, 1, sc.page_size)
             tokens[i, 0] = seq.req.out_tokens[-1]
             pos[i, 0] = seq.table.length
             qv[i, 0] = True
@@ -367,11 +550,26 @@ class Engine:
         self._c_decode_steps.inc()
         return True
 
+    def defrag(self) -> None:
+        """Compact live pages to the low pool indices (an idle-time
+        locality step; paging never needs it for correctness)."""
+        moves = self.sched.defrag()
+        paged_cache.apply_moves(self.pools, moves)
+
     # -- introspection ------------------------------------------------------
+
+    @property
+    def free_pages(self) -> int:
+        return self.sched.alloc.free_pages
 
     @property
     def free_slots(self) -> int:
         return self.sched.free_slots
+
+    @property
+    def usable_pages(self) -> int:
+        """Paged-domain pages available to requests (page 0 is null)."""
+        return max(self.sched_cfg.num_pages - 1, 1)
 
     @property
     def usable_slots(self) -> int:
@@ -382,6 +580,7 @@ class Engine:
         ml = max_len or (self.sched_cfg.table_width * self.sched_cfg.page_size)
         return {"family": self.plan.name,
                 "bytes_per_token_per_layer":
-                    self.plan.bytes_per_token(self.cfg, ml),
+                    self.plan.bytes_per_token(self.cfg, ml, self.paged),
                 "pool_bytes": paged_cache.pool_bytes(self.pools),
+                "free_pages": self.sched.alloc.free_pages,
                 "free_slots": self.sched.free_slots}

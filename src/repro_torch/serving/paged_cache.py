@@ -1,26 +1,39 @@
-"""Pooled, pre-allocated decode state for the paged engine.
+"""Pooled, pre-allocated decode caches for the paged engine.
 
-Port of ``repro.serving.paged_cache`` for the ``srf`` family: the
-paper's constant-size SRF attention state, one slot per request in the
-*slot* index domain::
+Port of ``repro.serving.paged_cache`` for the families the port serves:
 
-    srf   feature S (num_slots, Hq, m, dv) + norm z (num_slots, Hq, m)
+=========  ==============================================  ===============
+family     page contents (per layer)                       state growth
+=========  ==============================================  ===============
+``kv``     k/v pages   (num_pages, P, Hkv, hd) x2          O(L) paged
+           (int8 pages + (num_pages, P, 1) f32 scales x2
+           with ``PagedConfig(quantize_kv=True)``)
+``srf``    feature S   (num_slots, Hq, m, dv)
+           + norm z    (num_slots, Hq, m)                  O(m d) constant
+=========  ==============================================  ===============
+
+``kv`` grows one page per ``page_size`` tokens in the *paged* index
+domain (page ids from the scheduler's allocator); ``srf`` is the paper's
+constant-size state, one slot per request in the *slot* domain. The MLA
+and SSD families are not ported (``plan_for`` raises for them).
 
 The pool container keeps the reference's layout::
 
-    {"paged": [None per segment],
-     "slot":  [per-segment {"attn": {"s": (L, num_slots, Hq, m, dv),
-                                     "z": (L, num_slots, Hq, m)}}]}
+    {"paged": [per-segment {"attn": {leaf: (L, num_pages, ...)}} | None],
+     "slot":  [per-segment {"attn": {leaf: (L, num_slots, ...)}} | None]}
 
-Slot 0 is the null slot padded batch rows write into. Pools are updated
-in place by the model step; the helpers below (zero on reuse, snapshot
-and restore around preemption) also act in place. The kv / mla / ssd
-families and the prefix cache's page copies are not ported yet.
+Page 0 and slot 0 are reserved: padded batch rows, and the invalid rows
+of a chunk, write there and no live request reads them. Unlike the
+reference, whose arrays are immutable and returned anew, every pool here
+is one preallocated tensor per leaf (every layer allocated on its own,
+never a broadcast view) that the model step and the helpers below update
+IN PLACE; the helpers return the same container for the reference's
+call shape.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -28,11 +41,55 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as model_lib
 
 
+@dataclass(frozen=True)
+class PagedConfig:
+    """Pool-layout knobs orthogonal to the scheduler's SchedConfig.
+
+    ``quantize_kv``: store KV pages as int8 with one f32 scale per page
+    row (per cached token); the dequant is fused into the
+    paged_gather_dequant kernel. Only the ``kv`` family quantizes."""
+    quantize_kv: bool = False
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+class KVFamily:
+    name = "kv"
+    constant_state = False
+
+    def layer_pool(self, cfg, num_pages: int, page_size: int,
+                   paged: Optional[PagedConfig] = None, device="cuda",
+                   lead=()) -> Dict:
+        shp = (*lead, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        if paged is not None and paged.quantize_kv:
+            sshp = (*lead, num_pages, page_size, 1)
+            return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shp, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(sshp, dtype=torch.float32,
+                                           device=device),
+                    "v_scale": torch.zeros(sshp, dtype=torch.float32,
+                                           device=device)}
+        dt = model_lib.dtype_of(cfg)
+        return {"k": torch.zeros(shp, dtype=dt, device=device),
+                "v": torch.zeros(shp, dtype=dt, device=device)}
+
+    def bytes_per_token(self, cfg, max_len: int,
+                        paged: Optional[PagedConfig] = None) -> float:
+        if paged is not None and paged.quantize_kv:
+            return 2 * (cfg.n_kv_heads * cfg.head_dim + 4)  # int8 + f32 scale
+        return (2 * cfg.n_kv_heads * cfg.head_dim
+                * _itemsize(model_lib.dtype_of(cfg)))
+
+
 class SRFFamily:
     name = "srf"
     constant_state = True
 
-    def layer_pool(self, cfg, num_slots: int, device, lead=()) -> Dict:
+    def layer_pool(self, cfg, num_slots: int, page_size: int,
+                   paged: Optional[PagedConfig] = None, device="cuda",
+                   lead=()) -> Dict:
         m = attn_lib.srf_cfg(cfg).feat_dim
         dt = model_lib.dtype_of(cfg)
         return {"s": torch.zeros((*lead, num_slots, cfg.n_heads, m,
@@ -40,18 +97,32 @@ class SRFFamily:
                 "z": torch.zeros((*lead, num_slots, cfg.n_heads, m),
                                  dtype=dt, device=device)}
 
-    def bytes_per_token(self, cfg, max_len: int) -> float:
+    def bytes_per_token(self, cfg, max_len: int,
+                        paged: Optional[PagedConfig] = None) -> float:
         m = attn_lib.srf_cfg(cfg).feat_dim
-        item = torch.empty((), dtype=model_lib.dtype_of(cfg)).element_size()
+        item = _itemsize(model_lib.dtype_of(cfg))
         return cfg.n_heads * m * (cfg.head_dim + 1) * item / max_len
 
 
-FAMILIES = {"srf": SRFFamily()}
+FAMILIES = {f.name: f for f in (KVFamily(), SRFFamily())}
+
+
+def attn_family_for(cfg):
+    """The cache family of the attention component."""
+    if cfg.attn_impl == "srf":
+        return FAMILIES["srf"]
+    if cfg.is_mla:
+        raise NotImplementedError(f"MLA latent pools are "
+                                  f"{attn_lib.NOT_IN_SLICE}")
+    return FAMILIES["kv"]
 
 
 @dataclass(frozen=True)
 class PoolPlan:
-    """Resolved pool geometry of one config (see the reference)."""
+    """Resolved pool geometry of one config (see the reference):
+    per decoder segment ``(layer_kind, layer_count, ((component,
+    family_name), ...))``, the O(L) family if any, and the constant-state
+    families."""
     name: str
     segments: Tuple[Tuple[str, int, Tuple[Tuple[str, str], ...]], ...]
     paged_family: Optional[str]
@@ -71,74 +142,201 @@ class PoolPlan:
     def constant_state(self) -> bool:
         return not self.has_paged
 
-    def bytes_per_token(self, cfg, max_len: int) -> float:
-        return FAMILIES["srf"].bytes_per_token(cfg, max_len)
+    def bytes_per_token(self, cfg, max_len: int,
+                        paged: Optional[PagedConfig] = None) -> float:
+        """Per-layer decode-state bytes per token of the plan's
+        families."""
+        fams = {f for _, _, comps in self.segments for _, f in comps}
+        return sum(FAMILIES[f].bytes_per_token(cfg, max_len, paged)
+                   for f in sorted(fams))
 
 
 def plan_for(cfg) -> PoolPlan:
-    """The pool plan of a config; only SRF attention is ported."""
-    if cfg.attn_impl != "srf":
-        raise NotImplementedError(
-            f"{cfg.attn_impl!r} attention pools are "
-            f"{attn_lib.NOT_IN_SLICE}")
-    segs = tuple((kind, count, (("attn", "srf"),))
+    """The pool plan of a config: ``kv`` (full attention) or ``srf``."""
+    fam = attn_family_for(cfg)
+    segs = tuple((kind, count, (("attn", fam.name),))
                  for kind, count, _ in model_lib._layer_plan(cfg))
-    return PoolPlan(name="srf", segments=segs, paged_family=None,
-                    attn_family="srf", slot_families=("srf",),
+    paged = None if fam.constant_state else fam.name
+    return PoolPlan(name=fam.name, segments=segs, paged_family=paged,
+                    attn_family=fam.name,
+                    slot_families=(fam.name,) if fam.constant_state else (),
                     has_memory=False)
 
 
 def init_pools(cfg, num_pages: int, page_size: int, num_slots: int = 0,
-               device="cuda") -> Dict:
-    """The full pool container (layout in the module docstring);
-    ``num_pages`` and ``page_size`` size the paged domain, which the SRF
-    family does not use."""
+               device="cuda", paged: Optional[PagedConfig] = None) -> Dict:
+    """The full pool container (layout in the module docstring) on
+    ``device``: ``num_pages`` sizes the paged domain, ``num_slots`` the
+    slot domain. Each segment's leaves carry a leading layer axis and are
+    allocated whole (torch.zeros), so no two layers share storage."""
     plan = plan_for(cfg)
-    num_slots = max(num_slots, 2)
+    if plan.needs_slot:
+        num_slots = max(num_slots, 2)
     pools: Dict = {"paged": [], "slot": []}
-    for _, count, _ in plan.segments:
-        pools["paged"].append(None)
-        pools["slot"].append({"attn": FAMILIES["srf"].layer_pool(
-            cfg, num_slots, device, lead=(count,))})
+    for _, count, comps in plan.segments:
+        pseg: Dict = {}
+        sseg: Dict = {}
+        for comp, fam_name in comps:
+            fam = FAMILIES[fam_name]
+            n = num_slots if fam.constant_state else num_pages
+            (sseg if fam.constant_state else pseg)[comp] = fam.layer_pool(
+                cfg, n, page_size, paged, device, lead=(count,))
+        pools["paged"].append(pseg or None)
+        pools["slot"].append(sseg or None)
     return pools
 
 
-def _slot_leaves(pools: Dict):
-    for seg in pools["slot"]:
+def _leaves(segs) -> Iterator[torch.Tensor]:
+    for seg in segs:
         if seg is not None:
             for comp in seg.values():
-                yield from comp.items()
+                yield from comp.values()
+
+
+def _map_segs(segs, fn):
+    return [None if seg is None else
+            {c: {k: fn(a) for k, a in comp.items()} for c, comp in seg.items()}
+            for seg in segs]
+
+
+def _map_segs_pair(tree: Dict, fn) -> Dict:
+    return {part: _map_segs(tree[part], fn) for part in ("paged", "slot")}
+
+
+def _index(ids: List[int], a: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(list(ids), dtype=torch.long, device=a.device)
+
+
+def _slice_pools(pools: Dict, page_ids: List[int],
+                 slot_ids: List[int]) -> Dict:
+    """Device copies of the given pages and slots of every pool (advanced
+    indexing gathers into fresh tensors)."""
+    return {"paged": _map_segs(pools["paged"],
+                               lambda a: a[:, _index(page_ids, a)]),
+            "slot": _map_segs(pools["slot"],
+                              lambda a: a[:, _index(slot_ids, a)])}
+
+
+class PendingSnapshot:
+    """Copy-on-preempt snapshot whose device->host transfer overlaps the
+    next steps.
+
+    The page and slot rows are gathered on the device into fresh tensors
+    (later in-place pool writes cannot clobber them), then copied into
+    pinned host buffers with ``non_blocking=True`` and a CUDA event is
+    recorded behind the copy (pageable host memory would make the copy
+    synchronous). Every later pool write is queued on the same stream
+    after the gather, so a page may be handed out again at once; the
+    host copy is complete after :meth:`fence`, which :meth:`to_host`
+    calls. On the CPU the copies are plain clones."""
+
+    def __init__(self, slices: Dict):
+        self._dev = slices
+        self._event = None
+        self._host = None
+        leaves = list(_leaves(slices["paged"])) + list(_leaves(slices["slot"]))
+        if any(a.is_cuda for a in leaves):
+            self._host = _map_segs_pair(
+                slices, lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                              pin_memory=True).copy_(
+                    a, non_blocking=True))
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = _map_segs_pair(slices, lambda a: a.clone())
+            self._dev = None
+
+    def fence(self) -> None:
+        """Block until the host copy has landed (then the device-side
+        slices are dead to this snapshot)."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        self._dev = None
+
+    def to_host(self) -> Dict:
+        self.fence()
+        return self._host
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for part in ("paged", "slot")
+                   for a in _leaves(self._host[part]))
+
+
+def snapshot_page_rows_async(pools: Dict, page_ids: List[int],
+                             slot_ids: List[int]) -> PendingSnapshot:
+    """Copy-on-preempt over both index domains; the host transfer
+    overlaps the steps that follow (see :class:`PendingSnapshot`)."""
+    return PendingSnapshot(_slice_pools(pools, page_ids, slot_ids))
+
+
+def pool_page_rows(pools: Dict, page_ids: List[int],
+                   slot_ids: List[int]) -> Dict:
+    """Synchronous snapshot: host (CPU) copies of the given rows."""
+    return _map_segs_pair(_slice_pools(pools, page_ids, slot_ids),
+                          lambda a: a.cpu())
 
 
 def zero_slot_rows(pools: Dict, slot_ids: List[int]) -> Dict:
     """Reset the given slots of every constant-state pool to zero, in
     place: SRF states are running accumulators, so a re-issued slot must
     not carry the previous request's state."""
-    idx = torch.as_tensor(slot_ids, dtype=torch.long)
-    for _, a in _slot_leaves(pools):
-        a[:, idx.to(a.device)] = 0
+    for a in _leaves(pools["slot"]):
+        a[:, _index(slot_ids, a)] = 0
     return pools
 
 
-def snapshot_slot_rows(pools: Dict, slot_ids: List[int]) -> List[Dict]:
-    """Copy-on-preempt: host copies of the given slots of every segment."""
-    idx = torch.as_tensor(slot_ids, dtype=torch.long)
-    return [None if seg is None else
-            {c: {k: a[:, idx.to(a.device)].cpu() for k, a in comp.items()}
-             for c, comp in seg.items()} for seg in pools["slot"]]
+def restore_page_rows(pools: Dict, page_ids: List[int], slot_ids: List[int],
+                      snap) -> Dict:
+    """Inverse of the snapshot: write saved rows back into (freshly
+    allocated) pages and slots, in place. Takes the host form of
+    :func:`pool_page_rows` or a :class:`PendingSnapshot`."""
+    if isinstance(snap, PendingSnapshot):
+        snap = snap.to_host()
+    for part, ids in (("paged", page_ids), ("slot", slot_ids)):
+        for seg, sseg in zip(pools[part], snap[part]):
+            if seg is None:
+                continue
+            for c, comp in seg.items():
+                for k, a in comp.items():
+                    a[:, _index(ids, a)] = sseg[c][k].to(a.device, a.dtype)
+    return pools
 
 
-def restore_slot_rows(pools: Dict, slot_ids: List[int], snap) -> Dict:
-    """Inverse of :func:`snapshot_slot_rows`, into (fresh) slots."""
-    idx = torch.as_tensor(slot_ids, dtype=torch.long)
-    for seg, sseg in zip(pools["slot"], snap):
-        if seg is None:
-            continue
-        for c, comp in seg.items():
-            for k, a in comp.items():
-                a[:, idx.to(a.device)] = sseg[c][k].to(a.device, a.dtype)
+def copy_page_rows(pools: Dict, src_ids: List[int],
+                   dst_ids: List[int]) -> Dict:
+    """COW fork: copy page rows ``src -> dst`` in every paged-domain pool,
+    in place. ``a[:, src]`` gathers every source into a fresh tensor
+    before any write lands, so a destination that recycles a page freed
+    in the same round never clobbers a source. (The reference pads the id
+    lists to power-of-two buckets so that jax compiles few shapes; eager
+    PyTorch compiles nothing, so there is no padding here.) Slot pools
+    never fork."""
+    if not src_ids:
+        return pools
+    for a in _leaves(pools["paged"]):
+        a[:, _index(dst_ids, a)] = a[:, _index(src_ids, a)]
+    return pools
+
+
+def page_bytes(pools: Dict) -> int:
+    """Device bytes ONE paged-domain page occupies across all layers and
+    segments (the prefix cache's byte-budget unit): leaves are shaped
+    (L, num_pages, ...)."""
+    return sum(a.numel() // a.shape[1] * a.element_size()
+               for a in _leaves(pools["paged"]))
+
+
+def apply_moves(pools: Dict, moves: Dict[int, int]) -> Dict:
+    """Apply a defrag plan {old: new} to every paged-domain pool, in
+    place (slots never fragment)."""
+    if moves:
+        copy_page_rows(pools, list(moves), list(moves.values()))
     return pools
 
 
 def pool_bytes(pools: Dict) -> int:
-    return sum(a.numel() * a.element_size() for _, a in _slot_leaves(pools))
+    return sum(a.numel() * a.element_size()
+               for part in ("paged", "slot") for a in _leaves(pools[part]))

@@ -13,7 +13,7 @@ import torch
 
 SAMPLING_NOT_PORTED = (
     "temperature > 0 sampling is not ported yet: it needs the reference's "
-    "stateless threefry keys (ROADMAP.md, 'Port state', slice 1: seeded "
+    "stateless threefry keys (ROADMAP.md, section 1, item 1: seeded "
     "SRF)")
 
 

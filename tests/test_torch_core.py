@@ -156,3 +156,40 @@ def test_srf_attention_matches_reference(feature):
                                       jnp.asarray(v)[:, :, 9:])
     for a, b in ((s, js), (z, jz), (out, jout)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def _init_calls(gen):
+    """Every public init of ``core`` with no device given: name -> params."""
+    pipe = spinner.SpinnerPipeline((spinner.SpinnerBlock(
+        kind="circulant", m=16, n=8, use_hd=True),), f="identity")
+    block = pipe.blocks[0]
+    srf_cfg = srf_attention.SRFConfig(n_features=16, head_dim=8)
+    return {
+        "structured.init": lambda: structured.init(gen, "ldr", 8, 8, r=2),
+        "transforms.sample_signs": lambda: transforms.sample_signs(gen, 8),
+        "builtin kind init": lambda: spinner.kind_def("toeplitz").init(
+            gen, 8, 8),
+        "SpinnerBlock.init": lambda: block.init(gen),
+        "SpinnerPipeline.init": lambda: pipe.init(gen),
+        "srf_attention.init": lambda: srf_attention.init(gen, srf_cfg, 2)}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("name", sorted(_init_calls(None)))
+def test_init_lands_on_generator_device(name):
+    """With no device given, params land on the generator's device, not
+    on the default device (here the meta device stands in for a default
+    that differs from the generator's: before the fix, a draw from a CPU
+    generator onto it raised)."""
+    gen = torch.Generator().manual_seed(0)
+    with torch.device("meta"):
+        params = _init_calls(gen)[name]()
+    leaves = _tensors(params)
+    assert leaves and all(t.device == gen.device for t in leaves)

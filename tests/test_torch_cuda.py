@@ -5,13 +5,15 @@ card (no jax there, so the repository's conftest is bypassed):
 
     PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
-Tolerances: f32 max|kernel - plain| <= 1e-4 * max|plain|, bf16 2e-2.
+Tolerances: spinner and srf_decode f32 max|kernel - plain| <= 1e-4 *
+max|plain|, bf16 2e-2; the paged gathers bit for bit (torch.equal).
 This file imports torch and the port only.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_gather as kpg
 from repro_torch.kernels import spinner as kspin
 from repro_torch.kernels import srf_decode as kdec
 
@@ -55,3 +57,45 @@ def test_kernels_match_plain_on_card(cuda_device):
         got = kdec.srf_decode_cuda(s.clone(), z.clone(), pq, pk, v)
         for gt, wt in zip(got, want):
             assert (gt - wt).abs().max() <= 1e-4 * wt.abs().max()
+
+
+@pytest.mark.cuda
+def test_paged_gathers_bit_equal_on_card(cuda_device):
+    """paged_gather (bf16, f32, int8 pools) and paged_gather_dequant
+    (int8 -> bf16, f32) against their plain versions, bit for bit: an
+    aligned shape, ragged row widths and ids out of range."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for n, p, d, r, m in ((33, 16, 64, 4, 8), (7, 3, 13, 3, 5),
+                          (9, 2, 1, 5, 2)):
+        tables = torch.randint(-2, n + 2, (r, m), generator=gen,
+                               device=cuda_device)
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            pool = torch.randn((n, p, d), generator=gen,
+                               device=cuda_device).mul(50).to(dtype)
+            before = kpg.paged_gather_cuda.launches
+            got = ops.paged_gather(pool, tables)
+            assert kpg.paged_gather_cuda.launches == before + 1
+            assert torch.equal(got, ref.paged_gather_ref(pool, tables))
+        q = torch.randint(-127, 128, (n, p, d), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+        sc = torch.rand((n, p, 1), generator=gen, device=cuda_device)
+        for out in (torch.bfloat16, torch.float32):
+            got = ops.paged_gather_dequant(q, sc, tables.int(), out)
+            want = ref.paged_gather_dequant_ref(q, sc, tables, out)
+            assert got.dtype == out and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_core_init_lands_on_generator_device(cuda_device):
+    """With no device given, core params land on a CUDA generator's
+    device."""
+    from repro_torch.core import spinner, srf_attention, structured
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    pipe = spinner.SpinnerPipeline((spinner.SpinnerBlock(
+        kind="circulant", m=16, n=8, use_hd=True),), f="identity")
+    leaves = list(pipe.init(gen)[0].values())
+    leaves += list(structured.init(gen, "toeplitz", 8, 8).values())
+    leaves += [t for blk in srf_attention.init(
+        gen, srf_attention.SRFConfig(n_features=16, head_dim=8), 2)
+        for t in blk.values()]
+    assert leaves and all(t.is_cuda for t in leaves)

@@ -7,9 +7,13 @@ oracles, on the same inputs made with numpy. Tolerances: spinner
 rtol=1e-4, atol=1e-5 (FFT, Kronecker and in-kernel sum orders differ);
 srf_decode rtol=1e-5, atol=1e-6. In bf16 the plain spinner is held to
 the Pallas kernel in interpret mode within one bf16 spacing per element
-(rtol=2**-7): both compute in f32 and round once, on write. The CUDA
-kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
+(rtol=2**-7): both compute in f32 and round once, on write. The plain
+paged gathers equal the reference's Pallas kernels in interpret mode
+bit for bit. The CUDA kernels themselves run only on the card:
+``tests/test_torch_cuda.py``.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +22,9 @@ import torch
 
 from repro.core import structured as jstructured
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_gather as kpg
 from repro_torch.kernels import spinner as kspin
 from repro_torch.kernels import srf_decode as kdec
 
@@ -162,7 +168,13 @@ def test_cpu_route_leaves_launch_counters_at_zero():
     ops.srf_decode(torch.zeros(1, 1, 4, 2), torch.ones(1, 1, 4),
                    torch.ones(1, 1, 4), torch.ones(1, 1, 4),
                    torch.ones(1, 1, 2))
+    pool = torch.zeros(3, 2, 4, dtype=torch.int8)
+    tables = torch.zeros(1, 2, dtype=torch.long)
+    ops.paged_gather(pool, tables)
+    ops.paged_gather_dequant(pool, torch.ones(3, 2, 1), tables)
     assert ops.launch_counts() == {"spinner": 0, "srf_decode": 0,
+                                   "paged_gather": 0,
+                                   "paged_gather_dequant": 0,
                                    "spinner_plain_on_cuda": 0}
 
 
@@ -175,6 +187,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     t = torch.zeros(1, 1, 4, 2)
     with pytest.raises(ValueError, match="CUDA"):
         kdec.srf_decode_cuda(t, t[..., 0], t[..., 0], t[..., 0], t[:, :, 0])
+    pool = torch.zeros(3, 2, 4, dtype=torch.int8)
+    tables = torch.zeros(1, 2, dtype=torch.long)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpg.paged_gather_cuda(pool, tables)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpg.paged_gather_dequant_cuda(pool, torch.ones(3, 2, 1), tables)
 
 
 def test_asking_for_cuda_without_a_card_raises():
@@ -185,3 +203,89 @@ def test_asking_for_cuda_without_a_card_raises():
     cfg = registry.reduced("qwen3-4b", attn_impl="srf")
     with pytest.raises((RuntimeError, AssertionError)):
         transformer.init(cfg, device="cuda")
+
+
+# ``repro.kernels`` re-exports a function named paged_gather over the module
+jpg = importlib.import_module("repro.kernels.paged_gather")
+
+# (N, P, D, R, M): the reduced serving shape (2 kv heads x 16), ragged row
+# widths (D * itemsize not a multiple of 16) and one-element rows
+GATHER_SHAPES = [(9, 8, 32, 4, 8), (7, 3, 13, 3, 5), (11, 5, 7, 4, 3),
+                 (4, 2, 1, 5, 2)]
+GATHER_DTYPES = {"float32": (jnp.float32, torch.float32),
+                 "bfloat16": (jnp.bfloat16, torch.bfloat16),
+                 "int8": (jnp.int8, torch.int8)}
+
+
+def _gather_inputs(shape, dtype, seed=0):
+    """A pool as a (jax, torch) pair with equal values, and (R, M) int32
+    page ids of which some lie past the last page."""
+    n, p, d, r, m = shape
+    rng = np.random.default_rng(seed)
+    jdt, tdt = GATHER_DTYPES[dtype]
+    if dtype == "int8":
+        a = rng.integers(-127, 128, (n, p, d)).astype(np.int8)
+    else:
+        a = np.asarray(jnp.asarray(rng.standard_normal((n, p, d)), jdt)
+                       .astype(jnp.float32))
+    tables = rng.integers(0, n + 3, (r, m)).astype(np.int32)
+    return (jnp.asarray(a, jdt), torch.from_numpy(a.copy()).to(tdt),
+            tables)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16
+                      else x)
+
+
+@pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
+@pytest.mark.parametrize("shape", GATHER_SHAPES,
+                         ids=["x".join(map(str, s)) for s in GATHER_SHAPES])
+def test_plain_paged_gather_matches_pallas(shape, dtype):
+    """Bit for bit, ids past the last page included (both clamp to N-1)."""
+    jpool, pool, tables = _gather_inputs(shape, dtype)
+    got = ops.paged_gather(pool, torch.from_numpy(tables))
+    want = jpg.paged_gather_pallas(jpool, jnp.asarray(tables),
+                                   interpret=True)
+    assert got.dtype == pool.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GATHER_SHAPES,
+                         ids=["x".join(map(str, s)) for s in GATHER_SHAPES])
+def test_plain_paged_gather_dequant_matches_pallas(shape, out):
+    """int8 pages x f32 row scales, cast to ``out``: bit for bit."""
+    jpool, pool, tables = _gather_inputs(shape, "int8", seed=1)
+    n, p = shape[:2]
+    sc = (np.random.default_rng(2).random((n, p, 1)) / 127
+          ).astype(np.float32)
+    jdt, tdt = GATHER_DTYPES[out]
+    got = ops.paged_gather_dequant(pool, torch.from_numpy(sc),
+                                   torch.from_numpy(tables), tdt)
+    want = jpg.paged_gather_dequant_pallas(jpool, jnp.asarray(sc),
+                                           jnp.asarray(tables), jdt,
+                                           interpret=True)
+    assert got.dtype == tdt and got.shape == want.shape
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_plain_paged_gathers_clamp_negative_ids_like_reference_oracle():
+    """Negative ids clamp to page 0, the rule of the reference's jnp
+    oracle (``repro.kernels.ref``). The Pallas interpreter wraps them
+    instead (-1 reads page N-1); the engines never make one."""
+    jpool, pool, _ = _gather_inputs(GATHER_SHAPES[1], "float32")
+    tables = np.array([[-3, -1, 0, 2, 9]], np.int32)
+    got = ops.paged_gather(pool, torch.from_numpy(tables))
+    want = jref.paged_gather_ref(jpool, jnp.asarray(tables))
+    np.testing.assert_array_equal(_np(got), _np(want))
+    q = torch.arange(-4, 4, dtype=torch.int8).reshape(2, 2, 2)
+    sc = torch.tensor([[[0.5], [1.0]], [[2.0], [4.0]]])
+    t = np.array([[-1, 1, 5]], np.int32)
+    got = ops.paged_gather_dequant(q, sc, torch.from_numpy(t))
+    want = jref.paged_gather_dequant_ref(jnp.asarray(q.numpy()),
+                                         jnp.asarray(sc.numpy()),
+                                         jnp.asarray(t))
+    np.testing.assert_array_equal(_np(got), _np(want))
