@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the CUDA
 kernels, holds each against its plain PyTorch version, then serves
 full-width qwen3-4b through the port's engine with full-KV pages (bf16,
-int8, prefix cache) and with SRF attention.
+int8, prefix cache), with SRF attention, and with seeded SRF attention
+(per-request embed seeds, greedy and sampled requests in one batch).
 
     python3 chip_smoke.py
 
@@ -22,6 +23,18 @@ result line):
      D=1024), a prefill-sized shape (R=32, M=64) and ragged shapes (row
      bytes not a multiple of 16, ids out of range), int32 and int64
      tables: bit-equal (torch.equal).
+   * the seeded spinner at the seeded serving shapes (circulant n=128,
+     m=256, G = 8 kv heads x 8 requests = 64 groups; decode query B=4,
+     decode key B=1, prefill query B=64, prefill key B=16; bf16 and f32)
+     and a sweep over every kernel kind x epilogue x grouped/ungrouped
+     with ragged B and m: held to its plain version (the tolerance
+     above) and to the materialized spinner kernel run on
+     ``seedgen.grouped_params`` computed on the card (bit-equal, or
+     within the tolerance: bf16 generators are rounded for the
+     materialized kernel); distinct seeds must give distinct outputs.
+     The plain stateless sampler is timed at the full-width decode
+     shape (8 rows x 151936 logits, mixed greedy and sampled rows):
+     device time under ``torch.profiler``, and time a call by events.
    Times: CUDA events over back-to-back launches queued behind a device
    sleep, median of 5 repeats; the gathers cycle through 36 layer pools,
    as a decode step does, so pages come from HBM.
@@ -37,18 +50,27 @@ result line):
    paged_gather_dequant on int8 pages, exactly 72 per step and the other
    gathers never; SRF: the spinner at least 72 per step and srf_decode
    36 per decode step). The prefix run must serve prompt tokens from the
-   cache and leak no page. Reduced configs (SRF; full KV with bf16 and
-   with int8 pages) are also served on the card and on the CPU (plain
-   versions); their greedy tokens must be equal.
+   cache and leak no page. Then seeded SRF (``SRFAttnConfig(seeded=True)``,
+   one seed per layer and kv head): embed_seed 0 for uids 0-3 and a
+   distinct non-zero seed for uids 4-7, odd uids sampled (temperature
+   0.8, top_k 40, top_p 0.95), even uids greedy; the seeded spinner at
+   least 72 per step, srf_decode exactly 36 per decode step, the
+   materialized spinner and the seeded plain route never. Reduced
+   configs (SRF; full KV with bf16 and with int8 pages; seeded SRF with
+   mixed embed seeds and mixed greedy / sampled requests) are also
+   served on the card and on the CPU (plain versions); their tokens
+   must be equal.
 4. Print the card (nvidia-smi name, power limit), one JSON line with a
    record per kernel, and the result line. ``library_ms`` is
    ``pool[tables]`` for paged_gather and null for the others: no single
-   PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A,
-   the fused in-place SRF state update and readout, or a gather fused
-   with the int8 dequant.
+   PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
+   (nor with A, D0 and D1 regenerated from a seed), the fused in-place
+   SRF state update and readout, or a gather fused with the int8
+   dequant.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -218,6 +240,193 @@ def phase_spinner(gen):
                 check(f"sweep {kind} {epi} grouped={grouped}", k, pl,
                       torch.float32)
     return records
+
+
+# operations counted per generated value in the seeded spinner's bound:
+# one threefry2x32 call is 20 rounds of (add, rotate = 2 shifts + or,
+# xor) plus 5 key injections of 3 adds: 115 integer operations; the
+# Box-Muller step adds 2 mantissa fills (3 each), 2 subtractions, a
+# multiply and log, sqrt and cos, counted as 10 each: 40. A sign is one
+# cipher call and a compare.
+OPS_PER_NORMAL = 115 + 40
+OPS_PER_SIGN = 115 + 1
+
+
+def seeded_bound(kind, gsz, bsz, n, m, itemsize, width):
+    """x read once, the output written once, and each group's 8-byte seed
+    (the port's int64 word; the reference reads a 4-byte uint32).
+    Operations: the spinner's rule (``spinner_bound``) plus drawing each
+    group's generator (its canonical size: nb*n for circulant, n+m-1 for
+    toeplitz/hankel, m*n dense) and 2n signs once."""
+    from repro_torch.core import structured
+    gen_elems = {"circulant": -(-m // n) * n, "skew_circulant": -(-m // n) * n,
+                 "toeplitz": n + m - 1, "hankel": n + m - 1,
+                 "unstructured": m * n}[kind]
+    byts = itemsize * gsz * bsz * (n + width) + 8 * gsz
+    ops = gsz * bsz * (structured.flops_fast(kind, m, n) + n * math.log2(n))
+    ops += gsz * (gen_elems * OPS_PER_NORMAL + 2 * n * OPS_PER_SIGN)
+    return bound(byts, ops)
+
+
+def _materialized_twin(kind, seeds, x, m, epi, y_scale, out_scale):
+    """The materialized spinner kernel on ``seedgen.grouped_params(seeds)``
+    computed by PyTorch on the card (cast to x's dtype)."""
+    from repro_torch.kernels import seedgen, spinner as kspin
+    p = seedgen.grouped_params(kind, x.shape[-1], m, seeds)
+    return kspin.spinner_project_cuda(
+        kind, p["g"].to(x.dtype).contiguous(), x, m,
+        d0=p["d0"].to(x.dtype), d1=p["d1"].to(x.dtype), epilogue=epi,
+        y_scale=y_scale, out_scale=out_scale)
+
+
+def _against_twin(name, k, twin, dtype):
+    """Bit-equal to the materialized twin, or within the tolerance."""
+    if k.shape == twin.shape and torch.equal(k, twin):
+        log(f"    {name}: seeded == materialized kernel, bit-equal")
+        return True
+    check(f"{name} vs materialized kernel", k, twin, dtype)
+    return False
+
+
+def phase_seeded_spinner(gen):
+    """The seeded spinner kernel at the seeded serving shapes and over
+    every kind x epilogue x grouped/ungrouped."""
+    from repro_torch.kernels import ops, ref, seedgen, spinner as kspin
+    dev = "cuda"
+    n, m, gsz = 128, 256, 64
+    shapes = [("decode query", 4, "identity"), ("decode key", 1, "exp"),
+              ("prefill query", 64, "identity"), ("prefill key", 16, "exp")]
+    records, equal = {}, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, bsz, epi in shapes:
+            x = (torch.randn((gsz, bsz, n), generator=gen, device=dev)
+                 * n ** -0.25).to(dtype)
+            seeds = torch.randint(0, 2 ** 32, (gsz,), generator=gen,
+                                  device=dev, dtype=torch.int64)
+            kw = dict(use_hd=True, epilogue=epi, out_scale=m ** -0.5)
+            k = kspin.spinner_project_seeded_cuda("circulant", seeds, x, m,
+                                                  **kw)
+            pl = ref.spinner_project_seeded_ref("circulant", seeds, x, m,
+                                                **kw)
+            name = (f"seeded spinner {label} {str(dtype)[6:]} "
+                    f"(G={gsz}, B={bsz})")
+            err = check(name, k, pl, dtype)
+            twin = _materialized_twin("circulant", seeds, x, m, epi, 1.0,
+                                      m ** -0.5)
+            equal += _against_twin(name, k, twin, dtype)
+            k_ms = device_ms(lambda: kspin.spinner_project_seeded_cuda(
+                "circulant", seeds, x, m, **kw))
+            p_ms = device_ms(lambda: ref.spinner_project_seeded_ref(
+                "circulant", seeds, x, m, **kw), launches=10, repeats=3)
+            gp = {k_: v.to(dtype) for k_, v in seedgen.grouped_params(
+                "circulant", n, m, seeds).items()}
+            mat_ms = device_ms(lambda: kspin.spinner_project_cuda(
+                "circulant", gp["g"], x, m, d0=gp["d0"], d1=gp["d1"],
+                epilogue=epi, out_scale=m ** -0.5))
+            b_ms, b_by = seeded_bound("circulant", gsz, bsz, n, m,
+                                      x.element_size(), m)
+            log(f"    kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                f"materialized kernel {mat_ms:.4f} ms  bound {b_ms:.5f} ms "
+                f"({b_by})")
+            records[(label, dtype)] = dict(err=err, ms=k_ms, plain_ms=p_ms,
+                                           materialized_ms=mat_ms,
+                                           bound_ms=b_ms, bound_by=b_by)
+
+    # every kernel kind x epilogue x grouped/ungrouped, ragged B and m
+    n, m, bsz, cases = 64, 200, 13, 0
+    for kind in kspin.KERNEL_KINDS:
+        for epi in kspin.EPILOGUES:
+            for grouped in (True, False):
+                gs = 3 if grouped else 1
+                x = torch.randn((gs, bsz, n), generator=gen, device=dev) \
+                    * n ** -0.25
+                seeds = torch.randint(0, 2 ** 32, (gs,), generator=gen,
+                                      device=dev, dtype=torch.int64)
+                xa, sa = (x, seeds) if grouped else (x[0], seeds[0])
+                before = kspin.spinner_project_seeded_cuda.launches
+                k = ops.spinner_project_seeded(
+                    kind, sa, xa, m, epilogue=epi, y_scale=0.7,
+                    out_scale=m ** -0.5, grouped=grouped)
+                if kspin.spinner_project_seeded_cuda.launches != before + 1:
+                    raise AssertionError("seeded sweep call did not launch")
+                k = k.reshape((gs, bsz, -1))
+
+                def plain(e, s=seeds):
+                    return ref.spinner_project_seeded_ref(
+                        kind, s, x, m, epilogue=e, y_scale=0.7,
+                        out_scale=m ** -0.5)
+                pl, twin = plain(epi), _materialized_twin(
+                    kind, seeds, x, m, epi, 0.7, m ** -0.5)
+                name = f"seeded sweep {kind} {epi} grouped={grouped}"
+                equal += _against_twin(name, k, twin, torch.float32)
+                kk = k
+                if epi in ("heaviside", "sign"):
+                    # a step function of y: compare where |y| is not
+                    # within f32 summation-order noise of the step
+                    y = plain("identity")
+                    far = y.abs() > 1e-4 * y.abs().max()
+                    kk, pl = k[far], pl[far]
+                check(name, kk, pl, torch.float32)
+                other = ops.spinner_project_seeded(
+                    kind, (sa + 1) % 2 ** 32, xa, m, epilogue=epi,
+                    y_scale=0.7, out_scale=m ** -0.5, grouped=grouped)
+                if torch.equal(other.reshape(k.shape), k):
+                    raise AssertionError(f"{name}: distinct seeds gave the "
+                                         f"same output")
+                cases += 1
+    log(f"  seeded spinner: {cases} sweep cases and 8 serving shapes; "
+        f"{equal} of {cases + 8} bit-equal to the materialized kernel; "
+        f"distinct seeds gave distinct outputs in every sweep case")
+    return records
+
+
+def profiled_device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' and
+    copies' device time under ``torch.profiler``, over ``calls`` calls.
+    Unlike ``device_ms`` it leaves out the gaps in which the device waits
+    for the host (a copy from pageable host memory synchronizes)."""
+    from repro_torch.launch.profile_serve import _device_us
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if getattr(e, "device_type", None) == cuda)
+    return us / 1e3 / calls
+
+
+def phase_sampler(gen):
+    """The plain stateless sampler at the full-width decode shape, as the
+    engine calls it (host arrays for the per-row settings): 8 rows of
+    151936 logits, 4 greedy and 4 sampled (temperature 0.8, top_k 40,
+    top_p 0.95). Device time from the profiler; time per call from CUDA
+    events, which also holds the device's waits on the host (each
+    host-to-device copy of the row settings synchronizes)."""
+    import numpy as np
+    from repro_torch.kernels import seedgen
+    from repro_torch.serving import sampler
+    b, v = 8, 151936
+    logits = torch.randn((b, v), generator=gen, device="cuda") * 4
+    temps = np.array([0.0, 0.8] * 4, np.float32)
+    ks, ps = np.full(b, 40, np.int64), np.full(b, 0.95, np.float32)
+    uids, pos = np.arange(b, dtype=np.int64), np.full(b, 17, np.int64)
+    key = seedgen.threefry_seed(0, "cuda")
+
+    def call(t):
+        return lambda: sampler.sample_stateless(key, uids, pos, logits, t,
+                                                ks, ps)
+    dev = profiled_device_ms(call(temps))
+    per_call = device_ms(call(temps), launches=20, repeats=3)
+    greedy = profiled_device_ms(call(np.zeros(b, np.float32)))
+    log(f"  plain stateless sampler (B={b}, V={v}): device {dev:.4f} ms "
+        f"a call with sampled rows ({greedy:.4f} ms all greedy: argmax "
+        f"only); {per_call:.4f} ms a call by CUDA events")
+    return dev
 
 
 def phase_srf_decode(gen):
@@ -393,6 +602,52 @@ def phase_reduced_agreement():
             f"({sum(len(t) for t in out['cuda'].values())} tokens)")
 
 
+def _seeded(cfg):
+    """``cfg`` with seeded SRF projections (one seed per layer and kv
+    head), as the reference's tests build it: ``registry.reduced``
+    rebuilds ``srf`` and would drop the flag."""
+    return dataclasses.replace(cfg, srf=dataclasses.replace(cfg.srf,
+                                                            seeded=True))
+
+
+def _personalize(reqs):
+    """embed_seed 0 for uids 0-3, a distinct non-zero seed for uids 4-7
+    (2**32 - 1 among them); odd uids sampled (temperature 0.8, top_k 40,
+    top_p 0.95), even uids greedy."""
+    for r in reqs:
+        r.embed_seed = 0 if r.uid < 4 else (2 ** 32 - 1 if r.uid == 7
+                                            else 1000 + r.uid)
+        if r.uid % 2:
+            r.temperature, r.top_k, r.top_p = 0.8, 40, 0.95
+    return reqs
+
+
+def phase_reduced_seeded_agreement():
+    """Reduced seeded-SRF qwen3-4b with mixed embed seeds and mixed greedy
+    / sampled requests (engine seed 3), on the card and on the CPU: the
+    tokens must be equal."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as model_lib
+    cfg = _seeded(registry.reduced("qwen3-4b", attn_impl="srf",
+                                   dtype="float32"))
+    params = model_lib.init(cfg, seed=3, device="cpu")
+    out = {}
+    for device in ("cpu", "cuda"):
+        args = serve_args("srf", reduced=True, requests=8, prompt_len=24,
+                          max_new=6, slots=4, max_len=64, seed=3,
+                          device=device)
+        res = serve.serve(args, cfg, _to(params, device),
+                          reqs=_personalize(serve.requests(args, cfg)))
+        out[device] = {r.uid: r.out_tokens for r in res["done"]}
+    if out["cpu"] != out["cuda"] or len(out["cuda"]) != 8:
+        raise AssertionError(f"reduced seeded SRF: tokens differ between "
+                             f"card and CPU: {out}")
+    log(f"  reduced qwen3-4b seeded SRF, mixed embed seeds, greedy + "
+        f"sampled: card tokens == CPU tokens "
+        f"({sum(len(t) for t in out['cuda'].values())} tokens)")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -409,7 +664,8 @@ TRAFFIC = dict(requests=8, prompt_len=128, max_new=32, slots=8,
 def _check_serve(label, res, args, counts, expect):
     """Every request finished with max_new tokens, every logit row is
     finite, and each kernel of ``expect`` launched exactly or at least
-    as often as it says ({name: (n, exact)}); every other gather 0."""
+    as often as it says ({name: (n, exact)}); every other gather and
+    the seeded spinner (kernel and plain route) 0."""
     eng = res["engine"]
     bad = [r.uid for r in res["done"] if len(r.out_tokens) != args.max_new]
     if len(res["done"]) != args.requests or bad:
@@ -418,7 +674,8 @@ def _check_serve(label, res, args, counts, expect):
     if eng.nonfinite_rows:
         raise AssertionError(f"{label}: {eng.nonfinite_rows} logit rows "
                              f"not finite")
-    for name in ("paged_gather", "paged_gather_dequant"):
+    for name in ("paged_gather", "paged_gather_dequant", "spinner_seeded",
+                 "spinner_seeded_plain_on_cuda"):
         expect.setdefault(name, (0, True))
     for name, (n, is_exact) in expect.items():
         got = counts[name]
@@ -560,6 +817,57 @@ def phase_serve_srf():
     return counts
 
 
+def phase_serve_seeded():
+    """Full-width qwen3-4b with seeded SRF attention: per-request embed
+    seeds and mixed greedy / sampled requests in one batch. The seeded
+    spinner launches at least 72 per step, srf_decode exactly 36 per
+    decode step, the materialized spinner, the seeded plain route and
+    the gathers never."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as model_lib
+    args = serve_args("srf", **TRAFFIC)
+    cfg = _seeded(registry.get("qwen3-4b", attn_impl="srf"))
+    t0 = time.perf_counter()
+    params = model_lib.init(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    _describe(cfg, params, t0)
+    serve.warm(args, cfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    res = serve.serve(args, cfg, params,
+                      reqs=_personalize(serve.requests(args, cfg)))
+    counts = ops.launch_counts()
+    eng = res["engine"]
+    steps, dsteps = _steps(eng), int(eng.stats["decode_steps"])
+    _serve_line("seeded SRF", res, steps,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"    launches: {counts}")
+    _check_serve("seeded SRF", res, args, counts, {
+        "spinner_seeded": (2 * cfg.n_layers * steps, False),
+        "srf_decode": (cfg.n_layers * dsteps, True), "spinner": (0, True),
+        "spinner_seeded_plain_on_cuda": (0, True)})
+    seeded_bytes = sum(t.numel() * t.element_size() for blk in
+                       params["segments"][0]["attn"]["srf"]
+                       for t in blk.values())
+    pipe = _unseeded_pipeline(cfg)
+    mat_bytes = (cfg.n_layers * cfg.n_kv_heads * pipe.storage
+                 * torch.finfo(model_lib.dtype_of(cfg)).bits // 8)
+    log(f"    SRF projection bytes: seeded {seeded_bytes} (one int64 seed "
+        f"per layer and kv head) against {mat_bytes} materialized "
+        f"({pipe.storage} {cfg.dtype} values per head)")
+    sampled = [r.uid for r in res["done"] if r.temperature > 0]
+    log(f"    sampled requests {sampled}, embed seeds "
+        f"{[r.embed_seed for r in sorted(res['done'], key=lambda r: r.uid)]}")
+    return counts
+
+
+def _unseeded_pipeline(cfg):
+    from repro_torch.models import attention as attn_lib
+    return dataclasses.replace(attn_lib.srf_cfg(cfg), seeded=False).pipeline
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -599,15 +907,21 @@ def main() -> int:
     gen.manual_seed(0)
     log("phase 2: kernels against their plain versions")
     spin = phase_spinner(gen)
+    seeded = phase_seeded_spinner(gen)
     dec = phase_srf_decode(gen)
     gather = phase_paged_gather(gen)
+    phase_sampler(gen)
 
     log("phase 3: serve")
     phase_reduced_agreement()
+    phase_reduced_seeded_agreement()
     kv = phase_serve_kv()
     gc.collect()
     torch.cuda.empty_cache()
     srf = phase_serve_srf()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seeded_srf = phase_serve_seeded()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -631,7 +945,13 @@ def main() -> int:
                 "src/repro/kernels/paged_gather.py:33",
                 kv["int8 pages"]["paged_gather_dequant"],
                 gather["decode"]["paged_gather_dequant"],
-                decode + ", int8 -> bf16")]
+                decode + ", int8 -> bf16"),
+        _record("seeded_spinner", src + "spinner.cu",
+                "src/repro/kernels/spinner.py:249",
+                seeded_srf["spinner_seeded"],
+                seeded[("decode query", torch.bfloat16)],
+                "decode query: G=64 (8 kv heads x 8 requests), B=4, n=128, "
+                "m=256, bf16, identity")]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,11 @@
 — passed as numpy arrays (``jax.tree.map(np.asarray, params)``), so this
 module never imports jax — and returns the port's params: the same
 nested layout (embed, stacked ``segments``, ``final_norm``, ``head``,
-and per-layer ``attn.srf`` generators and HD diagonals) with every leaf
-a torch tensor. Both packages then compute the same function.
+and per-layer ``attn.srf`` generators and HD diagonals, or the uint32
+``seed`` leaves of seeded SRF, shaped (layers, kv heads)) with every
+leaf a torch tensor. Seeds become int64 tensors holding the same 32-bit
+values, the port's seed representation (``kernels.seedgen``). Both
+packages then compute the same function.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ def _leaf(a: Any, device, dtype: torch.dtype) -> torch.Tensor:
     if a.dtype.kind == "f" or a.dtype.name == "bfloat16":
         # numpy has no bfloat16 of its own: go through f32 (exact)
         return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+    if a.dtype == np.uint32:                # seeds: words held in int64
+        return torch.from_numpy(a.astype(np.int64)).to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 

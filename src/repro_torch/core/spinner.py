@@ -24,8 +24,10 @@ on the card). Custom kinds registered with ``register_kind`` take a
 generic path (HD -> registry matvec -> epilogue).
 
 ``to_config`` / ``from_config`` / ``dumps`` / ``loads`` read and write
-the same JSON as ``repro.core.spinner``. Seeded (zero-storage) blocks
-are not ported yet and raise ``NotImplementedError``.
+the same JSON as ``repro.core.spinner``. A ``seeded=True`` block is the
+zero-storage mode: its params are one seed, and every entry is
+regenerated where it is used (``kernels.seedgen``; the seeded CUDA
+spinner kernel on the card).
 """
 from __future__ import annotations
 
@@ -37,12 +39,6 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from . import structured, transforms
-
-SEEDED_NOT_PORTED = (
-    "seeded (zero-storage) spinner blocks are not ported yet: they are "
-    "the next slice of the PyTorch port (ROADMAP.md, section 1, item 1: "
-    "seeded SRF)")
-
 
 # ---------------------------------------------------------------------------
 # kind registry — structured matrix classes
@@ -187,8 +183,13 @@ class SpinnerBlock:
 
     ``scale`` is a fixed output scaling folded into the block's fused
     call (intermediate blocks of a stack use 1/sqrt(n) to stay
-    variance-preserving). ``seeded`` is accepted in configs for JSON
-    compatibility but not ported yet (raises).
+    variance-preserving).
+
+    ``seeded=True`` is the zero-storage mode: ``init`` draws ONE seed (an
+    int64 tensor holding a uint32 value) instead of tensors, and every
+    entry of the generator and both HD diagonals is regenerated at its
+    position inside the kernel. ``materialize`` and the diagnostics
+    rebuild the params for the moment they need them. Builtin kinds only.
     """
     kind: str = "circulant"
     m: int = 128
@@ -197,7 +198,7 @@ class SpinnerBlock:
     use_hd: bool = True           # paper Step-1 preconditioner
     ldr_nnz: int = 4
     scale: float = 1.0            # fixed output scaling (fused)
-    seeded: bool = False          # zero-storage mode (not ported yet)
+    seeded: bool = False          # zero-storage: params are one seed
 
     def __post_init__(self):
         kind_def(self.kind)
@@ -206,8 +207,11 @@ class SpinnerBlock:
                              f"m={self.m}, n={self.n}")
         if self.use_hd and not transforms.is_pow2(self.n):
             raise ValueError(f"use_hd requires power-of-two n, got {self.n}")
-        if self.seeded:
-            raise NotImplementedError(SEEDED_NOT_PORTED)
+        if self.seeded and self.kind not in structured.KINDS:
+            raise ValueError(
+                f"seeded mode regenerates params positionally and only "
+                f"supports builtin kinds {structured.KINDS}, got "
+                f"{self.kind!r}")
 
     # --- accounting ---------------------------------------------------------
 
@@ -217,6 +221,8 @@ class SpinnerBlock:
 
     @property
     def storage(self) -> int:
+        if self.seeded:           # one seed regenerates everything
+            return 1
         base = int(kind_def(self.kind).storage(self.m, self.n, self.r))
         return base + (2 * self.n if self.use_hd else 0)
 
@@ -232,14 +238,32 @@ class SpinnerBlock:
     def init(self, gen: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, torch.Tensor]:
         """Params drawn from ``gen``, on ``device`` (by default the
-        generator's own device)."""
+        generator's own device). Seeded blocks draw one seed in
+        [0, 2**31 - 1), as the reference does; ``dtype`` then only
+        governs activations (generation is always f32)."""
         device = gen.device if device is None else device
+        if self.seeded:
+            seed = torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                 dtype=torch.int64, device=gen.device)
+            return {"seed": seed.to(device)}
         params = kind_def(self.kind).init(gen, self.m, self.n, self.r,
                                           self.ldr_nnz, dtype, device)
         if self.use_hd:
             params["d0"] = transforms.sample_signs(gen, self.n, dtype, device)
             params["d1"] = transforms.sample_signs(gen, self.n, dtype, device)
         return params
+
+    def _oracle_params(self, params: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """Seeded blocks: the materialized twin of the seed (transient,
+        ``structured.init`` shapes). Materialized blocks: passthrough."""
+        if not self.seeded:
+            return params
+        from repro_torch.kernels import seedgen   # kernels import core
+        return seedgen.seeded_params(self.kind, self.n, self.m,
+                                     params["seed"], r=self.r,
+                                     ldr_nnz=self.ldr_nnz,
+                                     use_hd=self.use_hd)
 
     def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor, *,
               epilogue: str = "identity", y_scale: float = 1.0,
@@ -249,6 +273,12 @@ class SpinnerBlock:
             raise ValueError(f"expected last dim {self.n}, got "
                              f"{tuple(x.shape)}")
         y_scale = float(self.scale) * y_scale
+        if self.seeded:
+            from repro_torch.kernels import ops as kops   # kernels import core
+            return kops.spinner_project_seeded(
+                self.kind, params["seed"], x, self.m, r=self.r,
+                ldr_nnz=self.ldr_nnz, use_hd=self.use_hd, epilogue=epilogue,
+                y_scale=y_scale, out_scale=out_scale, grouped=grouped)
         if kind_def(self.kind).fused:
             from repro_torch.kernels import ops as kops   # kernels import core
             return kops.spinner_project(self.kind, params, x, self.m,
@@ -279,7 +309,9 @@ class SpinnerBlock:
         return one(params, x)
 
     def materialize(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Dense (m, n) matrix of the whole block scale . A . [D1 H D0]."""
+        """Dense (m, n) matrix of the whole block scale . A . [D1 H D0].
+        Seeded blocks regenerate the params on demand."""
+        params = self._oracle_params(params)
         a = kind_def(self.kind).materialize(params, self.m, self.n)
         if self.use_hd:
             h = transforms.hadamard(self.n, a.dtype, device=a.device)
@@ -291,6 +323,7 @@ class SpinnerBlock:
     def row_gaussianity_moments(self, params
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-row mean/var of A (each row ~ N(0, I) by Def. 1)."""
+        params = self._oracle_params(params)
         a = kind_def(self.kind).materialize(params, self.m, self.n)
         return a.mean(dim=1), a.var(dim=1, unbiased=False)
 

@@ -30,7 +30,8 @@ class SRFConfig:
     r: int = 1                  # displacement rank for ldr
     chunk: int = 128            # causal chunk length
     depth: int = 1              # spinner blocks
-    seeded: bool = False        # zero-storage projections (not ported yet)
+    seeded: bool = False        # zero-storage projections (params are one
+                                # seed per head per block)
 
     @property
     def pipeline(self) -> spinner.SpinnerPipeline:
@@ -59,17 +60,65 @@ def init(gen: torch.Generator, cfg: SRFConfig, n_kv_heads: int,
                   for k in heads[0][i]} for i in range(pipe.depth))
 
 
+def fold_embed(params, embed_seeds: torch.Tensor):
+    """Personalize per-head seed params with per-request embed seeds.
+
+    Each block's ``{"seed": (..., H)}`` becomes ``{"seed": (..., H*B)}``,
+    (head, request)-major: seed 0 is the sentinel for the base projection
+    (the head seed passes through unfolded), any other value derives an
+    independent per-(head, request) seed through ``seedgen.fold_seed``.
+    Leading axes (a stacked layer axis) are kept, so a caller can fold
+    every layer's seeds at once (reference: ``_fold_embed``)."""
+    from repro_torch.kernels import seedgen       # kernels import core
+    e = seedgen.words(embed_seeds, params[0]["seed"].device)      # (B,)
+
+    def fold_leaf(hs):                            # (..., H) -> (..., H*B)
+        hs = hs[..., None]
+        folded = seedgen.fold_seed(hs, e)
+        return torch.where(e == 0, hs & seedgen.MASK,
+                           folded).flatten(-2)
+
+    return tuple({"seed": fold_leaf(p["seed"])} for p in params)
+
+
 def feature_map(cfg: SRFConfig, params, x: torch.Tensor, is_query: bool,
                 embed_seeds=None) -> torch.Tensor:
     """(B, H, L, d) -> (B, H, L, feat_dim). The softmax-kernel scaling
     d^-1/4 is folded in, so phi(q).phi(k) ~ exp(q.k/sqrt(d)) up to a
     global constant that cancels in the normalizer. All H per-head
-    pipelines run as ONE grouped spinner call per block."""
+    pipelines run as ONE grouped spinner call per block.
+
+    ``embed_seeds``: optional (B,) per-request projection seeds (seeded
+    mode only; 0 = base projection). Groups then become per-(head,
+    request), G = H*B, each with its own folded seed: still one call per
+    block."""
     if embed_seeds is not None:
-        raise NotImplementedError(spinner.SEEDED_NOT_PORTED)
+        if not cfg.seeded:
+            raise ValueError("embed_seeds requires SRFConfig.seeded=True")
+        return feature_map_folded(cfg, fold_embed(params, embed_seeds), x,
+                                  is_query)
     scale = cfg.head_dim ** -0.25
     b, h, l, d = x.shape
     xg = x.transpose(0, 1).reshape(h, b * l, d)          # head-major groups
+    return _phi(cfg, params, xg, is_query, scale).reshape(
+        h, b, l, -1).transpose(0, 1)
+
+
+def feature_map_folded(cfg: SRFConfig, folded, x: torch.Tensor,
+                       is_query: bool) -> torch.Tensor:
+    """:func:`feature_map` with embed seeds already folded into the params
+    (``fold_embed``, leaves (H*B,)): the serving step folds every layer's
+    seeds once, then calls this per layer."""
+    scale = cfg.head_dim ** -0.25
+    b, h, l, d = x.shape
+    xg = x.transpose(0, 1).reshape(h * b, l, d)          # (head, request)
+    return _phi(cfg, folded, xg, is_query, scale).reshape(
+        h, b, l, -1).transpose(0, 1)
+
+
+def _phi(cfg: SRFConfig, params, xg: torch.Tensor, is_query: bool,
+         scale: float) -> torch.Tensor:
+    """The configured feature of grouped rows xg: (G, R, d) -> (G, R, F)."""
     pipe = cfg.pipeline
     if cfg.feature == "softmax_pos":
         phi = features.phi_softmax_pos(pipe, params, xg, scale=scale,
@@ -82,7 +131,7 @@ def feature_map(cfg: SRFConfig, params, x: torch.Tensor, is_query: bool,
                                         grouped=True) + 1e-6 * inv
     else:
         raise ValueError(cfg.feature)
-    return phi.reshape(h, b, l, -1).transpose(0, 1)
+    return phi
 
 
 def attention_causal(cfg: SRFConfig, phi_q: torch.Tensor,

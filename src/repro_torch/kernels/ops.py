@@ -1,20 +1,22 @@
 """Dispatchers between the CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``repro.kernels.ops`` for the kernels ported so far
-(the spinner, SRF decode and the two paged gathers). Routing follows
-where the tensor lies:
+Counterpart of ``repro.kernels.ops`` for the kernels ported so far:
+the spinner, the seeded spinner, SRF decode and the two paged gathers.
+Routing follows where the tensor lies:
 
 * a CUDA tensor goes to the kernel, or raises if the kernel refuses it —
   there is no fallback that hides a kernel failure;
 * a CPU tensor goes to the plain version in ``kernels.ref``;
-* what the spinner kernel does not take (kind ``ldr``, HD with a
+* what the spinner kernels do not take (kind ``ldr``, HD with a
   non-power-of-two n, n > 8192 — the reference's ``pallas_ok`` rule)
   goes to the plain version on either device, and on the card such a
-  call is counted in ``spinner_project.plain_calls``.
+  call is counted in ``spinner_project.plain_calls`` (seeded:
+  ``spinner_project_seeded.plain_calls``).
 
 There is no interpret route and no block-size plan cache: block sizes
 are the kernels' own. Launch counts live on the kernel wrappers
 (``spinner.spinner_project_cuda.launches``,
+``spinner.spinner_project_seeded_cuda.launches``,
 ``srf_decode.srf_decode_cuda.launches``,
 ``paged_gather.paged_gather_cuda.launches``,
 ``paged_gather.paged_gather_dequant_cuda.launches``);
@@ -22,7 +24,7 @@ are the kernels' own. Launch counts live on the kernel wrappers
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -39,7 +41,10 @@ def launch_counts() -> Dict[str, int]:
             "srf_decode": _dec.srf_decode_cuda.launches,
             "paged_gather": _pg.paged_gather_cuda.launches,
             "paged_gather_dequant": _pg.paged_gather_dequant_cuda.launches,
-            "spinner_plain_on_cuda": spinner_project.plain_calls}
+            "spinner_seeded": _spin.spinner_project_seeded_cuda.launches,
+            "spinner_plain_on_cuda": spinner_project.plain_calls,
+            "spinner_seeded_plain_on_cuda":
+                spinner_project_seeded.plain_calls}
 
 
 def reset_counts() -> None:
@@ -47,7 +52,9 @@ def reset_counts() -> None:
     _dec.srf_decode_cuda.launches = 0
     _pg.paged_gather_cuda.launches = 0
     _pg.paged_gather_dequant_cuda.launches = 0
+    _spin.spinner_project_seeded_cuda.launches = 0
     spinner_project.plain_calls = 0
+    spinner_project_seeded.plain_calls = 0
 
 
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -102,12 +109,8 @@ def spinner_project(kind: str, params: Dict[str, torch.Tensor],
     d0: Optional[torch.Tensor] = params.get("d0")
     d1: Optional[torch.Tensor] = params.get("d1")
     n = x.shape[-1]
-    if grouped:
-        gsz, lead = x.shape[0], tuple(x.shape[1:-1])
-        xf = x.reshape(gsz, -1, n)
-    else:
-        gsz, lead = 1, tuple(x.shape[:-1])
-        xf = x.reshape(1, -1, n)
+    xf = _groups(x, grouped)
+    if not grouped:
         g = g[None]
         h = None if h is None else h[None]
         d0 = None if d0 is None else d0[None]
@@ -124,9 +127,46 @@ def spinner_project(kind: str, params: Dict[str, torch.Tensor],
         y = _ref.spinner_project_ref(kind, g, xf, m, d0=d0, d1=d1, h=h,
                                      epilogue=epilogue, y_scale=y_scale,
                                      out_scale=out_scale)
-    out_dim = 2 * m if epilogue == "cos_sin" else m
-    shape = ((gsz,) + lead + (out_dim,)) if grouped else (lead + (out_dim,))
-    return y.reshape(shape)
+    return y.reshape(x.shape[:-1] + y.shape[-1:])
 
 
 spinner_project.plain_calls = 0
+
+
+def _groups(x: torch.Tensor, grouped: bool) -> torch.Tensor:
+    """x (G, ..., n) with ``grouped``, else (..., n) -> (G, rows, n)."""
+    n = x.shape[-1]
+    return x.reshape(x.shape[0], -1, n) if grouped else x.reshape(1, -1, n)
+
+
+def spinner_project_seeded(kind: str, seeds: Union[int, torch.Tensor],
+                           x: torch.Tensor, m: int, *, r: int = 1,
+                           ldr_nnz: int = 4, use_hd: bool = True,
+                           epilogue: str = "identity", y_scale: float = 1.0,
+                           out_scale: float = 1.0, grouped: bool = False
+                           ) -> torch.Tensor:
+    """Zero-storage  f(y_scale · A · D1 H D0 · x) · out_scale  with the
+    generator and both HD diagonals regenerated from ``seeds`` (words in
+    int64, ``kernels.seedgen``): one seed, or (G,) with ``grouped=True``
+    and x (G, ..., n). Output (..., m), or (..., 2m) = [cos | sin] for
+    cos_sin. Same routing as :func:`spinner_project`; equal to it on
+    ``seedgen.seeded_params`` (bit for bit when both run on one device).
+    """
+    n = x.shape[-1]
+    xf = _groups(x, grouped)
+    sd = torch.as_tensor(seeds, dtype=torch.int64,
+                         device=x.device).reshape(xf.shape[0])
+    if x.is_cuda and kernel_takes(kind, n, m, use_hd):
+        y = _spin.spinner_project_seeded_cuda(
+            kind, sd.contiguous(), xf.contiguous(), m, use_hd=use_hd,
+            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+    else:
+        if x.is_cuda:
+            spinner_project_seeded.plain_calls += 1
+        y = _ref.spinner_project_seeded_ref(
+            kind, sd, xf, m, r=r, ldr_nnz=ldr_nnz, use_hd=use_hd,
+            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+    return y.reshape(x.shape[:-1] + y.shape[-1:])
+
+
+spinner_project_seeded.plain_calls = 0

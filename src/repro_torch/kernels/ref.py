@@ -110,6 +110,25 @@ def spinner_project_ref(kind: str, g: torch.Tensor, x: torch.Tensor, m: int,
     return torch.stack(outs).to(x.dtype)
 
 
+def spinner_project_seeded_ref(kind: str, seeds: torch.Tensor,
+                               x: torch.Tensor, m: int, *, r: int = 1,
+                               ldr_nnz: int = 4, use_hd: bool = True,
+                               epilogue: str = "identity",
+                               y_scale: float = 1.0,
+                               out_scale: float = 1.0) -> torch.Tensor:
+    """Seeded spinner: rebuild the exact params the (G,) seeds encode
+    (``seedgen.grouped_params``) and run :func:`spinner_project_ref` on
+    them. The params exist only inside this call."""
+    from . import seedgen
+    params = seedgen.grouped_params(kind, x.shape[-1], m,
+                                    seeds.reshape(-1).to(x.device), r=r,
+                                    ldr_nnz=ldr_nnz, use_hd=use_hd)
+    return spinner_project_ref(kind, params["g"], x, m, d0=params.get("d0"),
+                               d1=params.get("d1"), h=params.get("h"),
+                               epilogue=epilogue, y_scale=y_scale,
+                               out_scale=out_scale)
+
+
 def srf_decode_ref(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,
                    phi_k: torch.Tensor, v: torch.Tensor, eps: float = 1e-6
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -2,11 +2,15 @@
 engine under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        --arch qwen3-4b [--attn srf] [--quantize-kv] --requests 8 \
+        --arch qwen3-4b [--attn srf [--seeded-srf]] [--quantize-kv] \
+        [--temperature 0.8 --top-k 40 --top-p 0.95] --requests 8 \
         --prompt-len 128 --max-new 32 --max-len 256
 
-Takes ``launch.serve``'s flags as they are. Builds the model they name
-(full width unless ``--reduced``; random weights from ``--seed``),
+Takes ``launch.serve``'s flags as they are, plus ``--seeded-srf``:
+seeded SRF projections (``SRFAttnConfig(seeded=True)``), the second
+half of the requests personalized by distinct embed seeds. Builds the
+model they name (full width unless ``--reduced``; random weights from
+``--seed``),
 serves a short warm-up (``serve.warm``), then serves the requests once
 untraced and once with the profiler on, and prints:
 
@@ -18,12 +22,13 @@ untraced and once with the profiler on, and prints:
   a lower bound);
 * device time by kernel name, the ``TOP`` largest, and apart from them
   every row of the port's own CUDA kernels (``PORT_KERNELS``: the paged
-  gathers, the spinner, srf_decode), however small.
+  gathers, the spinner, the seeded spinner, srf_decode), however small.
 
 Requires a CUDA device; there is no CPU fallback.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -34,10 +39,12 @@ from typing import List, Optional
 import torch
 
 from repro_torch.launch import serve
+from repro_torch.models import transformer as model_lib
 
 TOP = 15                            # kernel rows printed
 PORT_KERNELS = ("paged_gather_kernel", "paged_gather_dequant_kernel",
-                "spinner_kernel", "srf_decode_kernel")
+                "spinner_kernel", "seeded_spinner_kernel",
+                "srf_decode_kernel")
 
 
 def _device_us(evt) -> float:
@@ -47,17 +54,35 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _requests(args, cfg) -> List[serve.Request]:
+    reqs = serve.requests(args, cfg)
+    if args.seeded_srf:
+        for r in reqs[len(reqs) // 2:]:
+            r.embed_seed = 1000 + r.uid
+    return reqs
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    args = serve.parser().parse_args(argv)
+    ap = serve.parser()
+    ap.add_argument("--seeded-srf", action="store_true",
+                    help="seeded SRF projections; the second half of the "
+                         "requests get distinct embed seeds")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available() or args.device != "cuda":
         print("profile_serve: needs a CUDA device (--device cuda)",
               file=sys.stderr)
         return 1
-    cfg, params = serve.build(args)
+    cfg = serve.config(args)
+    if args.seeded_srf:
+        if cfg.attn_impl != "srf":
+            ap.error("--seeded-srf needs --attn srf")
+        cfg = dataclasses.replace(cfg, srf=dataclasses.replace(
+            cfg.srf, seeded=True))
+    params = model_lib.init(cfg, seed=args.seed, device=args.device)
     serve.warm(args, cfg, params)
 
     # untraced run: host time per step, by step kind
-    res = serve.serve(args, cfg, params)
+    res = serve.serve(args, cfg, params, reqs=_requests(args, cfg))
     eng = res["engine"]
     steps = eng.metrics.histogram("engine_step_seconds", "",
                                   ("engine",)).labels(
@@ -77,7 +102,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        traced = serve.serve(args, cfg, params)
+        traced = serve.serve(args, cfg, params, reqs=_requests(args, cfg))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies): an operator row also

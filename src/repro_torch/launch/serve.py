@@ -4,16 +4,19 @@
         [--attn full|srf] [--quantize-kv] [--prefix-cache \
         --cache-bytes 0 --chunk-tokens 0 --shared-prefix 0] \
         [--requests 16 --slots 8 --prompt-len 16 --max-new 24 \
-        --max-len 128 --seed 0] [--reduced] [--device cuda]
+        --max-len 128 --seed 0] [--temperature 0 --top-k 0 --top-p 1] \
+        [--reduced] [--device cuda]
 
 Full width is the default: ``--reduced`` opts into the tiny same-family
 config of ``configs.registry.reduced``. Without ``--attn`` the config's
 own attention serves (``full``: paged KV). Weights are random, drawn
 from a ``torch.Generator`` seeded with ``--seed`` on the device; prompts
 are random tokens from ``numpy.random.default_rng(--seed)``, the first
-``--shared-prefix`` of them common to every request. Decoding is greedy.
-The flags are the reference CLI's (``repro.launch.serve``) for what the
-port serves, plus ``--device``.
+``--shared-prefix`` of them common to every request. ``--temperature``
+0 decodes greedily; above 0 every request samples with ``--top-k`` and
+``--top-p``, its noise keyed by ``--seed`` (the engine's seed), its uid
+and the token's index. The flags are the reference CLI's
+(``repro.launch.serve``) for what the port serves, plus ``--device``.
 """
 from __future__ import annotations
 
@@ -59,22 +62,31 @@ def parser() -> argparse.ArgumentParser:
                          "chunks interleaved with decode")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="synthetic prompts share their first N tokens")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
 
 
+def config(args):
+    """The model config the parsed arguments name."""
+    overrides = {"attn_impl": args.attn} if args.attn else {}
+    return (registry.reduced(args.arch, **overrides) if args.reduced
+            else registry.get(args.arch, **overrides))
+
+
 def build(args):
     """(cfg, params) for the parsed arguments."""
-    overrides = {"attn_impl": args.attn} if args.attn else {}
-    cfg = (registry.reduced(args.arch, **overrides) if args.reduced
-           else registry.get(args.arch, **overrides))
+    cfg = config(args)
     return cfg, model_lib.init(cfg, seed=args.seed, device=args.device)
 
 
 def requests(args, cfg) -> List[Request]:
-    """``args.requests`` greedy requests of ``args.prompt_len`` random
-    tokens, the first ``args.shared_prefix`` common to all."""
+    """``args.requests`` requests of ``args.prompt_len`` random tokens,
+    the first ``args.shared_prefix`` common to all, decoded with
+    ``args``' temperature, top-k and top-p."""
     rng = np.random.default_rng(args.seed)
     common = rng.integers(0, cfg.vocab, max(args.shared_prefix, 0)
                           ).astype(np.int32)
@@ -83,7 +95,9 @@ def requests(args, cfg) -> List[Request]:
         prompt = rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32)
         k = min(len(common), args.prompt_len)
         prompt[:k] = common[:k]
-        out.append(Request(uid=i, prompt=prompt, max_new=args.max_new))
+        out.append(Request(uid=i, prompt=prompt, max_new=args.max_new,
+                           temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p))
     return out
 
 
@@ -96,22 +110,23 @@ def prefix_config(args) -> Optional[PrefixConfig]:
 
 def engine(args, cfg, params) -> Engine:
     return Engine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
-                  device=args.device,
+                  seed=args.seed, device=args.device,
                   paged=PagedConfig(quantize_kv=args.quantize_kv),
                   prefix=prefix_config(args))
 
 
-def serve(args, cfg=None, params=None, eng: Optional[Engine] = None
-          ) -> Dict:
-    """Serve ``args.requests`` requests (on ``eng`` if given, else on a
-    new engine); returns the finished requests, the engine and the
-    measured wall time, tokens/s and TTFT."""
+def serve(args, cfg=None, params=None, eng: Optional[Engine] = None,
+          reqs: Optional[List[Request]] = None) -> Dict:
+    """Serve ``reqs`` (by default ``requests(args, cfg)``) on ``eng`` if
+    given, else on a new engine; returns the finished requests, the
+    engine and the measured wall time, tokens/s and TTFT."""
     if eng is None:
         if cfg is None:
             cfg, params = build(args)
         eng = engine(args, cfg, params)
     cfg = eng.cfg
-    reqs = requests(args, cfg)
+    if reqs is None:
+        reqs = requests(args, cfg)
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)

@@ -12,7 +12,11 @@ Port of the paged paths of ``repro.models.attention``: ``srf_cfg``,
 * ``attn_impl="srf"``: the per-request state is one constant-size page
   {"s": (Hq, m, dv), "z": (Hq, m)} at the request's slot. Decode
   (C == 1) runs the fused CUDA srf_decode kernel; chunked prefill
-  (C > 1) is plain einsum math, as in the reference.
+  (C > 1) is plain einsum math, as in the reference. Seeded SRF
+  (``SRFAttnConfig(seeded=True)``) takes the layer's seeds folded with
+  the per-request embed seeds from ``cache["srf_folded"]``: the feature
+  maps then run one zero-storage projection per (head, request) through
+  the seeded spinner kernel.
 
 Not ported yet (they raise NotImplementedError): MLA, cross attention,
 mesh tensor parallelism (``tp_axis``) and the train / prefill / decode
@@ -283,9 +287,15 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     g = cfg.n_heads // cfg.n_kv_heads
     b, hq, l, hd = q.shape
     qg = q.reshape(b, cfg.n_kv_heads, g * l, hd)
-    phi_q = srf.feature_map(sc, p["srf"], qg, is_query=True)
+    folded = cache.get("srf_folded")         # per-(head, request) seeds
+    if folded is None:
+        phi_q = srf.feature_map(sc, p["srf"], qg, is_query=True)
+        phi_k = srf.feature_map(sc, p["srf"], k, is_query=False)
+    else:
+        phi_q = srf.feature_map_folded(sc, folded, qg, is_query=True)
+        phi_k = srf.feature_map_folded(sc, folded, k, is_query=False)
     phi_q = phi_q.reshape(b, hq, l, -1)
-    phi_k = _repeat_kv(srf.feature_map(sc, p["srf"], k, is_query=False), g)
+    phi_k = _repeat_kv(phi_k, g)
     out = _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k,
                      _repeat_kv(v, g), cache["q_valid"])
     return _merge_heads(out) @ p["wo"]

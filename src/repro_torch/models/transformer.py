@@ -19,9 +19,11 @@ enc-dec, vision) are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from repro_torch.core import srf_attention as srf
 
 from . import attention, hooks, layers
 
@@ -86,7 +88,8 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
                positions: torch.Tensor, q_valid: torch.Tensor,
-               tables: torch.Tensor, slots: torch.Tensor
+               tables: torch.Tensor, slots: torch.Tensor,
+               embed_seeds: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict]:
     """One batched step against the pooled caches (serving hot path).
 
@@ -99,6 +102,12 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
     ({"paged", "slot"} per-segment lists); the layer's paged pool (kv
     plan) or slot pool (srf plan) is updated IN PLACE and the same
     container is returned. Returns (logits (B, C, V_padded), pools).
+
+    ``embed_seeds``: optional (B,) per-request projection seeds for
+    seeded-SRF configs (0 = base projection; ignored by full attention).
+    Every layer's seeds are folded with them once per step (one batched
+    threefry, not one per layer), and each SRF layer's feature maps run
+    on its folded seeds.
     """
     dt = dtype_of(cfg)
     x = hooks.constrain(layers.embed(params["embed"], tokens).to(dt),
@@ -106,23 +115,36 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
     for seg_params, pseg, sseg, (kind, count) in zip(
             params["segments"], pools["paged"], pools["slot"],
             segments(cfg)):
+        folded = None
+        if embed_seeds is not None and cfg.attn_impl == "srf":
+            if not cfg.srf.seeded:
+                raise ValueError("embed_seeds requires SRFConfig.seeded="
+                                 "True")
+            folded = srf.fold_embed(seg_params["attn"]["srf"], embed_seeds)
         for i in range(count):
             x = _paged_layer(tree_index(seg_params, i), cfg, kind, x,
                              positions, q_valid,
                              None if pseg is None else tree_index(pseg, i),
                              None if sseg is None else tree_index(sseg, i),
-                             tables, slots)
+                             tables, slots,
+                             None if folded is None
+                             else tree_index(folded, i))
     return _logits(params, cfg, x), pools
 
 
 def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
-                 lpaged, lslot, tables, slots) -> torch.Tensor:
+                 lpaged, lslot, tables, slots,
+                 srf_folded=None) -> torch.Tensor:
     """Single-layer paged step; the attention pool (``lslot["attn"]`` for
-    SRF, ``lpaged["attn"]`` for full KV) is updated in place."""
+    SRF, ``lpaged["attn"]`` for full KV) is updated in place.
+    ``srf_folded``: the layer's seeds folded with the step's embed
+    seeds (seeded SRF)."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_pools = lslot if cfg.attn_impl == "srf" else lpaged
     ctx = {"pool": attn_pools["attn"], "tables": tables, "slots": slots,
            "q_valid": q_valid}
+    if srf_folded is not None:
+        ctx["srf_folded"] = srf_folded
     x = x + attention.attention(p["attn"], cfg, h, positions, "paged", ctx)
     return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
                                                     cfg.norm_eps))

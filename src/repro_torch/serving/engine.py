@@ -7,7 +7,11 @@ The scheduler (a copy of the reference's) handles admission, chunked
 prefill and preemption; prefill and decode both run as batched
 ``transformer.paged_step`` calls with fixed shapes (prefill_batch x
 chunk, max_batch x 1), inactive rows masked onto the null page / slot 0.
-Sampling is greedy.
+Sampling is stateless (``sampler.sample_stateless``): row noise keyed by
+(engine seed, uid, emitted-token index), greedy where temperature is 0.
+Seeded-SRF configs (``SRFAttnConfig(seeded=True)``) take a per-request
+``embed_seed`` that personalizes every SRF projection (0 = the base
+projection), passed into every step.
 
 ``paged=PagedConfig(quantize_kv=True)`` stores KV pages as int8 with one
 f32 scale per token; ``prefix=PrefixConfig(...)`` shares the KV pages of
@@ -17,8 +21,7 @@ slots are snapshotted to pinned host memory and restored at
 re-admission.
 
 Not ported yet, and refused if asked for: live quality probes,
-mesh-sharded pools, per-request projection seeds, enc-dec memories and
-sampled (temperature > 0) decoding.
+mesh-sharded pools and enc-dec memories.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import seedgen
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import metrics as obs_metrics
@@ -38,7 +42,7 @@ from repro_torch.obs import trace as obs_trace
 
 from . import paged_cache
 from .prefix import ChunkPolicy, PrefixCache, PrefixConfig, cow
-from .sampler import sample_greedy
+from .sampler import sample_stateless
 from .scheduler import SchedConfig, Scheduler, Sequence
 
 
@@ -49,10 +53,11 @@ class Request:
     max_new: int = 32
     eos_id: int = -1                 # -1: never
     priority: int = 0                # higher first (policy="priority")
-    temperature: float = 0.0         # 0 = greedy (the only ported mode)
+    temperature: float = 0.0         # 0 = greedy
     top_k: int = 0
     top_p: float = 1.0
-    embed_seed: int = 0              # seeded-SRF personalization (not ported)
+    embed_seed: int = 0              # seeded-SRF configs: personalized
+    #                                  projection seed (0 = base projection)
     enc_emb: Optional[np.ndarray] = None  # enc-dec input (not ported)
     deadline: Optional[float] = None # seconds after submit; overdue WAITING
     #                                  requests finish as 'timeout'
@@ -85,17 +90,25 @@ def _default_sched(cfg, batch_slots: int, max_len: int, plan,
                        policy=policy)
 
 
-def _cache_namespace(req) -> int:
+def _cache_namespace(req, seeded_srf: bool = False) -> int:
     """Prefix-cache trie namespace of a request: partitioned by tenant
     (requests of different namespaces never share cache state); the
-    default tenant is ``0``. (The reference also partitions by enc-dec
-    encoder content and by seeded-SRF ``embed_seed``; the port refuses
-    both kinds of request.)"""
+    default tenant is ``0``. ``seeded_srf`` engines also partition by
+    ``embed_seed``: personalized projections make different attention
+    states of the same tokens. (The reference also partitions by enc-dec
+    encoder content; the port refuses enc-dec requests.)"""
+    ns = 0
     tenant = getattr(req, "namespace", "")
-    if not tenant:
-        return 0
-    h = hashlib.blake2b(tenant.encode("utf-8"), digest_size=8)
-    return int.from_bytes(h.digest(), "big")
+    if tenant:
+        h = hashlib.blake2b(tenant.encode("utf-8"), digest_size=8)
+        ns ^= int.from_bytes(h.digest(), "big")
+    if seeded_srf:
+        es = getattr(req, "embed_seed", 0)
+        if es:
+            h = hashlib.blake2b(int(es).to_bytes(8, "big", signed=False),
+                                digest_size=8)
+            ns ^= int.from_bytes(h.digest(), "big")
+    return ns
 
 
 _ENGINE_IDS = itertools.count()
@@ -108,11 +121,13 @@ class Engine:
     ``sched=SchedConfig(...)`` to size the pools explicitly (e.g. tight
     pools to exercise preemption). ``paged`` and ``prefix`` as in the
     module docstring; ``prefix`` is silently off for a plan with no
-    paged domain (SRF), which has no pages to share."""
+    paged domain (SRF), which has no pages to share. ``seed`` keys the
+    sampling noise (the key of ``jax.random.PRNGKey(seed)`` in the
+    reference); it never advances."""
 
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 512, sched: Optional[SchedConfig] = None,
-                 policy: str = "fcfs",
+                 policy: str = "fcfs", seed: int = 0,
                  metrics: Optional[obs_metrics.MetricsRegistry] = None,
                  device="cuda", mesh=None,
                  paged: Optional[paged_cache.PagedConfig] = None,
@@ -142,6 +157,10 @@ class Engine:
                                             device=self.device,
                                             paged=self.paged)
         self.params = params
+        # stateless sampling: the base key never advances; row noise is
+        # keyed by fold_in(fold_in(base, uid), position)
+        self._base_key = seedgen.threefry_seed(seed, self.device)
+        self._seeded_srf = cfg.attn_impl == "srf" and cfg.srf.seeded
         self.clock = time.perf_counter
         self.nonfinite_rows = 0          # sampled logit rows with inf/nan
         self._pending_snaps: List[paged_cache.PendingSnapshot] = []
@@ -203,12 +222,6 @@ class Engine:
         if req.enc_emb is not None:
             raise NotImplementedError(f"enc-dec serving is "
                                       f"{attn_lib.NOT_IN_SLICE}")
-        if req.embed_seed:
-            from repro_torch.core.spinner import SEEDED_NOT_PORTED
-            raise NotImplementedError(SEEDED_NOT_PORTED)
-        if req.temperature > 0:
-            from .sampler import SAMPLING_NOT_PORTED
-            raise NotImplementedError(SAMPLING_NOT_PORTED)
         now = time.perf_counter()
         req.t_submit = now
         if req.deadline is not None and req.deadline_at is None:
@@ -218,14 +231,15 @@ class Engine:
         req.trace.stamp("queued", now)
         seq = self.sched.submit(req)
         if self.prefix is not None:
-            seq.ns = _cache_namespace(req)
+            seq.ns = _cache_namespace(req, self._seeded_srf)
 
     def prefix_peek(self, req: Request) -> int:
         """Tokens of ``req``'s prompt this engine could serve from its
         prefix cache right now (non-pinning, no LRU touch)."""
         if self.prefix is None:
             return 0
-        return self.prefix.peek(_cache_namespace(req), req.prompt,
+        return self.prefix.peek(_cache_namespace(req, self._seeded_srf),
+                                req.prompt,
                                 want_state=bool(self.plan.slot_families))
 
     def run(self) -> List[Request]:
@@ -336,26 +350,50 @@ class Engine:
             snap.fence()
         self._pending_snaps.clear()
 
-    def _run_step(self, tokens, pos, qv, tables, slots) -> torch.Tensor:
+    def _run_step(self, tokens, pos, qv, tables, slots,
+                  seqs: List[Optional[Sequence]]) -> torch.Tensor:
+        """One ``paged_step``. A seeded-SRF engine passes every row's
+        embed seed (``seqs``: the rows' sequences, None = padded) on every
+        step, all-zero batches included."""
         self._fence_snapshots()
         dev = self.device
+        es = None
+        if self._seeded_srf:
+            es = torch.from_numpy(self._embed_seeds(seqs)).to(dev)
         logits, self.pools = model_lib.paged_step(
             self.params, self.cfg, self.pools,
             torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
             torch.from_numpy(qv).to(dev), torch.from_numpy(tables).to(dev),
-            torch.from_numpy(slots).to(dev))
+            torch.from_numpy(slots).to(dev), embed_seeds=es)
         return logits
+
+    @staticmethod
+    def _embed_seeds(seqs: List[Optional[Sequence]]) -> np.ndarray:
+        """(B,) per-row projection seeds as words (0 = base projection;
+        padded rows are base)."""
+        return np.array([0 if s is None else s.req.embed_seed & 0xFFFFFFFF
+                         for s in seqs], np.int64)
 
     def _sample_rows(self, rows: torch.Tensor,
                      seqs: List[Optional[Sequence]]) -> np.ndarray:
-        """Greedy tokens for the rows of ``seqs`` (None = padded row);
-        also counts live rows whose logits are not all finite."""
-        temps = np.array([0.0 if s is None else s.req.temperature
-                          for s in seqs], np.float32)
+        """Stateless per-request sampling of the rows of ``seqs`` (None =
+        padded row, drawn greedy): row i's noise is keyed by (base key,
+        uid, emitted-token index), never by engine state, so a request
+        samples the same token at a position whatever batch it lands in.
+        Also counts live rows whose logits are not all finite."""
+        def col(field_of, default, dtype):
+            return np.array([default if s is None else field_of(s.req)
+                             for s in seqs], dtype)
         live = torch.as_tensor([s is not None for s in seqs],
                                device=rows.device)
         bad = ((~torch.isfinite(rows)).any(dim=-1) & live).sum()
-        toks = sample_greedy(rows, temps)
+        toks = sample_stateless(
+            self._base_key,
+            col(lambda r: r.uid & 0xFFFFFFFF, 0, np.int64),   # probes wrap
+            col(lambda r: len(r.out_tokens), 0, np.int64),    # token drawn
+            rows, col(lambda r: r.temperature, 0.0, np.float32),
+            col(lambda r: r.top_k, 0, np.int64),
+            col(lambda r: r.top_p, 1.0, np.float32))
         out = toks.cpu().numpy()
         self.nonfinite_rows += int(bad)
         return out
@@ -402,7 +440,9 @@ class Engine:
             if seq.prefill_done:
                 finishing[i] = seq
                 last_row[i] = n - 1
-        logits = self._run_step(tokens, pos, qv, tables, slots)
+        rows_seqs: List[Optional[Sequence]] = [s for s, _ in planned]
+        rows_seqs += [None] * (b - len(rows_seqs))
+        logits = self._run_step(tokens, pos, qv, tables, slots, rows_seqs)
         rows = logits[torch.arange(b, device=logits.device),
                       torch.from_numpy(last_row).to(logits.device),
                       : self.cfg.vocab]
@@ -533,9 +573,10 @@ class Engine:
             qv[i, 0] = True
             tables[i] = seq.table.padded(m)
             slots[i] = seq.slot or 0
-        logits = self._run_step(tokens, pos, qv, tables, slots)
+        padded = batch + [None] * (b - len(batch))
+        logits = self._run_step(tokens, pos, qv, tables, slots, padded)
         rows = logits[:, 0, : self.cfg.vocab]
-        toks = self._sample_rows(rows, batch + [None] * (b - len(batch)))
+        toks = self._sample_rows(rows, padded)
         now = time.perf_counter()
         for i, seq in enumerate(batch):
             seq.table.length += 1

@@ -1,25 +1,83 @@
-"""Token sampling for the serving engine.
+"""Token sampling for the serving engine: temperature / top-k / top-p.
 
-Port of ``repro.serving.sampler`` for greedy decoding: a row with
-``temperature <= 0`` takes ``argmax`` (first index on ties, as
-``jnp.argmax``). Sampled rows need the reference's stateless keys
-(``jax.random.fold_in`` + ``gumbel`` over threefry), which come with the
-seeded slice of the port; until then they raise.
+Port of ``repro.serving.sampler.sample_stateless``: one fully batched
+call in which every row carries its own (temperature, top_k, top_p);
+``temperature <= 0`` selects greedy ``argmax`` for that row (first
+index on ties, as ``jnp.argmax``).
+
+The noise of row ``i`` is a pure function of ``(base_key, uid[i],
+position[i])``: ``gumbel(fold_in(fold_in(base_key, uid), position))``
+over the threefry port in ``kernels.seedgen``, with the reference's
+keys and bits, so a request's sampled stream does not depend on batch
+composition, batch slot or engine state. Plain PyTorch on either device
+(the reference computes it outside any Pallas kernel too).
 """
 from __future__ import annotations
+
+from typing import Union
 
 import numpy as np
 import torch
 
-SAMPLING_NOT_PORTED = (
-    "temperature > 0 sampling is not ported yet: it needs the reference's "
-    "stateless threefry keys (ROADMAP.md, section 1, item 1: seeded "
-    "SRF)")
+from repro_torch.kernels import seedgen
+
+Rows = Union[np.ndarray, torch.Tensor]
 
 
-def sample_greedy(logits: torch.Tensor, temperature: np.ndarray
-                  ) -> torch.Tensor:
-    """logits: (B, V); temperature: (B,) -> (B,) int64 token ids."""
-    if np.any(np.asarray(temperature) > 0.0):
-        raise NotImplementedError(SAMPLING_NOT_PORTED)
-    return torch.argmax(logits, dim=-1)
+def row_keys(base_key: torch.Tensor, uids: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+    """(B, 2) keys fold_in(fold_in(base_key, uid), position) per row."""
+    k = seedgen.fold_in(base_key.expand(uids.shape[0], 2), uids)
+    return seedgen.fold_in(k, positions)
+
+
+def sample_stateless(base_key: torch.Tensor, uids: Rows, positions: Rows,
+                     logits: torch.Tensor, temperature: Rows, top_k: Rows,
+                     top_p: Rows) -> torch.Tensor:
+    """logits: (B, V); uids, positions: (B,) words (padded rows may carry
+    anything: their token is discarded); temperature, top_p: (B,) float;
+    top_k: (B,) int (0 = disabled); base_key: (2,) words
+    (``seedgen.threefry_seed``) -> (B,) int64 token ids on logits' device.
+
+    Sort once descending, keep the top-k ranks and the tokens whose
+    cumulative probability before them is below top_p (the first always
+    survives), then Gumbel-max over the surviving logits. A batch with no
+    sampled row takes ``argmax`` directly (the same tokens, without the
+    sort and the noise).
+    """
+    dev = logits.device
+    b, v = logits.shape
+    lf = logits.float()
+    argmax = torch.argmax(lf, dim=-1)
+    if isinstance(temperature, torch.Tensor):
+        all_greedy = bool((temperature <= 0.0).all())
+    else:                           # host values: decided without a sync
+        all_greedy = bool(np.all(np.asarray(temperature) <= 0.0))
+    if all_greedy:
+        return argmax
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=dev)
+    greedy = temperature <= 0.0
+    temp = torch.where(greedy, torch.ones_like(temperature),
+                       torch.clamp(temperature, min=1e-6))
+    scaled = lf / temp[:, None]
+
+    order = torch.argsort(-scaled, dim=-1, stable=True)     # (B, V) desc
+    sorted_logits = torch.gather(scaled, -1, order)
+    ranks = torch.arange(v, device=dev)[None, :]
+    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev)
+    k_eff = torch.where(top_k <= 0, torch.full_like(top_k, v), top_k)
+    keep = ranks < k_eff[:, None]
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
+    keep &= (cum - probs) < top_p[:, None]
+    keep |= ranks == 0
+
+    masked = torch.where(keep, sorted_logits,
+                         torch.full_like(sorted_logits, -float("inf")))
+    keys = row_keys(seedgen.words(base_key, dev), seedgen.words(uids, dev),
+                    seedgen.words(positions, dev))
+    pick = torch.argmax(masked + seedgen.gumbel(keys, v), dim=-1)
+    sampled = torch.gather(order, -1, pick[:, None])[:, 0]
+    return torch.where(greedy, argmax, sampled)

@@ -119,8 +119,8 @@ def test_config_json_round_trip_across_packages():
     assert spinner.dumps(pipe) == s
     assert jspinner.loads(spinner.dumps(pipe)) == jpipe
     seeded = jspinner.dumps(jspinner.single("circulant", 8, 16, seeded=True))
-    with pytest.raises(NotImplementedError, match="seeded"):
-        spinner.loads(seeded)
+    assert spinner.dumps(spinner.loads(seeded)) == seeded
+    assert spinner.loads(seeded).blocks[0].storage == 1
     with pytest.raises(ValueError, match="version"):
         spinner.loads(json.dumps({"version": 2, "f": "identity",
                                   "blocks": []}))

@@ -5,8 +5,10 @@ card (no jax there, so the repository's conftest is bypassed):
 
     PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
-Tolerances: spinner and srf_decode f32 max|kernel - plain| <= 1e-4 *
-max|plain|, bf16 2e-2; the paged gathers bit for bit (torch.equal).
+Tolerances: spinner, seeded spinner and srf_decode f32 max|kernel -
+plain| <= 1e-4 * max|plain|, bf16 2e-2; the paged gathers bit for bit
+(torch.equal), and the f32 seeded spinner bit for bit against the
+materialized spinner kernel on the params regenerated on the card.
 This file imports torch and the port only.
 """
 import pytest
@@ -99,3 +101,41 @@ def test_core_init_lands_on_generator_device(cuda_device):
         gen, srf_attention.SRFConfig(n_features=16, head_dim=8), 2)
         for t in blk.values()]
     assert leaves and all(t.is_cuda for t in leaves)
+
+
+@pytest.mark.cuda
+def test_seeded_kernel_matches_plain_and_materialized_on_card(cuda_device):
+    """The seeded spinner kernel, every kind x {identity, exp, cos_sin},
+    against its plain version (f32 1e-4, bf16 2e-2 of the largest value)
+    and, in f32, bit for bit against the materialized kernel run on
+    ``seedgen.grouped_params`` computed on the card; the (head, request)
+    serving shape through ``ops`` launches the kernel once."""
+    from repro_torch.kernels import seedgen
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    gsz, bsz, n, m = 3, 13, 64, 200
+    for kind in kspin.KERNEL_KINDS:
+        for epi in ("identity", "exp", "cos_sin"):
+            seeds = torch.randint(0, 2 ** 32, (gsz,), generator=gen,
+                                  device=cuda_device, dtype=torch.int64)
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                x = (torch.randn((gsz, bsz, n), generator=gen,
+                                 device=cuda_device) * n ** -0.25).to(dtype)
+                k = kspin.spinner_project_seeded_cuda(kind, seeds, x, m,
+                                                      epilogue=epi)
+                p = ref.spinner_project_seeded_ref(kind, seeds, x, m,
+                                                   epilogue=epi)
+                err = (k.float() - p.float()).abs().max().item()
+                assert err <= tol * p.float().abs().max().item(), \
+                    (kind, epi, dtype, err)
+                if dtype == torch.float32:
+                    gp = seedgen.grouped_params(kind, n, m, seeds)
+                    twin = kspin.spinner_project_cuda(
+                        kind, gp["g"].contiguous(), x, m, d0=gp["d0"],
+                        d1=gp["d1"], epilogue=epi)
+                    assert torch.equal(k, twin), (kind, epi)
+    x = torch.randn((64, 4, 128), device=cuda_device)
+    before = kspin.spinner_project_seeded_cuda.launches
+    y = ops.spinner_project_seeded("circulant", torch.arange(
+        64, device=cuda_device), x, 256, grouped=True)
+    assert y.shape == (64, 4, 256) and torch.isfinite(y).all()
+    assert kspin.spinner_project_seeded_cuda.launches == before + 1

@@ -408,15 +408,22 @@ def test_chunk_policy_decode_cadence_and_budget():
 
 
 def test_unported_requests_are_refused(models):
+    """What the port does not serve yet is refused: enc-dec requests,
+    live quality probes and mesh-sharded pools. Sampled requests and
+    embed seeds are served (``test_torch_sampling``,
+    ``test_torch_seeded``)."""
     _, _, cfg, params = models
     eng = Engine(cfg, params, batch_slots=2, max_len=64, device="cpu")
     prompt = np.arange(3, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.submit(Request(uid=0, prompt=prompt, temperature=0.8))
-    with pytest.raises(NotImplementedError, match="seeded"):
-        eng.submit(Request(uid=1, prompt=prompt, embed_seed=7))
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        eng.submit(Request(uid=0, prompt=prompt,
+                           enc_emb=np.zeros((4, 8), np.float32)))
+    eng.submit(Request(uid=1, prompt=prompt, temperature=0.8))
+    eng.submit(Request(uid=2, prompt=prompt, embed_seed=7))
     with pytest.raises(NotImplementedError):
         Engine(cfg, params, device="cpu", quality_every=64)
+    with pytest.raises(NotImplementedError):
+        Engine(cfg, params, device="cpu", mesh=object())
 
 
 def test_cli_full_width_by_default_and_reduced_opt_in(capsys):
