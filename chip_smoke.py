@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the CUDA
-kernels, holds each against its plain PyTorch version, then serves
-full-width qwen3-4b through the port's engine with full-KV pages (bf16,
-int8, prefix cache), with SRF attention, and with seeded SRF attention
+kernels, holds each against its plain PyTorch version, runs the paper's
+kernel estimates through the port's library, then serves full-width
+qwen3-4b through the port's engine with full-KV pages (bf16, int8,
+prefix cache), with SRF attention, and with seeded SRF attention
 (per-request embed seeds, greedy and sampled requests in one batch).
 
     python3 chip_smoke.py
@@ -35,10 +36,26 @@ result line):
      The plain stateless sampler is timed at the full-width decode
      shape (8 rows x 151936 logits, mixed greedy and sampled rows):
      device time under ``torch.profiler``, and time a call by events.
+   * fwht at the reference test shapes, (8192, 1024) and (4096, 16384),
+     f32 and bf16, normalized and not; circulant_project at the five
+     reference test shapes and g (4, 1024), x (8192, 1024), m = 4096,
+     every epilogue, f32 and bf16: within ``tests/test_kernels.py``'s
+     ``_tol`` of the plain version (exp in log space; heaviside where
+     |y| > 1e-3, the flips below counted). Then the public ops alone at
+     the real shapes, their launches counted (0 before, read after).
+     Times at (8192, 1024) f32 and at the real circulant shape beside
+     ``x @ H_n`` and ``x @ A.T``.
    Times: CUDA events over back-to-back launches queued behind a device
-   sleep, median of 5 repeats; the gathers cycle through 36 layer pools,
-   as a decode step does, so pages come from HBM.
-3. Serve full-width qwen3-4b (36 layers, d_model 2560, 32 q / 8 kv heads
+   sleep, median of 5 repeats (3 for the circulant); the gathers cycle
+   through 36 layer pools, as a decode step does, so pages come from HBM.
+3. The kernel-estimation library: ``estimators.estimate`` of 8192 pairs
+   of unit vectors (n = 1024, m = 4096 and 256; ``spinner.single`` and
+   ``spinner.hd_chain`` depth 3, circulant; f identity, heaviside,
+   sign, relu, trig, softmax), the card route against the plain route
+   on the same params, the error falling with m, the spinner launched
+   and never its plain version; ``mc_error`` for the sweep of
+   ``examples/kernel_approx.py``.
+4. Serve full-width qwen3-4b (36 layers, d_model 2560, 32 q / 8 kv heads
    of 128, bf16), random weights from a seeded torch.Generator, 8 greedy
    requests (prompt 128, 32 new tokens, 8 slots, max_len 256): with full
    KV on bf16 pages, on int8 pages, and with the prefix cache (prompts
@@ -55,14 +72,17 @@ result line):
    distinct non-zero seed for uids 4-7, odd uids sampled (temperature
    0.8, top_k 40, top_p 0.95), even uids greedy; the seeded spinner at
    least 72 per step, srf_decode exactly 36 per decode step, the
-   materialized spinner and the seeded plain route never. Reduced
+   materialized spinner and the seeded plain route never. Both SRF
+   runs publish exactly one live quality sample (``srf_quality`` gauge,
+   stats finite and under ``DRIFT_TOL``, no ``quality_drift``). Reduced
    configs (SRF; full KV with bf16 and with int8 pages; seeded SRF with
    mixed embed seeds and mixed greedy / sampled requests) are also
    served on the card and on the CPU (plain versions); their tokens
    must be equal.
-4. Print the card (nvidia-smi name, power limit), one JSON line with a
+5. Print the card (nvidia-smi name, power limit), one JSON line with a
    record per kernel, and the result line. ``library_ms`` is
-   ``pool[tables]`` for paged_gather and null for the others: no single
+   ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
+   for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
    (nor with A, D0 and D1 regenerated from a seed), the fused in-place
    SRF state update and readout, or a gather fused with the int8
@@ -556,8 +576,307 @@ def phase_paged_gather(gen):
     return records
 
 
+def allclose(name, k, p, rtol, atol):
+    """Elementwise |k - p| <= atol + rtol |p| (``tests/test_kernels.py``'s
+    ``_tol`` numbers); returns max|k - p|."""
+    if k.shape != p.shape:
+        raise AssertionError(f"{name}: shape {tuple(k.shape)} != "
+                             f"{tuple(p.shape)}")
+    k, p = k.float(), p.float()
+    if not torch.isfinite(k).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (k - p).abs()
+    bad = int((diff > atol + rtol * p.abs()).sum())
+    err = diff.max().item() if diff.numel() else 0.0
+    if bad:
+        raise AssertionError(f"{name}: {bad} elements outside rtol={rtol}, "
+                             f"atol={atol} (max|k-p| {err:.3e})")
+    return err
+
+
+def _tol(dtype, epilogue="identity"):
+    """``tests/test_kernels.py:_tol``."""
+    if dtype == torch.bfloat16:
+        if epilogue in ("cos_sin", "exp"):
+            return dict(rtol=5e-2, atol=1.5e-1)
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=2e-5, atol=2e-5)
+
+
+FWHT_TEST = [(1, 8), (4, 64), (16, 128), (5, 512), (300, 32)]
+FWHT_REAL = [(8192, 1024), (4096, 16384)]
+
+
+def _fwht_module():
+    import importlib          # ``repro_torch.kernels`` re-exports op fwht
+    return importlib.import_module("repro_torch.kernels.fwht")
+
+
+def phase_fwht(gen):
+    """ops.fwht at the reference test shapes and at (8192, 1024) and
+    (4096, 16384), f32 and bf16, normalized and not, against the plain
+    version (``_tol``); then the public op alone at the two real shapes
+    (its counted launches); times at (8192, 1024) f32: the kernel, the
+    plain version, the bound, and ``x @ H_n`` with the dense normalized
+    Hadamard (the one PyTorch call computing the same function)."""
+    from repro_torch.core import transforms
+    from repro_torch.kernels import ops, ref
+    kfwht = _fwht_module()
+    dev, errs, equal, cases = "cuda", [], 0, 0
+    for b, n in FWHT_TEST + FWHT_REAL:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, n), generator=gen, device=dev).to(dtype)
+            for normalized in (True, False):
+                k = kfwht.fwht_cuda(x, normalized)
+                p = ref.fwht_ref(x, normalized)
+                err = allclose(f"fwht ({b}, {n}) {str(dtype)[6:]} "
+                               f"normalized={normalized}", k, p,
+                               **_tol(dtype))
+                equal += torch.equal(k, p)
+                cases += 1
+                if (b, n) == FWHT_REAL[0] and dtype == torch.float32 \
+                        and normalized:
+                    errs.append(err)
+    log(f"  fwht: {cases} cases within _tol of the plain version, {equal} "
+        f"bit-equal")
+    xs = {(b, n, dt): torch.randn((b, n), generator=gen, device=dev).to(dt)
+          for b, n in FWHT_REAL for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    for x in xs.values():
+        ops.fwht(x)
+    counts = ops.launch_counts()
+    if counts["fwht"] != len(xs) or counts["fwht_plain_on_cuda"]:
+        raise AssertionError(f"fwht: the public op at the real shapes "
+                             f"launched {counts}")
+    b, n = FWHT_REAL[0]
+    x = xs[(b, n, torch.float32)]
+    h = transforms.hadamard(n, device=dev)
+    k_ms = device_ms(lambda: kfwht.fwht_cuda(x))
+    p_ms = device_ms(lambda: ref.fwht_ref(x), launches=20, repeats=3)
+    lib_ms = device_ms(lambda: x @ h)
+    b_ms, b_by = bound(2 * 4 * b * n, b * n * math.log2(n) + b * n)
+    big = xs[(*FWHT_REAL[1], torch.float32)]
+    big_ms = device_ms(lambda: kfwht.fwht_cuda(big), launches=20)
+    big_b, _ = bound(2 * 4 * big.numel(), 0)
+    log(f"    ({b}, {n}) f32: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+        f"x @ H_n {lib_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by}); "
+        f"{FWHT_REAL[1]} f32: kernel {big_ms:.4f} ms  bound {big_b:.5f} ms")
+    return dict(err=max(errs), ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, launches=counts["fwht"])
+
+
+CIRC_TEST = [(1, 16, 4, 16), (2, 32, 8, 48), (4, 64, 16, 256),
+             (1, 128, 300, 128), (2, 256, 7, 512)]
+CIRC_REAL = (4, 1024, 8192, 4096)      # g (4, 1024), x (8192, 1024), m
+STEP_EPS = 1e-3                        # |y| below it: a step may flip
+
+
+def _circ_inputs(nb, n, b, dtype, gen, unit=False):
+    dev = "cuda"
+    g = torch.randn((nb, n), generator=gen, device=dev).to(dtype)
+    x = torch.randn((b, n), generator=gen, device=dev)
+    x = x / x.norm(dim=-1, keepdim=True) if unit else x * 0.3
+    x = x.to(dtype)
+    return g, x, 0.5 * (x.float() ** 2).sum(-1)
+
+
+def phase_circulant(gen):
+    """ops.circulant_project at the five reference test shapes and the real
+    shape (g (4, 1024), unit-norm x (8192, 1024), m = 4096), every
+    epilogue, f32 and bf16, against the plain version (``_tol``; exp in
+    log space; heaviside where |y| of the plain version exceeds
+    STEP_EPS, the sign flips below it counted); then the public op
+    alone at the real shape, every epilogue and dtype (its counted
+    launches); times at the real shape, identity, f32: the kernel, the
+    plain version, the bound, and ``x @ A.T`` on the plain version's
+    own materialized A."""
+    from repro_torch.core import structured
+    from repro_torch.kernels import circulant as kcirc, ops, ref
+    flips, near, cases, errs = 0, 0, 0, []
+    for nb, n, b, m in CIRC_TEST + [CIRC_REAL]:
+        real = (nb, n, b, m) == CIRC_REAL
+        for dtype in (torch.float32, torch.bfloat16):
+            g, x, sq = _circ_inputs(nb, n, b, dtype, gen, unit=real)
+            y = ref.circulant_project_ref(g, x, m).float()
+            for epi in kcirc.EPILOGUES:
+                k = kcirc.circulant_project_cuda(g, x, m, epi, sq).float()
+                p = ref.circulant_project_ref(g, x, m, epi, sq).float()
+                name = (f"circulant ({nb}, {n}, {b}, {m}) {epi} "
+                        f"{str(dtype)[6:]}")
+                if epi == "exp":
+                    k, p = k.log(), p.log()
+                if epi == "heaviside":
+                    close = y.abs() <= STEP_EPS
+                    near += int(close.sum())
+                    flips += int((k != p)[close].sum())
+                    k, p = k[~close], p[~close]
+                err = allclose(name, k, p, **_tol(dtype, epi))
+                if real and dtype == torch.float32 and epi == "identity":
+                    errs.append(err)
+                cases += 1
+    log(f"  circulant: {cases} cases within _tol of the plain version; "
+        f"heaviside: {flips} sign flips among {near} outputs with "
+        f"|y| <= {STEP_EPS}")
+    nb, n, b, m = CIRC_REAL
+    ins = {dt: _circ_inputs(nb, n, b, dt, gen, unit=True)
+           for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    for g, x, sq in ins.values():
+        for epi in kcirc.EPILOGUES:
+            ops.circulant_project(g, x, m, epi, sq)
+    counts = ops.launch_counts()
+    if counts["circulant_project"] != 2 * len(kcirc.EPILOGUES):
+        raise AssertionError(f"circulant: the public op at the real shape "
+                             f"launched {counts}")
+    g, x, _ = ins[torch.float32]
+    a = ref.circulant_matrix(g, m)
+    k_ms = device_ms(lambda: kcirc.circulant_project_cuda(g, x, m),
+                     launches=10, repeats=3)
+    p_ms = device_ms(lambda: ref.circulant_project_ref(g, x, m),
+                     launches=10, repeats=3)
+    lib_ms = device_ms(lambda: x @ a.T, launches=10, repeats=3)
+    b_ms, b_by = bound(4 * (b * n + nb * n + b * m),
+                       b * structured.flops_fast("circulant", m, n))
+    log(f"    real shape f32 identity: kernel {k_ms:.4f} ms  plain "
+        f"{p_ms:.4f} ms  x @ A.T {lib_ms:.4f} ms  bound {b_ms:.5f} ms "
+        f"({b_by}); the kernel's {b * m * n / 1e9:.1f} G FMAs at "
+        f"{2 * b * m * n / k_ms / 1e9:.1f} TFLOP/s")
+    return dict(err=max(errs), ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                launches=counts["circulant_project"])
+
+
 # ---------------------------------------------------------------------------
-# phase 3: serve
+# phase 3: the kernel-estimation library
+# ---------------------------------------------------------------------------
+
+FNAMES = ("identity", "heaviside", "sign", "relu", "trig", "softmax")
+STEP_F = {"heaviside": 1.0, "sign": 2.0}   # the most one flip moves a term
+
+
+class plain_route:
+    """Inside: every spinner call on the card takes the dispatcher's plain
+    version (its written rule, ``kernel_takes``, forced false). The
+    plain calls made inside are not counted, and no kernel launches."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved = (ops.kernel_takes, ops.spinner_project.plain_calls,
+                      ops.launch_counts()["spinner"])
+        ops.kernel_takes = lambda *a, **k: False
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.kernel_takes, ops.spinner_project.plain_calls, launched = \
+            self.saved
+        if ops.launch_counts()["spinner"] != launched:
+            raise AssertionError("the plain route launched the kernel")
+
+
+def _near_step(pipe, params, v):
+    """Per row: how many of the last block's projections lie within
+    1e-4 of the largest of them (f32 summation-order noise), where a
+    step f may flip between the kernel and the plain version."""
+    y = pipe.with_f("identity").apply(params, v)
+    return (y.abs() <= 1e-4 * y.abs().max()).sum(-1)
+
+
+def phase_estimators(gen):
+    """The paper's kernel estimates (``core.estimators.estimate``) of
+    N = 8192 pairs of unit vectors of width n = 1024 with features of
+    width m = 4096, through spinner.single and spinner.hd_chain (depth
+    3) circulant pipelines, f in FNAMES: the card route (spinner kernel)
+    against the plain route on the same params (1e-4 of the largest
+    plain estimate; step f also within the terms that may flip); mean
+    |estimate - exact| per f, which must fall from m = 256 to m = 4096.
+    Then ``mc_error`` for the sweep of examples/kernel_approx.py (n=128;
+    unstructured, circulant, toeplitz, ldr; heaviside and trig; m 16 ...
+    1024; 32 trials): the error at m = 1024 below m = 16 everywhere."""
+    from repro_torch.core import estimators, spinner
+    from repro_torch.kernels import ops
+    dev = "cuda"
+    N, n = 8192, 1024
+    v = torch.randn((2, N, n), generator=gen, device=dev)
+    v1, v2 = v / v.norm(dim=-1, keepdim=True)
+    closed = {f: estimators.exact(f, v1, v2) for f in FNAMES}
+    errs, worst = {}, 0.0
+    ops.reset_counts()
+    for build in ("single", "hd_chain"):
+        for m in (256, 4096):
+            kw = dict(m=m, n=n) if build == "single" else \
+                dict(n=n, m=m, depth=3)
+            pipe = getattr(spinner, build)("circulant", **kw)
+            params = pipe.init(gen)
+            for f in FNAMES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est = estimators.estimate(pipe, params, f, v1, v2)
+                torch.cuda.synchronize()
+                t_card = time.perf_counter() - t0
+                errs[(build, m, f)] = (est - closed[f]).abs().mean().item()
+                if m != 4096:
+                    continue
+                with plain_route():
+                    t0 = time.perf_counter()
+                    plain = estimators.estimate(pipe, params, f, v1, v2)
+                    torch.cuda.synchronize()
+                    t_plain = time.perf_counter() - t0
+                limit = 1e-4 * plain.abs().max().item()
+                if f in STEP_F:
+                    limit = limit + STEP_F[f] / m * (
+                        _near_step(pipe, params, v1)
+                        + _near_step(pipe, params, v2)).float()
+                diff = (est - plain).abs()
+                if not torch.isfinite(est).all() or (diff > limit).any():
+                    raise AssertionError(
+                        f"estimate {build} m={m} {f}: card route differs "
+                        f"from the plain route by {diff.max().item():.3e}")
+                worst = max(worst, diff.max().item())
+                log(f"  estimate {build} m={m} {f}: mean|est-exact| "
+                    f"{errs[(build, m, f)]:.5f} (m=256: "
+                    f"{errs[(build, 256, f)]:.5f}); card {1e3 * t_card:.1f} "
+                    f"ms, plain route {1e3 * t_plain:.1f} ms (host clock)")
+    counts = ops.launch_counts()
+    log(f"    launches (card routes): {counts}; max|card - plain| "
+        f"{worst:.3e}")
+    if counts["spinner"] <= 0 or counts["spinner_plain_on_cuda"]:
+        raise AssertionError(f"estimators: spinner launches {counts}")
+    for build in ("single", "hd_chain"):
+        for f in FNAMES:
+            if not errs[(build, 4096, f)] < errs[(build, 256, f)]:
+                raise AssertionError(f"estimate {build} {f}: the error did "
+                                     f"not fall from m=256 to m=4096")
+
+    n = 128
+    w = torch.randn((2, n), generator=gen, device=dev)
+    w1, w2 = w / w.norm(dim=-1, keepdim=True)
+    ops.reset_counts()
+    log("    mc_error (kind, f, m, mean, std):")
+    for kind in ("unstructured", "circulant", "toeplitz", "ldr"):
+        for f in ("heaviside", "trig"):
+            row = {}
+            for m in (16, 64, 256, 1024):
+                g = torch.Generator(device=dev).manual_seed(5)
+                mean, std = estimators.mc_error(
+                    g, spinner.single(kind, m=m, n=n, r=2), f, w1, w2,
+                    n_trials=32)
+                row[m] = (mean.item(), std.item())
+            log(f"      {kind},{f}: " + "  ".join(
+                f"m={m} {a:.5f}/{b:.5f}" for m, (a, b) in row.items()))
+            if not row[1024][0] < row[16][0]:
+                raise AssertionError(f"mc_error {kind} {f}: the error did "
+                                     f"not fall from m=16 to m=1024")
+    counts = ops.launch_counts()
+    log(f"    mc_error launches: {counts} (ldr by the plain rule)")
+    if counts["spinner"] <= 0 or \
+            counts["spinner_plain_on_cuda"] != 2 * 4 * 32 * 2:
+        raise AssertionError(f"mc_error: launches {counts}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve
 # ---------------------------------------------------------------------------
 
 def serve_args(attn=None, **kw):
@@ -675,7 +994,8 @@ def _check_serve(label, res, args, counts, expect):
         raise AssertionError(f"{label}: {eng.nonfinite_rows} logit rows "
                              f"not finite")
     for name in ("paged_gather", "paged_gather_dequant", "spinner_seeded",
-                 "spinner_seeded_plain_on_cuda"):
+                 "spinner_seeded_plain_on_cuda", "fwht", "fwht_plain_on_cuda",
+                 "circulant_project"):
         expect.setdefault(name, (0, True))
     for name, (n, is_exact) in expect.items():
         got = counts[name]
@@ -791,6 +1111,50 @@ def phase_serve_kv():
     return out
 
 
+class count_probes:
+    """Counts the live quality probe's calls inside the block (the
+    engine looks the probe up in ``obs.quality`` at each call)."""
+
+    def __enter__(self):
+        from repro_torch.obs import quality
+        self.calls, self.probe = 0, quality.srf_quality_probe
+
+        def probe(*a, **k):
+            self.calls += 1
+            return self.probe(*a, **k)
+        quality.srf_quality_probe = probe
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.obs import quality
+        quality.srf_quality_probe = self.probe
+
+
+def _check_probe(label, res, probes):
+    """Exactly one probe sample in the run (the engine primes it for the
+    first decode step; quality_every = 64 > 31 decode steps), both stats
+    finite and under DRIFT_TOL in the engine's srf_quality gauge, no
+    quality_drift event; prints the probe's host time, sync included."""
+    from repro_torch.obs import quality
+    eng = res["engine"]
+    gauge = eng.metrics.snapshot()["gauges"].get("srf_quality", {})
+    stats = {k.split('stat="')[1].rstrip('"'): v for k, v in gauge.items()}
+    drift = [e for e in eng.metrics.events if e["event"] == "quality_drift"]
+    if probes.calls != 1 or set(stats) != {"srf_row_mean_abs_max",
+                                           "srf_row_var_err_max"}:
+        raise AssertionError(f"{label}: {probes.calls} quality samples, "
+                             f"gauge {stats}")
+    if drift or not all(math.isfinite(v) and v < quality.DRIFT_TOL
+                        for v in stats.values()):
+        raise AssertionError(f"{label}: quality drifted: {stats}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quality.srf_quality_probe(eng.cfg, eng.params)
+    ms = 1e3 * (time.perf_counter() - t0)
+    log(f"    quality probe: 1 sample, {stats}, no drift; one probe "
+        f"{ms:.2f} ms (host clock)")
+
+
 def phase_serve_srf():
     """Full-width qwen3-4b with SRF attention, as in the first slice: the
     spinner and srf_decode kernels launch at least 72 per step and 36 per
@@ -805,7 +1169,8 @@ def phase_serve_srf():
     serve.warm(args, cfg, params)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    res = serve.serve(args, cfg, params)
+    with count_probes() as probes:
+        res = serve.serve(args, cfg, params)
     counts = ops.launch_counts()
     eng = res["engine"]
     steps, dsteps = _steps(eng), int(eng.stats["decode_steps"])
@@ -814,6 +1179,7 @@ def phase_serve_srf():
     _check_serve("SRF", res, args, counts, {
         "spinner": (2 * cfg.n_layers * steps, False),
         "srf_decode": (cfg.n_layers * dsteps, False)})
+    _check_probe("SRF", res, probes)
     return counts
 
 
@@ -836,8 +1202,9 @@ def phase_serve_seeded():
     serve.warm(args, cfg, params)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    res = serve.serve(args, cfg, params,
-                      reqs=_personalize(serve.requests(args, cfg)))
+    with count_probes() as probes:
+        res = serve.serve(args, cfg, params,
+                          reqs=_personalize(serve.requests(args, cfg)))
     counts = ops.launch_counts()
     eng = res["engine"]
     steps, dsteps = _steps(eng), int(eng.stats["decode_steps"])
@@ -848,6 +1215,7 @@ def phase_serve_seeded():
         "spinner_seeded": (2 * cfg.n_layers * steps, False),
         "srf_decode": (cfg.n_layers * dsteps, True), "spinner": (0, True),
         "spinner_seeded_plain_on_cuda": (0, True)})
+    _check_probe("seeded SRF", res, probes)
     seeded_bytes = sum(t.numel() * t.element_size() for blk in
                        params["segments"][0]["attn"]["srf"]
                        for t in blk.values())
@@ -900,7 +1268,8 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log("phase 1: build")
     t0 = time.perf_counter()
-    libs = build.build(["spinner", "srf_decode", "paged_gather"])
+    libs = build.build(["spinner", "srf_decode", "paged_gather", "fwht",
+                        "circulant"])
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda")
@@ -910,9 +1279,16 @@ def main() -> int:
     seeded = phase_seeded_spinner(gen)
     dec = phase_srf_decode(gen)
     gather = phase_paged_gather(gen)
+    fwht = phase_fwht(gen)
+    circ = phase_circulant(gen)
     phase_sampler(gen)
 
-    log("phase 3: serve")
+    log("phase 3: the kernel-estimation library")
+    phase_estimators(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 4: serve")
     phase_reduced_agreement()
     phase_reduced_seeded_agreement()
     kv = phase_serve_kv()
@@ -951,7 +1327,16 @@ def main() -> int:
                 seeded_srf["spinner_seeded"],
                 seeded[("decode query", torch.bfloat16)],
                 "decode query: G=64 (8 kv heads x 8 requests), B=4, n=128, "
-                "m=256, bf16, identity")]
+                "m=256, bf16, identity"),
+        _record("fwht", src + "fwht.cu", "src/repro/kernels/fwht.py:25",
+                fwht["launches"], fwht,
+                "B=8192, n=1024, f32, normalized; launches: phase_fwht's "
+                "public-op run, (8192, 1024) and (4096, 16384) x f32, bf16"),
+        _record("circulant_project", src + "circulant.cu",
+                "src/repro/kernels/circulant.py:46", circ["launches"], circ,
+                "g (4, 1024), x (8192, 1024), m=4096, f32, identity; "
+                "launches: phase_circulant's public-op run, 5 epilogues x "
+                "f32, bf16")]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,15 @@
 """Feature maps phi of the paper: phi(v) = f(A_k ... A_1 v) / sqrt(m).
 
-Port of ``repro.core.features`` (phi_scalar, phi_trig, phi_softmax_pos).
-Every phi takes a ``spinner.SpinnerPipeline`` plus its params tuple; the
-projection chain, f and the scaling run as one fused spinner call per
-block. ``grouped=True`` runs G independent pipelines (leading axis on x
-and on every param leaf) — the per-kv-head layout of SRF attention.
+Port of ``repro.core.features`` (phi_scalar, phi_trig, phi_softmax_pos,
+phi_softmax_trig). Every phi takes a ``spinner.SpinnerPipeline`` plus
+its params tuple; the projection chain, f and the scaling run as one
+fused spinner call per block. ``grouped=True`` runs G independent
+pipelines (leading axis on x and on every param leaf) — the per-kv-head
+layout of SRF attention.
+
+Back-compat: a legacy ``pmodel.PModelSpec`` (+ a bare params dict) is
+accepted with a ``DeprecationWarning`` and converted to the equivalent
+1-block pipeline (``spinner.as_pipeline``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ def phi_scalar(pipe: SpinnerPipeline, params, x: torch.Tensor,
                ) -> torch.Tensor:
     """phi(x) = f(proj(x)) / sqrt(m); a registered scalar f is fused as
     the kernel epilogue, a callable runs after the projection."""
+    pipe = spinner.as_pipeline(pipe)
     if isinstance(f, str):
         try:
             nl = spinner.nonlinearity(f)
@@ -66,6 +72,7 @@ def phi_softmax_pos(pipe: SpinnerPipeline, params, x: torch.Tensor,
     kernel. ``stabilize=True`` (queries): the projection is fused, the
     overflow-safe exp(z - max z) runs outside.
     """
+    pipe = spinner.as_pipeline(pipe)
     x = x * scale
     if not stabilize:
         return pipe.with_f("exp").apply(params, x,
@@ -76,3 +83,17 @@ def phi_softmax_pos(pipe: SpinnerPipeline, params, x: torch.Tensor,
     z = y - sq
     z = z - torch.amax(z, dim=-1, keepdim=True).detach()
     return torch.exp(z) / math.sqrt(pipe.m_out)
+
+
+def phi_softmax_trig(pipe: SpinnerPipeline, params, x: torch.Tensor,
+                     scale: float = 1.0, grouped: bool = False
+                     ) -> torch.Tensor:
+    """Trigonometric softmax features (paper Sec 2.1 ex. 3):
+    exp(<q,k>) = e^{(|q|^2+|k|^2)/2} E[cos(y_q - y_k)]. Unbiased but
+    signed."""
+    pipe = spinner.as_pipeline(pipe)
+    x = x * scale
+    z = pipe.with_f("cos_sin").apply(params, x, out_scale=_inv_sqrt_m(pipe),
+                                     grouped=grouped)
+    sq = 0.5 * torch.sum(x * x, dim=-1, keepdim=True)
+    return z * torch.exp(sq)

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import json
 import math
+import warnings
 from dataclasses import asdict, dataclass, replace
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -462,6 +463,24 @@ class SpinnerPipeline:
         params = self.block_params(params)
         return tuple(b.row_gaussianity_moments(p)
                      for b, p in zip(self.blocks, params))
+
+
+def as_pipeline(obj) -> SpinnerPipeline:
+    """SpinnerPipeline passthrough; anything carrying an equivalent
+    ``.pipeline`` property (the legacy ``PModelSpec``) converts with a
+    ``DeprecationWarning``. The shared entry point of the features /
+    estimators migration path."""
+    if isinstance(obj, SpinnerPipeline):
+        return obj
+    pipe = getattr(obj, "pipeline", None)
+    if isinstance(pipe, SpinnerPipeline):
+        warnings.warn(
+            f"passing {type(obj).__name__} here is deprecated; pass a "
+            "spinner.SpinnerPipeline (see core/README.md migration table)",
+            DeprecationWarning, stacklevel=3)
+        return pipe
+    raise TypeError(f"expected SpinnerPipeline (or legacy PModelSpec), "
+                    f"got {type(obj).__name__}")
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,10 @@ def is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
+def next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
 @lru_cache(maxsize=32)
 def _hadamard_np(n: int) -> np.ndarray:
     """Unnormalized Sylvester Hadamard matrix as a cached numpy array."""
@@ -98,3 +102,12 @@ def hd_preprocess(x: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
     """Paper Step 1:  x -> D1 . H . D0 . x  (normalized H; isometry)."""
     f = fwht_kron if use_kron else fwht
     return d1 * f(d0 * x)
+
+
+def pad_pow2(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the last axis to the next power of two (for HD preproc)."""
+    n = x.shape[-1]
+    p = next_pow2(n)
+    if p == n:
+        return x
+    return torch.nn.functional.pad(x, (0, p - n))

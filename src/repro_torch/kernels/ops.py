@@ -1,8 +1,8 @@
 """Dispatchers between the CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``repro.kernels.ops`` for the kernels ported so far:
-the spinner, the seeded spinner, SRF decode and the two paged gathers.
-Routing follows where the tensor lies:
+Counterpart of ``repro.kernels.ops``: the spinner, the seeded spinner,
+SRF decode, the two paged gathers, the Walsh-Hadamard transform and the
+block-circulant projection. Routing follows where the tensor lies:
 
 * a CUDA tensor goes to the kernel, or raises if the kernel refuses it —
   there is no fallback that hides a kernel failure;
@@ -11,7 +11,12 @@ Routing follows where the tensor lies:
   non-power-of-two n, n > 8192 — the reference's ``pallas_ok`` rule)
   goes to the plain version on either device, and on the card such a
   call is counted in ``spinner_project.plain_calls`` (seeded:
-  ``spinner_project_seeded.plain_calls``).
+  ``spinner_project_seeded.plain_calls``);
+* an fwht with n > ``fwht.MAX_N`` (16384, the reference kernel's
+  Kronecker range) goes to the plain version on either device, and on
+  the card such a call is counted in ``fwht.plain_calls``. The
+  circulant kernel takes every valid call (any n, m <= nb * n): it has
+  no such rule.
 
 There is no interpret route and no block-size plan cache: block sizes
 are the kernels' own. Launch counts live on the kernel wrappers
@@ -19,7 +24,9 @@ are the kernels' own. Launch counts live on the kernel wrappers
 ``spinner.spinner_project_seeded_cuda.launches``,
 ``srf_decode.srf_decode_cuda.launches``,
 ``paged_gather.paged_gather_cuda.launches``,
-``paged_gather.paged_gather_dequant_cuda.launches``);
+``paged_gather.paged_gather_dequant_cuda.launches``,
+``fwht.fwht_cuda.launches``,
+``circulant.circulant_project_cuda.launches``);
 :func:`launch_counts` reads them and :func:`reset_counts` zeroes them.
 """
 from __future__ import annotations
@@ -30,6 +37,8 @@ import torch
 
 from repro_torch.core import transforms
 
+from . import circulant as _circ
+from . import fwht as _fwht
 from . import paged_gather as _pg
 from . import ref as _ref
 from . import spinner as _spin
@@ -44,7 +53,10 @@ def launch_counts() -> Dict[str, int]:
             "spinner_seeded": _spin.spinner_project_seeded_cuda.launches,
             "spinner_plain_on_cuda": spinner_project.plain_calls,
             "spinner_seeded_plain_on_cuda":
-                spinner_project_seeded.plain_calls}
+                spinner_project_seeded.plain_calls,
+            "fwht": _fwht.fwht_cuda.launches,
+            "fwht_plain_on_cuda": fwht.plain_calls,
+            "circulant_project": _circ.circulant_project_cuda.launches}
 
 
 def reset_counts() -> None:
@@ -55,6 +67,47 @@ def reset_counts() -> None:
     _spin.spinner_project_seeded_cuda.launches = 0
     spinner_project.plain_calls = 0
     spinner_project_seeded.plain_calls = 0
+    _fwht.fwht_cuda.launches = 0
+    fwht.plain_calls = 0
+    _circ.circulant_project_cuda.launches = 0
+
+
+def fwht(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
+    """(..., n) -> (..., n) Walsh-Hadamard transform (Sylvester order, n a
+    power of two), scaled by 1/sqrt(n) when ``normalized``; f32
+    arithmetic, one cast to x's dtype."""
+    n = x.shape[-1]
+    if not transforms.is_pow2(n):
+        raise ValueError(f"fwht needs power-of-two length, got {n}")
+    rows = x.reshape(-1, n)
+    if x.is_cuda and n <= _fwht.MAX_N:
+        y = _fwht.fwht_cuda(rows.contiguous(), normalized)
+    else:
+        if x.is_cuda:
+            fwht.plain_calls += 1
+        y = _ref.fwht_ref(rows, normalized)
+    return y.reshape(x.shape)
+
+
+fwht.plain_calls = 0
+
+
+def circulant_project(g: torch.Tensor, x: torch.Tensor, m: int,
+                      epilogue: str = "identity",
+                      sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-circulant projection f(x . A^T), A regenerated from the (nb, n)
+    generators g: x (B, n) -> (B, m), or (B, 2m) = [cos | sin] for
+    cos_sin; ``sq`` (B,) is the subtrahend of exp (exp(y - sq))."""
+    if epilogue not in _ref.CIRCULANT_EPILOGUES:
+        raise ValueError(f"circulant_project: epilogue {epilogue!r} not in "
+                         f"{_ref.CIRCULANT_EPILOGUES}")
+    nb, n = g.shape
+    if nb * n < m:
+        raise ValueError(f"generators cover {nb * n} rows < m={m}")
+    if x.is_cuda:
+        return _circ.circulant_project_cuda(g.contiguous(), x.contiguous(),
+                                            m, epilogue, sq)
+    return _ref.circulant_project_ref(g, x, m, epilogue, sq)
 
 
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:

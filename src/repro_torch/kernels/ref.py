@@ -15,6 +15,56 @@ import torch
 from repro_torch.core import structured, transforms
 
 
+def fwht_ref(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
+    """(B, n) -> (B, n) Walsh-Hadamard transform (Sylvester order), in f32
+    with one cast to x's dtype on the way out: the CUDA kernel's (and the
+    TPU kernel's) numerics. The reference's jnp oracle rounds bf16 input
+    at every butterfly stage instead."""
+    return transforms.fwht(x.float(), normalized=normalized).to(x.dtype)
+
+
+CIRCULANT_EPILOGUES = ("identity", "relu", "heaviside", "exp", "cos_sin")
+
+
+def circulant_matrix(g: torch.Tensor, m: int) -> torch.Tensor:
+    """Dense (m, n) block-circulant A of generators g (nb, n):
+    A[i, j] = g[i // n, (j - i mod n) mod n]."""
+    nb, n = g.shape
+    i = torch.arange(nb * n, device=g.device)
+    j = torch.arange(n, device=g.device)
+    return g[(i // n)[:, None], (j[None, :] - (i % n)[:, None]) % n][:m]
+
+
+def circulant_project_ref(g: torch.Tensor, x: torch.Tensor, m: int,
+                          epilogue: str = "identity",
+                          sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-circulant projection with a fused feature epilogue.
+
+    g: (nb, n) block generators; x: (B, n); out: (B, m) —
+    y[B, i] = sum_j x[B, j] g[b(i), (j - i') mod n],  i = b(i)*n + i'.
+    epilogues: identity | relu | heaviside | exp (exp(y - sq[B])) |
+    cos_sin (out dim 2m: [cos(y), sin(y)]). f32 math, one cast to x's
+    dtype on the way out (the reference's jnp oracle rounds bf16 after
+    the product).
+    """
+    y = x.float() @ circulant_matrix(g.float(), m).T
+    if epilogue == "identity":
+        out = y
+    elif epilogue == "relu":
+        out = torch.relu(y)
+    elif epilogue == "heaviside":
+        out = (y >= 0).float()
+    elif epilogue == "exp":
+        if sq is None:
+            raise ValueError("circulant_project: exp needs sq")
+        out = torch.exp(y - sq.float()[:, None])
+    elif epilogue == "cos_sin":
+        out = torch.cat([torch.cos(y), torch.sin(y)], dim=-1)
+    else:
+        raise ValueError(epilogue)
+    return out.to(x.dtype)
+
+
 def _spinner_epilogue(y: torch.Tensor, x: torch.Tensor, epilogue: str,
                       out_scale: float) -> torch.Tensor:
     """Pointwise f of the spinner; ``x`` is the pre-HD input (for ``exp``

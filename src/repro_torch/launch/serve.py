@@ -5,7 +5,7 @@
         --cache-bytes 0 --chunk-tokens 0 --shared-prefix 0] \
         [--requests 16 --slots 8 --prompt-len 16 --max-new 24 \
         --max-len 128 --seed 0] [--temperature 0 --top-k 0 --top-p 1] \
-        [--reduced] [--device cuda]
+        [--quality-every 64 --quality-tol 0.5] [--reduced] [--device cuda]
 
 Full width is the default: ``--reduced`` opts into the tiny same-family
 config of ``configs.registry.reduced``. Without ``--attn`` the config's
@@ -15,7 +15,9 @@ are random tokens from ``numpy.random.default_rng(--seed)``, the first
 ``--shared-prefix`` of them common to every request. ``--temperature``
 0 decodes greedily; above 0 every request samples with ``--top-k`` and
 ``--top-p``, its noise keyed by ``--seed`` (the engine's seed), its uid
-and the token's index. The flags are the reference CLI's
+and the token's index. An SRF engine publishes the live quality probe
+(``srf_quality`` gauge) every ``--quality-every`` decode steps, the
+first decode step included. The flags are the reference CLI's
 (``repro.launch.serve``) for what the port serves, plus ``--device``.
 """
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.models import transformer as model_lib
+from repro_torch.obs import quality as quality_lib
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import Engine, PagedConfig, Request
 from repro_torch.serving.prefix import ChunkConfig, PrefixConfig
@@ -65,6 +68,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--quality-every", type=int, default=64,
+                    help="decode steps between SRF row-gaussianity quality "
+                         "samples (srf_quality gauge; 0 = off)")
+    ap.add_argument("--quality-tol", type=float,
+                    default=quality_lib.DRIFT_TOL,
+                    help="row-moment drift tolerance; exceeding it "
+                         "emits a quality_drift registry event")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -112,7 +122,9 @@ def engine(args, cfg, params) -> Engine:
     return Engine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
                   seed=args.seed, device=args.device,
                   paged=PagedConfig(quantize_kv=args.quantize_kv),
-                  prefix=prefix_config(args))
+                  prefix=prefix_config(args),
+                  quality_every=args.quality_every,
+                  quality_tol=args.quality_tol)
 
 
 def serve(args, cfg=None, params=None, eng: Optional[Engine] = None,

@@ -18,10 +18,12 @@ f32 scale per token; ``prefix=PrefixConfig(...)`` shares the KV pages of
 cached prompt prefixes across requests (radix trie, copy-on-write forks,
 chunked prefill; ``serving/prefix``). Preempted requests' pages and
 slots are snapshotted to pinned host memory and restored at
-re-admission.
+re-admission. An SRF engine samples the live quality probe
+(``obs/quality``) at its first decode step and every ``quality_every``
+decode steps after it, into the ``srf_quality`` gauge.
 
-Not ported yet, and refused if asked for: live quality probes,
-mesh-sharded pools and enc-dec memories.
+Not ported yet, and refused if asked for: mesh-sharded pools and enc-dec
+memories.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from repro_torch.kernels import seedgen
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import quality as obs_quality
 from repro_torch.obs import trace as obs_trace
 
 from . import paged_cache
@@ -123,7 +126,8 @@ class Engine:
     module docstring; ``prefix`` is silently off for a plan with no
     paged domain (SRF), which has no pages to share. ``seed`` keys the
     sampling noise (the key of ``jax.random.PRNGKey(seed)`` in the
-    reference); it never advances."""
+    reference); it never advances. ``quality_every`` (SRF configs only;
+    0 = off) and ``quality_tol`` drive the live quality probe."""
 
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 512, sched: Optional[SchedConfig] = None,
@@ -132,12 +136,11 @@ class Engine:
                  device="cuda", mesh=None,
                  paged: Optional[paged_cache.PagedConfig] = None,
                  prefix: Optional[PrefixConfig] = None,
-                 quality_every: int = 0):
-        for name, asked in (("mesh-sharded serving", mesh is not None),
-                            ("live quality probes", quality_every)):
-            if asked:
-                raise NotImplementedError(f"{name} is "
-                                          f"{attn_lib.NOT_IN_SLICE}")
+                 quality_every: int = 64,
+                 quality_tol: float = obs_quality.DRIFT_TOL):
+        if mesh is not None:
+            raise NotImplementedError(f"mesh-sharded serving is "
+                                      f"{attn_lib.NOT_IN_SLICE}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.plan = paged_cache.plan_for(cfg)
@@ -178,6 +181,11 @@ class Engine:
             self.sched.attach_prefix(self.prefix)
             self._chunk = ChunkPolicy(prefix.chunk)
         self._init_metrics()
+        self._quality_every = quality_every if cfg.attn_impl == "srf" else 0
+        self._quality_tol = quality_tol
+        # primed so the FIRST decode step publishes a sample: short runs
+        # (fewer than quality_every steps) still see the live gauge
+        self._steps_since_quality = max(0, self._quality_every - 1)
 
     def _init_metrics(self) -> None:
         lab = {"engine": self.engine_id}
@@ -215,6 +223,28 @@ class Engine:
             "decode_steps": self._c_decode_steps.value,
             "preemptions": self._c_preemptions.value,
         })
+
+    def _maybe_sample_quality(self) -> None:
+        """Every ``quality_every`` decode steps, publish the paper's row
+        statistics (Def. 1 calibration) of the live SRF params as the
+        ``srf_quality`` gauge, and a ``quality_drift`` event when they
+        leave ``quality_tol``."""
+        if not self._quality_every or not self.metrics.enabled:
+            return
+        self._steps_since_quality += 1
+        if self._steps_since_quality < self._quality_every:
+            return
+        self._steps_since_quality = 0
+        stats = obs_quality.srf_quality_probe(self.cfg, self.params)
+        if not stats:
+            return
+        gq = self.metrics.gauge("srf_quality", "live embedding row "
+                                "statistics (Def. 1)", ("engine", "stat"))
+        for k, v in stats.items():
+            gq.labels(engine=self.engine_id, stat=k).set(v)
+        if obs_quality.moments_drifted(stats, self._quality_tol):
+            self.metrics.event("quality_drift", engine=self.engine_id,
+                               tol=self._quality_tol, **stats)
 
     # -- public API ---------------------------------------------------------
 
@@ -589,6 +619,7 @@ class Engine:
                     len(seq.req.out_tokens) >= seq.req.max_new:
                 self._finish(seq, now)
         self._c_decode_steps.inc()
+        self._maybe_sample_quality()
         return True
 
     def defrag(self) -> None:

@@ -8,16 +8,25 @@ card (no jax there, so the repository's conftest is bypassed):
 Tolerances: spinner, seeded spinner and srf_decode f32 max|kernel -
 plain| <= 1e-4 * max|plain|, bf16 2e-2; the paged gathers bit for bit
 (torch.equal), and the f32 seeded spinner bit for bit against the
-materialized spinner kernel on the params regenerated on the card.
+materialized spinner kernel on the params regenerated on the card; fwht
+and circulant_project elementwise within ``tests/test_kernels.py``'s
+``_tol`` (f32 rtol = atol = 2e-5; bf16 2e-2, and for exp and cos_sin
+rtol 5e-2, atol 0.15, exp compared in log space).
 This file imports torch and the port only.
 """
+import importlib
+
 import pytest
 import torch
 
+from repro_torch.kernels import circulant as kcirc
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_gather as kpg
 from repro_torch.kernels import spinner as kspin
 from repro_torch.kernels import srf_decode as kdec
+
+# ``repro_torch.kernels`` re-exports the op ``fwht`` over the module
+kfwht = importlib.import_module("repro_torch.kernels.fwht")
 
 
 @pytest.fixture
@@ -139,3 +148,54 @@ def test_seeded_kernel_matches_plain_and_materialized_on_card(cuda_device):
         64, device=cuda_device), x, 256, grouped=True)
     assert y.shape == (64, 4, 256) and torch.isfinite(y).all()
     assert kspin.spinner_project_seeded_cuda.launches == before + 1
+
+
+def _tol(dtype, epilogue="identity"):
+    """``tests/test_kernels.py:_tol``."""
+    if dtype == torch.bfloat16:
+        if epilogue in ("cos_sin", "exp"):
+            return dict(rtol=5e-2, atol=1.5e-1)
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_fwht_and_circulant_match_plain_on_card(cuda_device):
+    """ops.fwht and ops.circulant_project launch their kernels once a
+    call and agree with the plain versions on the card; an fwht above
+    the kernel's n goes to the plain version and is counted."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for b, n in ((4, 64), (300, 32), (1, 1), (3, 16384)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for normalized in (True, False):
+                x = torch.randn((b, n), generator=gen,
+                                device=cuda_device).to(dtype)
+                before = kfwht.fwht_cuda.launches
+                got = ops.fwht(x, normalized)
+                assert kfwht.fwht_cuda.launches == before + 1
+                torch.testing.assert_close(
+                    got.float(), ref.fwht_ref(x, normalized).float(),
+                    **_tol(dtype))
+    plain = ops.fwht.plain_calls
+    x = torch.randn((2, 2 * kfwht.MAX_N), generator=gen, device=cuda_device)
+    torch.testing.assert_close(ops.fwht(x), ref.fwht_ref(x))
+    assert ops.fwht.plain_calls == plain + 1
+    for nb, n, b, m in ((2, 32, 8, 48), (1, 128, 300, 100), (3, 20, 5, 60)):
+        for epi in kcirc.EPILOGUES:
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.randn((nb, n), generator=gen,
+                                device=cuda_device).to(dtype)
+                x = (torch.randn((b, n), generator=gen, device=cuda_device)
+                     * 0.3).to(dtype)
+                sq = 0.5 * (x.float() ** 2).sum(-1) if epi == "exp" else None
+                before = kcirc.circulant_project_cuda.launches
+                got = ops.circulant_project(g, x, m, epi, sq).float()
+                assert kcirc.circulant_project_cuda.launches == before + 1
+                want = ref.circulant_project_ref(g, x, m, epi, sq).float()
+                if epi == "exp":
+                    got, want = got.log(), want.log()
+                if epi == "heaviside":
+                    y = ref.circulant_project_ref(g, x, m).float()
+                    far = y.abs() > 1e-3
+                    got, want = got[far], want[far]
+                torch.testing.assert_close(got, want, **_tol(dtype, epi))

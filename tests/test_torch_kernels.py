@@ -9,7 +9,11 @@ srf_decode rtol=1e-5, atol=1e-6. In bf16 the plain spinner is held to
 the Pallas kernel in interpret mode within one bf16 spacing per element
 (rtol=2**-7): both compute in f32 and round once, on write. The plain
 paged gathers equal the reference's Pallas kernels in interpret mode
-bit for bit. The CUDA kernels themselves run only on the card:
+bit for bit. fwht and circulant_project are held to the reference's
+Pallas kernels in interpret mode and to its jnp oracles within
+``tests/test_kernels.py``'s ``_tol`` (f32 2e-5; bf16 2e-2, and rtol
+5e-2, atol 0.15 for exp and cos_sin, exp compared in log space). The
+CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda.py``.
 """
 import importlib
@@ -23,6 +27,7 @@ import torch
 from repro.core import structured as jstructured
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import circulant as kcirc
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_gather as kpg
 from repro_torch.kernels import spinner as kspin
@@ -175,12 +180,18 @@ def test_cpu_route_leaves_launch_counters_at_zero():
     ops.spinner_project_seeded("toeplitz", torch.tensor([3, 4]),
                                torch.from_numpy(x), M, grouped=True)
     ops.spinner_project_seeded("ldr", 5, torch.from_numpy(x[0]), M)
+    ops.fwht(torch.from_numpy(x[0]))
+    ops.fwht(torch.ones(2, 2 * kfwht.MAX_N))
+    ops.circulant_project(torch.ones(2, N), torch.from_numpy(x[0]), M, "exp",
+                          torch.ones(B))
     assert ops.launch_counts() == {"spinner": 0, "srf_decode": 0,
                                    "paged_gather": 0,
                                    "paged_gather_dequant": 0,
                                    "spinner_seeded": 0,
                                    "spinner_plain_on_cuda": 0,
-                                   "spinner_seeded_plain_on_cuda": 0}
+                                   "spinner_seeded_plain_on_cuda": 0,
+                                   "fwht": 0, "fwht_plain_on_cuda": 0,
+                                   "circulant_project": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -202,6 +213,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kspin.spinner_project_seeded_cuda(
             "circulant", torch.zeros(G, dtype=torch.int64),
             torch.from_numpy(x), M)
+    with pytest.raises(ValueError, match="CUDA"):
+        kfwht.fwht_cuda(torch.from_numpy(x[0]))
+    with pytest.raises(ValueError, match="CUDA"):
+        kcirc.circulant_project_cuda(tp["g"][0], torch.from_numpy(x[0]), M)
 
 
 def test_asking_for_cuda_without_a_card_raises():
@@ -216,6 +231,8 @@ def test_asking_for_cuda_without_a_card_raises():
 
 # ``repro.kernels`` re-exports a function named paged_gather over the module
 jpg = importlib.import_module("repro.kernels.paged_gather")
+# and ``repro_torch.kernels`` the op fwht over the CUDA wrapper's module
+kfwht = importlib.import_module("repro_torch.kernels.fwht")
 
 # (N, P, D, R, M): the reduced serving shape (2 kv heads x 16), ragged row
 # widths (D * itemsize not a multiple of 16) and one-element rows
@@ -298,3 +315,118 @@ def test_plain_paged_gathers_clamp_negative_ids_like_reference_oracle():
                                          jnp.asarray(sc.numpy()),
                                          jnp.asarray(t))
     np.testing.assert_array_equal(_np(got), _np(want))
+
+
+# ---------------------------------------------------------------------------
+# fwht and circulant_project
+# ---------------------------------------------------------------------------
+
+def _tol(dtype, epilogue="identity"):
+    """``tests/test_kernels.py:_tol``."""
+    if dtype == "bfloat16":
+        if epilogue in ("cos_sin", "exp"):
+            return dict(rtol=5e-2, atol=1.5e-1)
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=2e-5, atol=2e-5)
+
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a, dtype):
+    """A numpy array as (jax, torch) arrays of ``dtype`` with equal values."""
+    jdt, tdt = DTYPES[dtype]
+    j = jnp.asarray(a, jdt)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.array(jnp.asarray(a).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,n", [(1, 8), (4, 64), (16, 128), (5, 512),
+                                 (300, 32)])
+def test_plain_fwht_matches_reference(b, n, dtype, normalized):
+    """Against the Pallas kernel in interpret mode and the jnp oracle.
+    Unnormalized outputs are compared divided by sqrt(n), so that one
+    tolerance holds at every n (values grow as sqrt(n))."""
+    x = np.random.default_rng(b * n).standard_normal((b, n))
+    jx, tx = _pair(x, dtype)
+    got = ops.fwht(tx, normalized)
+    assert got.dtype == tx.dtype and got.shape == (b, n)
+    s = 1.0 if normalized else n ** -0.5
+    for want in (jops.fwht(jx, normalized, use_pallas=True),
+                 jref.fwht_ref(jx, normalized)):
+        np.testing.assert_allclose(_f32(got) * s, _f32(want) * s,
+                                   **_tol(dtype))
+
+
+CIRC_SHAPES = [(1, 16, 4, 16), (2, 32, 8, 48), (4, 64, 16, 256),
+               (1, 128, 300, 128), (2, 256, 7, 512)]
+
+
+def _circ_inputs(nb, n, b, epilogue, dtype):
+    """``tests/test_kernels.py``'s recipe, drawn with numpy."""
+    rng = np.random.default_rng(nb * 1000 + n)
+    jg, tg = _pair(rng.standard_normal((nb, n)), dtype)
+    jx, tx = _pair(rng.standard_normal((b, n)) * 0.3, dtype)
+    jsq = tsq = None
+    if epilogue == "exp":
+        jsq = (0.5 * jnp.sum(jx.astype(jnp.float32) ** 2, -1)).astype(
+            DTYPES[dtype][0])
+        tsq = torch.from_numpy(_f32(jsq)).to(DTYPES[dtype][1])
+    return (jg, jx, jsq), (tg, tx, tsq)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("epilogue", kcirc.EPILOGUES)
+@pytest.mark.parametrize("nb,n,b,m", CIRC_SHAPES)
+def test_plain_circulant_project_matches_reference(nb, n, b, m, epilogue,
+                                                   dtype):
+    """Against the Pallas kernel in interpret mode and the jnp oracle; exp
+    in log space (it amplifies rounding by |y|); heaviside only where y
+    is not within summation-order noise of its step."""
+    (jg, jx, jsq), (tg, tx, tsq) = _circ_inputs(nb, n, b, epilogue, dtype)
+    got = ops.circulant_project(tg, tx, m, epilogue, tsq)
+    assert got.dtype == tx.dtype
+    assert got.shape == (b, 2 * m if epilogue == "cos_sin" else m)
+    y = _f32(jref.circulant_project_ref(jg.astype(jnp.float32),
+                                        jx.astype(jnp.float32), m))
+    for want in (jops.circulant_project(jg, jx, m, epilogue, jsq,
+                                        use_pallas=True),
+                 jref.circulant_project_ref(jg, jx, m, epilogue, jsq)):
+        g, w = _f32(got), _f32(want)
+        if epilogue == "exp":
+            g, w = np.log(g + 1e-9), np.log(w + 1e-9)
+        if epilogue == "heaviside":
+            g, w = _far_from_step(y, g, w)
+        np.testing.assert_allclose(g, w, **_tol(dtype, epilogue))
+
+
+def test_plain_circulant_project_is_the_structured_circulant():
+    """``test_kernels.py:test_kernel_vs_core_structured`` on the port: the
+    projection equals ``core.structured``'s block-circulant matvec."""
+    from repro_torch.core import structured
+    gen = torch.Generator().manual_seed(3)
+    params = structured.init(gen, "circulant", 128, 64)
+    x = torch.randn((8, 64), generator=gen)
+    torch.testing.assert_close(
+        ops.circulant_project(params["g"], x, 128),
+        structured.matvec("circulant", params, x, 128), rtol=1e-4, atol=1e-4)
+
+
+def test_dispatchers_check_the_reference_preconditions():
+    with pytest.raises(ValueError, match="power-of-two"):
+        ops.fwht(torch.ones(2, 12))
+    g, x = torch.ones(2, 8), torch.ones(3, 8)
+    with pytest.raises(ValueError, match="cover"):
+        ops.circulant_project(g, x, 17)
+    with pytest.raises(ValueError, match="epilogue"):
+        ops.circulant_project(g, x, 16, "sign")
+    with pytest.raises(ValueError, match="sq"):
+        ops.circulant_project(g, x, 16, "exp")

@@ -408,10 +408,10 @@ def test_chunk_policy_decode_cadence_and_budget():
 
 
 def test_unported_requests_are_refused(models):
-    """What the port does not serve yet is refused: enc-dec requests,
-    live quality probes and mesh-sharded pools. Sampled requests and
-    embed seeds are served (``test_torch_sampling``,
-    ``test_torch_seeded``)."""
+    """What the port does not serve yet is refused: enc-dec requests and
+    mesh-sharded pools. Sampled requests, embed seeds and live quality
+    probes are served (``test_torch_sampling``, ``test_torch_seeded``,
+    the quality tests below)."""
     _, _, cfg, params = models
     eng = Engine(cfg, params, batch_slots=2, max_len=64, device="cpu")
     prompt = np.arange(3, dtype=np.int32)
@@ -420,10 +420,90 @@ def test_unported_requests_are_refused(models):
                            enc_emb=np.zeros((4, 8), np.float32)))
     eng.submit(Request(uid=1, prompt=prompt, temperature=0.8))
     eng.submit(Request(uid=2, prompt=prompt, embed_seed=7))
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, params, device="cpu", quality_every=64)
+    Engine(cfg, params, device="cpu", quality_every=64)
     with pytest.raises(NotImplementedError):
         Engine(cfg, params, device="cpu", mesh=object())
+
+
+def _quality(eng):
+    """{stat: value} of an engine's srf_quality gauge."""
+    g = eng.metrics.snapshot()["gauges"].get("srf_quality", {})
+    return {k.split('stat="')[1].rstrip('"'): v for k, v in g.items()}
+
+
+def test_engine_quality_gauge_matches_reference(models):
+    """Both engines at quality_every=2 on the same params publish the
+    same srf_quality gauge (within 1e-5); a tolerance the stats exceed
+    raises quality_drift events, one per sample."""
+    jcfg, jparams, cfg, params = models
+    reqs = lambda cls: [cls(uid=0, prompt=np.arange(4, dtype=np.int32),  # noqa
+                            max_new=6)]
+    jeng = JEngine(jcfg, jparams, batch_slots=2, max_len=64,
+                   quality_every=2)
+    eng = Engine(cfg, params, batch_slots=2, max_len=64, device="cpu",
+                 quality_every=2)
+    _drive(jeng, reqs(JRequest))
+    _drive(eng, reqs(Request))
+    got, want = _quality(eng), _quality(jeng)
+    assert set(got) == set(want) == {"srf_row_mean_abs_max",
+                                     "srf_row_var_err_max"}
+    for k in got:
+        assert got[k] == pytest.approx(want[k], abs=1e-5), k
+    drift = Engine(cfg, params, batch_slots=2, max_len=64, device="cpu",
+                   quality_every=2, quality_tol=0.0)
+    _drive(drift, reqs(Request))
+    events = [e for e in drift.metrics.events if e["event"] == "quality_drift"]
+    steps = int(drift.stats["decode_steps"])
+    assert len(events) == (steps + 1) // 2 and events[0]["tol"] == 0.0
+    assert not [e for e in eng.metrics.events
+                if e["event"] == "quality_drift"]
+
+
+def test_engine_publishes_quality_gauge():
+    """``tests/test_obs.py:test_engine_publishes_quality_gauge`` on the
+    port, which defaults to quality_every=64 as the reference does and
+    publishes at the first decode step; a full-KV engine never
+    samples."""
+    from repro_torch.models import transformer as T
+    cfg = registry.reduced("qwen3-4b", n_layers=2, attn_impl="srf")
+    params = T.init(cfg, seed=0, device="cpu")
+    eng = Engine(cfg, params, batch_slots=2, max_len=64, device="cpu",
+                 quality_every=2)
+    eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                       max_new=6))
+    eng.run()
+    qual = eng.metrics.snapshot()["gauges"].get("srf_quality", {})
+    assert qual, "srf engine never sampled the quality gauge"
+    assert all(np.isfinite(v) for v in qual.values())
+    default = Engine(cfg, params, batch_slots=2, max_len=64, device="cpu")
+    assert default._quality_every == 64
+    _drive(default, [Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                             max_new=3)])
+    assert _quality(default)
+    kv = registry.reduced("qwen3-4b", n_layers=2)
+    kv_eng = Engine(kv, T.init(kv, seed=0, device="cpu"), batch_slots=2,
+                    max_len=64, device="cpu", quality_every=1)
+    _drive(kv_eng, [Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                            max_new=3)])
+    assert not _quality(kv_eng)
+
+
+def test_cli_quality_flags():
+    """``--quality-every`` (default 64, as the reference CLI) and
+    ``--quality-tol`` reach the engine."""
+    from repro_torch.obs import quality
+    base = ["--arch", "qwen3-4b", "--attn", "srf", "--reduced", "--device",
+            "cpu", "--requests", "2", "--prompt-len", "5", "--max-new", "3"]
+    args = serve.parser().parse_args(base)
+    assert (args.quality_every, args.quality_tol) == (64, quality.DRIFT_TOL)
+    res = serve.serve(serve.parser().parse_args(
+        base + ["--quality-every", "1", "--quality-tol", "0"]))
+    eng = res["engine"]
+    assert eng._quality_every == 1 and _quality(eng)
+    assert [e for e in eng.metrics.events if e["event"] == "quality_drift"]
+    off = serve.serve(serve.parser().parse_args(
+        base + ["--quality-every", "0"]))
+    assert not _quality(off["engine"])
 
 
 def test_cli_full_width_by_default_and_reduced_opt_in(capsys):
