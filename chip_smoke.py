@@ -43,8 +43,9 @@ result line):
      ``_tol`` of the plain version (exp in log space; heaviside where
      |y| > 1e-3, the flips below counted). Then the public ops alone at
      the real shapes, their launches counted (0 before, read after).
-     Times at (8192, 1024) f32 and at the real circulant shape beside
-     ``x @ H_n`` and ``x @ A.T``.
+     Times at (8192, 1024) f32 beside ``x @ H_n``, and at the real
+     circulant shape, f32 (3xTF32 on the tensor cores) and bf16, beside
+     ``x @ A.T`` in the same dtype, each with its bytes bound.
    Times: CUDA events over back-to-back launches queued behind a device
    sleep, median of 5 repeats (3 for the circulant); the gathers cycle
    through 36 layer pools, as a decode step does, so pages come from HBM.
@@ -688,9 +689,9 @@ def phase_circulant(gen):
     log space; heaviside where |y| of the plain version exceeds
     STEP_EPS, the sign flips below it counted); then the public op
     alone at the real shape, every epilogue and dtype (its counted
-    launches); times at the real shape, identity, f32: the kernel, the
-    plain version, the bound, and ``x @ A.T`` on the plain version's
-    own materialized A."""
+    launches); times at the real shape, identity, f32 and bf16: the
+    kernel, the bound, and ``x @ A.T`` on the plain version's own
+    materialized A in the same dtype; the plain version in f32."""
     from repro_torch.core import structured
     from repro_torch.kernels import circulant as kcirc, ops, ref
     flips, near, cases, errs = 0, 0, 0, []
@@ -730,19 +731,28 @@ def phase_circulant(gen):
     if counts["circulant_project"] != 2 * len(kcirc.EPILOGUES):
         raise AssertionError(f"circulant: the public op at the real shape "
                              f"launched {counts}")
+    times = {}
+    for dt, passes in ((torch.float32, 3), (torch.bfloat16, 1)):
+        g, x, _ = ins[dt]
+        a = ref.circulant_matrix(g, m)
+        k_ms = device_ms(lambda: kcirc.circulant_project_cuda(g, x, m),
+                         launches=10, repeats=3)
+        lib_ms = device_ms(lambda: x @ a.T, launches=10, repeats=3)
+        size = x.element_size()
+        b_ms, b_by = bound(size * (b * n + nb * n + b * m),
+                           b * structured.flops_fast("circulant", m, n))
+        times[dt] = (k_ms, lib_ms, b_ms, b_by)
+        log(f"    real shape {str(dt)[6:]} identity: kernel {k_ms:.4f} ms  "
+            f"x @ A.T {lib_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by}); the "
+            f"kernel's {passes} x {2 * b * m * n / 1e9:.1f} GFLOP of "
+            f"tensor-core products at "
+            f"{passes * 2 * b * m * n / k_ms / 1e9:.1f} TFLOP/s")
     g, x, _ = ins[torch.float32]
-    a = ref.circulant_matrix(g, m)
-    k_ms = device_ms(lambda: kcirc.circulant_project_cuda(g, x, m),
-                     launches=10, repeats=3)
     p_ms = device_ms(lambda: ref.circulant_project_ref(g, x, m),
                      launches=10, repeats=3)
-    lib_ms = device_ms(lambda: x @ a.T, launches=10, repeats=3)
-    b_ms, b_by = bound(4 * (b * n + nb * n + b * m),
-                       b * structured.flops_fast("circulant", m, n))
-    log(f"    real shape f32 identity: kernel {k_ms:.4f} ms  plain "
-        f"{p_ms:.4f} ms  x @ A.T {lib_ms:.4f} ms  bound {b_ms:.5f} ms "
-        f"({b_by}); the kernel's {b * m * n / 1e9:.1f} G FMAs at "
-        f"{2 * b * m * n / k_ms / 1e9:.1f} TFLOP/s")
+    k_ms, lib_ms, b_ms, b_by = times[torch.float32]
+    log(f"    real shape f32 identity: plain {p_ms:.4f} ms; kernel "
+        f"{'below' if k_ms < lib_ms else 'NOT below'} x @ A.T")
     return dict(err=max(errs), ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by,
                 launches=counts["circulant_project"])

@@ -11,6 +11,13 @@ kernel masks a ragged m instead). CUDA tensors only; ``kernels.ops``
 routes CPU tensors to the plain version
 (``kernels.ref.circulant_project_ref``). ``circulant_project_cuda.launches``
 counts launches.
+
+The kernel multiplies on the tensor cores with A regenerated chunk by
+chunk: :func:`b_tile` states, in plain PyTorch, the (BK, BN) operand it
+builds for output columns i0.. and input columns j0.. (a Toeplitz window
+of the generator, or the per-row rule for a tile that crosses a
+generator block), so the index rule is held to ``ref.circulant_matrix``
+on the CPU.
 """
 from __future__ import annotations
 
@@ -24,6 +31,37 @@ from . import build
 from .ref import CIRCULANT_EPILOGUES as EPILOGUES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+BM, BN, BK = 128, 128, 32       # the kernel's tile: rows of x, columns of
+#                                 y, and the chunk of j (csrc/circulant.cu)
+
+
+def window_ok(n: int, i0: int) -> bool:
+    """Whether output columns [i0, i0 + BN) lie in one generator block,
+    so that the kernel reads their chunk of A as a Toeplitz window."""
+    return i0 % n + BN <= n
+
+
+def b_tile(g: torch.Tensor, m: int, i0: int, j0: int) -> torch.Tensor:
+    """The (BK, BN) operand the kernel builds for chunk j0 of output
+    columns i0: [k, c] = A[i0 + c, j0 + k], by the kernel's rules. A
+    window tile reads w[k - c + BN - 1], w the BN + BK - 1 generator
+    values from (j0 - i0 mod n - (BN - 1)) mod n on (indices mod n: the
+    doubled generator); its columns past m and rows past n are left as
+    the window gives them (the kernel masks the output and zero-fills
+    x). Any other tile takes A[i, j] = g[i // n, (j - i mod n) mod n],
+    zero past m and n."""
+    nb, n = g.shape
+    k = torch.arange(BK)[:, None]
+    c = torch.arange(BN)[None, :]
+    if window_ok(n, i0):
+        base = (j0 - i0 % n - (BN - 1)) % n
+        w = g[i0 // n, (base + torch.arange(BN + BK - 1)) % n]
+        return w[k - c + BN - 1]
+    i, j = i0 + c, j0 + k
+    valid = (i < m) & (j < n)
+    blk = torch.clamp(i // n, max=nb - 1)
+    vals = g[blk.expand(BK, BN), ((j - i % n) % n).expand(BK, BN)]
+    return torch.where(valid, vals, torch.zeros((), dtype=g.dtype))
 
 
 @functools.lru_cache(maxsize=None)

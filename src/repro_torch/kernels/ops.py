@@ -18,6 +18,13 @@ block-circulant projection. Routing follows where the tensor lies:
   circulant kernel takes every valid call (any n, m <= nb * n): it has
   no such rule.
 
+The kernels have no backward yet (the training slice brings one
+``torch.autograd.Function`` for each): a call that would launch one with
+an input that requires grad, while grad mode is on, raises instead of
+returning a result with no ``grad_fn``. Under ``torch.no_grad()`` the
+kernels run; the plain versions, on the CPU and on the card, stay
+differentiable.
+
 There is no interpret route and no block-size plan cache: block sizes
 are the kernels' own. Launch counts live on the kernel wrappers
 (``spinner.spinner_project_cuda.launches``,
@@ -72,6 +79,17 @@ def reset_counts() -> None:
     _circ.circulant_project_cuda.launches = 0
 
 
+def _no_grad_needed(op: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if the kernel behind ``op`` would be asked for a gradient:
+    grad mode on and an input that requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel has no backward yet, and an input "
+            f"requires grad; call it under torch.no_grad(), or on CPU "
+            f"tensors for the differentiable plain version")
+
+
 def fwht(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
     """(..., n) -> (..., n) Walsh-Hadamard transform (Sylvester order, n a
     power of two), scaled by 1/sqrt(n) when ``normalized``; f32
@@ -81,6 +99,7 @@ def fwht(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
         raise ValueError(f"fwht needs power-of-two length, got {n}")
     rows = x.reshape(-1, n)
     if x.is_cuda and n <= _fwht.MAX_N:
+        _no_grad_needed("fwht", x)
         y = _fwht.fwht_cuda(rows.contiguous(), normalized)
     else:
         if x.is_cuda:
@@ -105,6 +124,7 @@ def circulant_project(g: torch.Tensor, x: torch.Tensor, m: int,
     if nb * n < m:
         raise ValueError(f"generators cover {nb * n} rows < m={m}")
     if x.is_cuda:
+        _no_grad_needed("circulant_project", g, x, sq)
         return _circ.circulant_project_cuda(g.contiguous(), x.contiguous(),
                                             m, epilogue, sq)
     return _ref.circulant_project_ref(g, x, m, epilogue, sq)
@@ -113,6 +133,7 @@ def circulant_project(g: torch.Tensor, x: torch.Tensor, m: int,
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """pool (N, P, D), tables (R, M) -> (R, M*P, D) contiguous history."""
     if pool.is_cuda:
+        _no_grad_needed("paged_gather", pool)
         return _pg.paged_gather_cuda(pool, tables)
     return _ref.paged_gather_ref(pool, tables)
 
@@ -123,6 +144,7 @@ def paged_gather_dequant(pool: torch.Tensor, scales: torch.Tensor,
     """int8 pool (N, P, D) + scales (N, P, 1), tables (R, M) ->
     (R, M*P, D) dequantized history in ``out_dtype``."""
     if pool.is_cuda:
+        _no_grad_needed("paged_gather_dequant", pool, scales)
         return _pg.paged_gather_dequant_cuda(pool, scales, tables, out_dtype)
     return _ref.paged_gather_dequant_ref(pool, scales, tables, out_dtype)
 
@@ -134,6 +156,7 @@ def srf_decode(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,
     the card s and z are updated in place (the returned s', z' are s, z);
     callers pass state they own and use the returned tensors."""
     if s.is_cuda:
+        _no_grad_needed("srf_decode", s, z, phi_q, phi_k, v)
         return _dec.srf_decode_cuda(s, z, phi_q, phi_k, v, eps)
     return _ref.srf_decode_ref(s, z, phi_q, phi_k, v, eps)
 
@@ -169,6 +192,7 @@ def spinner_project(kind: str, params: Dict[str, torch.Tensor],
         d0 = None if d0 is None else d0[None]
         d1 = None if d1 is None else d1[None]
     if x.is_cuda and kernel_takes(kind, n, m, d0 is not None):
+        _no_grad_needed("spinner_project", x, g, d0, d1)
         y = _spin.spinner_project_cuda(
             kind, g.contiguous(), xf.contiguous(), m,
             d0=None if d0 is None else d0.contiguous(),
@@ -210,6 +234,7 @@ def spinner_project_seeded(kind: str, seeds: Union[int, torch.Tensor],
     sd = torch.as_tensor(seeds, dtype=torch.int64,
                          device=x.device).reshape(xf.shape[0])
     if x.is_cuda and kernel_takes(kind, n, m, use_hd):
+        _no_grad_needed("spinner_project_seeded", x)
         y = _spin.spinner_project_seeded_cuda(
             kind, sd.contiguous(), xf.contiguous(), m, use_hd=use_hd,
             epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)

@@ -15,9 +15,15 @@ Representation: torch on the CPU has no uint32 ``+``, ``<<`` or ``>>``,
 so every 32-bit word here is an int64 tensor holding a value in
 [0, 2**32), and each step of the cipher is done in int64 and masked to
 32 bits. Seeds live in the port as such int64 tensors (the reference
-keeps uint32). The f32 Box–Muller step uses torch's ``log`` and ``cos``,
-which can differ from XLA's in the last ulp: normals agree with the
-reference within 2e-6, the integer streams bit for bit.
+keeps uint32). The Box–Muller step takes the f32 uniforms and the f32
+angle 2π·u2 as the reference does; its ``log``, ``sqrt`` and ``cos``
+run in f32 on the card, where the CUDA kernel computes the same
+operations (the two agree bit for bit), and on the CPU in f64 through
+numpy, rounded once to f32. Not torch's CPU ``log`` and ``cos``: their
+intra-op threads split a large tensor into chunks, and on a process's
+first call one chunk can come out of a less accurate path (errors up to
+5e-5, seen in one of 80 fresh processes on a loaded machine). Normals
+agree with the reference within 2e-6, the integer streams bit for bit.
 
 The second half of the module rebuilds what ``jax.random`` does for the
 reference's ``sampler.sample_stateless`` (jax 0.9.0, with
@@ -30,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Tuple, Union
 
+import numpy as np
 import torch
 
 # Domain separation constants (the second threefry key word).
@@ -94,10 +101,12 @@ def normal_at(seed: Words, domain: int, pos: torch.Tensor) -> torch.Tensor:
     Box–Muller over the position's two counter streams."""
     b0, b1 = _bits2(seed, domain, pos)
     u1 = 1.0 - _u01(b0)                              # (0, 1]: log-safe
-    u2 = _u01(b1)
-    rad = torch.sqrt(-2.0 * torch.log(u1))
-    return rad * torch.cos(torch.tensor(2.0 * math.pi, dtype=torch.float32)
-                           * u2)
+    angle = torch.tensor(2.0 * math.pi, dtype=torch.float32) * _u01(b1)
+    if u1.is_cuda:
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(angle)
+    u1, angle = u1.numpy().astype(np.float64), angle.numpy()
+    out = np.sqrt(-2.0 * np.log(u1)) * np.cos(angle.astype(np.float64))
+    return torch.from_numpy(out.astype(np.float32))
 
 
 def sign_at(seed: Words, domain: int, pos: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,7 @@
         --cache-bytes 0 --chunk-tokens 0 --shared-prefix 0] \
         [--requests 16 --slots 8 --prompt-len 16 --max-new 24 \
         --max-len 128 --seed 0] [--temperature 0 --top-k 0 --top-p 1] \
+        [--policy fcfs|priority] [--deadline S] \
         [--quality-every 64 --quality-tol 0.5] [--reduced] [--device cuda]
 
 Full width is the default: ``--reduced`` opts into the tiny same-family
@@ -15,10 +16,15 @@ are random tokens from ``numpy.random.default_rng(--seed)``, the first
 ``--shared-prefix`` of them common to every request. ``--temperature``
 0 decodes greedily; above 0 every request samples with ``--top-k`` and
 ``--top-p``, its noise keyed by ``--seed`` (the engine's seed), its uid
-and the token's index. An SRF engine publishes the live quality probe
-(``srf_quality`` gauge) every ``--quality-every`` decode steps, the
-first decode step included. The flags are the reference CLI's
-(``repro.launch.serve``) for what the port serves, plus ``--device``.
+and the token's index. ``--policy priority`` admits by priority, each
+request's drawn from 0-2 (after the prompts, from the same generator);
+``--deadline S`` gives every request an S-second deadline, and a request
+still waiting past it finishes as ``timeout``. An SRF engine publishes
+the live quality probe (``srf_quality`` gauge) every ``--quality-every``
+decode steps, the first decode step included. The flags are the
+reference CLI's (``repro.launch.serve``) for what the port serves, plus
+``--device``. All output goes through ``obs.report.Reporter``: this
+module and ``serving/`` print nothing themselves.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.configs import registry
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import quality as quality_lib
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.report import Reporter
 from repro_torch.serving import Engine, PagedConfig, Request
 from repro_torch.serving.prefix import ChunkConfig, PrefixConfig
 
@@ -50,6 +57,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--policy", default="fcfs", choices=["fcfs", "priority"])
     ap.add_argument("--quantize-kv", action="store_true",
                     help="int8 KV pages + per-page-row scales (kv family)")
     ap.add_argument("--prefix-cache", action="store_true",
@@ -68,6 +76,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request deadline in seconds; overdue waiting "
+                         "requests finish with reason 'timeout'")
     ap.add_argument("--quality-every", type=int, default=64,
                     help="decode steps between SRF row-gaussianity quality "
                          "samples (srf_quality gauge; 0 = off)")
@@ -96,19 +107,23 @@ def build(args):
 def requests(args, cfg) -> List[Request]:
     """``args.requests`` requests of ``args.prompt_len`` random tokens,
     the first ``args.shared_prefix`` common to all, decoded with
-    ``args``' temperature, top-k and top-p."""
+    ``args``' temperature, top-k and top-p, each with a priority in 0-2
+    and ``args.deadline``."""
     rng = np.random.default_rng(args.seed)
     common = rng.integers(0, cfg.vocab, max(args.shared_prefix, 0)
                           ).astype(np.int32)
-    out = []
-    for i in range(args.requests):
+    prompts = []
+    for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32)
         k = min(len(common), args.prompt_len)
         prompt[:k] = common[:k]
-        out.append(Request(uid=i, prompt=prompt, max_new=args.max_new,
-                           temperature=args.temperature, top_k=args.top_k,
-                           top_p=args.top_p))
-    return out
+        prompts.append(prompt)
+    priorities = rng.integers(0, 3, args.requests)
+    return [Request(uid=i, prompt=prompt, max_new=args.max_new,
+                    priority=int(priorities[i]),
+                    temperature=args.temperature, top_k=args.top_k,
+                    top_p=args.top_p, deadline=args.deadline)
+            for i, prompt in enumerate(prompts)]
 
 
 def prefix_config(args) -> Optional[PrefixConfig]:
@@ -120,7 +135,7 @@ def prefix_config(args) -> Optional[PrefixConfig]:
 
 def engine(args, cfg, params) -> Engine:
     return Engine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
-                  seed=args.seed, device=args.device,
+                  policy=args.policy, seed=args.seed, device=args.device,
                   paged=PagedConfig(quantize_kv=args.quantize_kv),
                   prefix=prefix_config(args),
                   quality_every=args.quality_every,
@@ -147,7 +162,8 @@ def serve(args, cfg=None, params=None, eng: Optional[Engine] = None,
         torch.cuda.synchronize(eng.device)
     wall = time.perf_counter() - t0
     tokens = sum(len(r.out_tokens) for r in done)
-    ttft = obs_trace.percentiles([r.trace.ttft for r in done], (50, 95))
+    ttft = obs_trace.percentiles([r.trace.ttft for r in done
+                                  if r.trace.ttft is not None], (50, 95))
     return {"cfg": cfg, "engine": eng, "done": done, "wall_s": wall,
             "tokens": tokens, "tok_s": tokens / wall, "ttft_s": ttft}
 
@@ -163,23 +179,26 @@ def warm(args, cfg, params) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parser().parse_args(argv)
+    rep = Reporter()
     res = serve(args)
     eng = res["engine"]
-    print(f"arch={args.arch} attn={res['cfg'].attn_impl} "
-          f"reduced={args.reduced} device={eng.device} "
-          f"requests={len(res['done'])} tokens={res['tokens']} "
-          f"wall={res['wall_s']:.3f}s tok/s={res['tok_s']:.1f} "
-          f"ttft_p50={res['ttft_s']['p50']:.4f}s")
-    print(f"  sched: {dict(eng.sched.stats)}  report: {eng.cache_report()}")
+    rep.line(f"arch={args.arch} attn={res['cfg'].attn_impl} "
+             f"reduced={args.reduced} device={eng.device} "
+             f"requests={len(res['done'])} tokens={res['tokens']} "
+             f"wall={res['wall_s']:.3f}s tok/s={res['tok_s']:.1f} "
+             f"ttft_p50={res['ttft_s']['p50']:.4f}s")
+    rep.line(f"  sched: {dict(eng.sched.stats)}  "
+             f"report: {eng.cache_report()}")
     if eng.prefix is not None:
         v = eng.metrics.value_sum
-        print(f"  prefix: hits={int(v('prefix_hits_total'))} "
-              f"hit_tokens={int(v('prefix_hit_tokens_total'))} "
-              f"cow_forks={int(v('prefix_cow_forks_total'))} "
-              f"evictions={int(v('prefix_evictions_total'))} "
-              f"cache_bytes={int(v('prefix_cache_bytes'))}")
+        rep.line(f"  prefix: hits={int(v('prefix_hits_total'))} "
+                 f"hit_tokens={int(v('prefix_hit_tokens_total'))} "
+                 f"cow_forks={int(v('prefix_cow_forks_total'))} "
+                 f"evictions={int(v('prefix_evictions_total'))} "
+                 f"cache_bytes={int(v('prefix_cache_bytes'))}")
     for r in res["done"][:3]:
-        print(f"  req{r.uid}: out={r.out_tokens[:8]}...")
+        rep.line(f"  req{r.uid}: finish={r.finish_reason} "
+                 f"out={r.out_tokens[:8]}...")
     return 0
 
 

@@ -22,6 +22,17 @@ re-admission. An SRF engine samples the live quality probe
 (``obs/quality``) at its first decode step and every ``quality_every``
 decode steps after it, into the ``srf_quality`` gauge.
 
+Telemetry is the reference's: the engine's counters and histograms, the
+per-tenant counters (``tenant_{prefill_tokens,decode_tokens,requests,
+expired}_total`` with ``{engine, tenant}`` labels), the ``pool_bytes``
+and ``pool_bytes_per_device`` gauges (equal: one card holds every
+pool), the registry events ``queued``, ``restored``, ``prefix_hit``,
+``expired``, ``done`` and ``preempted``, and, given ``spans=``, the
+spans ``engine_step``, ``prefill_step``, ``decode_step`` and ``sample``
+with the instants ``prefill_chunk``, ``cow_fork``, ``cache_tail_copy``
+and ``preempt`` (the scheduler, prefix cache and chunk policy record
+into the same recorder).
+
 Not ported yet, and refused if asked for: mesh-sharded pools and enc-dec
 memories.
 """
@@ -41,12 +52,13 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import quality as obs_quality
+from repro_torch.obs import spans as obs_spans
 from repro_torch.obs import trace as obs_trace
 
 from . import paged_cache
 from .prefix import ChunkPolicy, PrefixCache, PrefixConfig, cow
 from .sampler import sample_stateless
-from .scheduler import SchedConfig, Scheduler, Sequence
+from .scheduler import SchedConfig, Scheduler, Sequence, tenant_of
 
 
 @dataclass
@@ -127,7 +139,9 @@ class Engine:
     paged domain (SRF), which has no pages to share. ``seed`` keys the
     sampling noise (the key of ``jax.random.PRNGKey(seed)`` in the
     reference); it never advances. ``quality_every`` (SRF configs only;
-    0 = off) and ``quality_tol`` drive the live quality probe."""
+    0 = off) and ``quality_tol`` drive the live quality probe.
+    ``spans`` (an ``obs.spans.SpanRecorder``) records the step timeline;
+    without it nothing is recorded."""
 
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 512, sched: Optional[SchedConfig] = None,
@@ -137,7 +151,8 @@ class Engine:
                  paged: Optional[paged_cache.PagedConfig] = None,
                  prefix: Optional[PrefixConfig] = None,
                  quality_every: int = 64,
-                 quality_tol: float = obs_quality.DRIFT_TOL):
+                 quality_tol: float = obs_quality.DRIFT_TOL,
+                 spans: Optional[obs_spans.SpanRecorder] = None):
         if mesh is not None:
             raise NotImplementedError(f"mesh-sharded serving is "
                                       f"{attn_lib.NOT_IN_SLICE}")
@@ -147,13 +162,15 @@ class Engine:
         self.paged = paged or paged_cache.PagedConfig()
         self.metrics = metrics if metrics is not None \
             else obs_metrics.MetricsRegistry()
+        self.spans = spans if spans is not None else obs_spans.NOOP
         self.engine_id = str(next(_ENGINE_IDS))
         if sched is None:
             sched = _default_sched(cfg, batch_slots, max_len, self.plan,
                                    policy)
         self.sched_cfg = sched
         self.sched = Scheduler(sched, self.plan, metrics=self.metrics,
-                               labels={"engine": self.engine_id})
+                               labels={"engine": self.engine_id},
+                               spans=self.spans)
         self.pools = paged_cache.init_pools(cfg, sched.num_pages,
                                             sched.page_size,
                                             num_slots=self.sched.num_slots,
@@ -177,9 +194,10 @@ class Engine:
             self.prefix = PrefixCache(
                 self.sched.alloc, sched.page_size,
                 paged_cache.page_bytes(self.pools), prefix,
-                metrics=self.metrics, labels={"engine": self.engine_id})
+                metrics=self.metrics, labels={"engine": self.engine_id},
+                spans=self.spans)
             self.sched.attach_prefix(self.prefix)
-            self._chunk = ChunkPolicy(prefix.chunk)
+            self._chunk = ChunkPolicy(prefix.chunk, spans=self.spans)
         self._init_metrics()
         self._quality_every = quality_every if cfg.attn_impl == "srf" else 0
         self._quality_tol = quality_tol
@@ -216,6 +234,22 @@ class Engine:
                          "after the first")
         self._h_queue = h("request_queue_seconds", "submit -> admission")
         self._h_e2e = h("request_e2e_seconds", "submit -> done")
+        # per-tenant accounting: same registry, {engine, tenant} labels,
+        # children bound on a namespace's first request
+        tl = ("engine", "tenant")
+        self._ct_prefill = m.counter(
+            "tenant_prefill_tokens_total",
+            "prompt tokens prefilled, by tenant namespace", tl)
+        self._ct_decode = m.counter(
+            "tenant_decode_tokens_total",
+            "decode tokens generated, by tenant namespace", tl)
+        self._ct_requests = m.counter(
+            "tenant_requests_total",
+            "requests finished, by tenant namespace", tl)
+        self._ct_expired = m.counter(
+            "tenant_expired_total",
+            "requests expired past deadline, by tenant namespace", tl)
+        self._tenant_children: Dict[str, Dict[str, object]] = {}
         self.stats = obs_metrics.StatsView({
             "tokens": self._c_tokens.value,
             "requests": self._c_requests.value,
@@ -223,6 +257,34 @@ class Engine:
             "decode_steps": self._c_decode_steps.value,
             "preemptions": self._c_preemptions.value,
         })
+        self._sample_memory_gauges()
+
+    def _tenant(self, req) -> Dict[str, object]:
+        """The bound per-tenant counter children of a request's
+        namespace (cached)."""
+        t = tenant_of(req)
+        ch = self._tenant_children.get(t)
+        if ch is None:
+            lab = {"engine": self.engine_id, "tenant": t}
+            ch = {"prefill": self._ct_prefill.labels(**lab),
+                  "decode": self._ct_decode.labels(**lab),
+                  "requests": self._ct_requests.labels(**lab),
+                  "expired": self._ct_expired.labels(**lab)}
+            self._tenant_children[t] = ch
+        return ch
+
+    def _sample_memory_gauges(self) -> None:
+        """Pool-memory gauges: the pools are allocated up front, so the
+        bytes are constant per engine (free pages and slots are the
+        scheduler's live gauges)."""
+        lab = {"engine": self.engine_id}
+        self.metrics.gauge("pool_bytes", "total pool bytes (all devices)",
+                           ("engine",)).labels(**lab).set(
+            paged_cache.pool_bytes(self.pools))
+        self.metrics.gauge("pool_bytes_per_device",
+                           "pool bytes resident per device",
+                           ("engine",)).labels(**lab).set(
+            paged_cache.pool_bytes_per_device(self.pools))
 
     def _maybe_sample_quality(self) -> None:
         """Every ``quality_every`` decode steps, publish the paper's row
@@ -259,6 +321,7 @@ class Engine:
         if req.trace is None:
             req.trace = obs_trace.Trace(uid=req.uid)
         req.trace.stamp("queued", now)
+        self.metrics.event("queued", uid=req.uid, engine=self.engine_id)
         seq = self.sched.submit(req)
         if self.prefix is not None:
             seq.ns = _cache_namespace(req, self._seeded_srf)
@@ -272,12 +335,16 @@ class Engine:
                                 req.prompt,
                                 want_state=bool(self.plan.slot_families))
 
-    def run(self) -> List[Request]:
-        """Drain all submitted requests; returns the completed ones."""
+    def run(self, on_step=None) -> List[Request]:
+        """Drain all submitted requests; returns the completed ones.
+        ``on_step(engine)`` is called after every scheduler iteration (the
+        reporter's periodic-metrics hook)."""
         tracked = [s.req for s in self.sched.waiting + self.sched.running]
         stall = 0
         while self.sched.has_work:
             progressed = self.step()
+            if on_step is not None:
+                on_step(self)
             stall = 0 if progressed else stall + 1
             if stall > 2:
                 raise RuntimeError(
@@ -291,9 +358,11 @@ class Engine:
         any sequence is still prefilling, else one batched decode step.
         Returns False when nothing could run."""
         t0 = self.clock()
+        tok = self.spans.begin("engine_step")
         try:
             return self._step_once()
         finally:
+            self.spans.end(tok)
             self._h_step.observe(self.clock() - t0)
 
     def _step_once(self) -> bool:
@@ -311,9 +380,14 @@ class Engine:
                                               seq.snapshot)
                 self.sched.restored(seq)
                 seq.req.trace.stamp("restored", now)
+                self.metrics.event("restored", uid=seq.req.uid,
+                                   engine=self.engine_id)
             else:
                 if seq.hit_tokens > 0:
                     seq.req.trace.stamp("prefix_hit", now)
+                    self.metrics.event("prefix_hit", uid=seq.req.uid,
+                                       engine=self.engine_id,
+                                       tokens=seq.hit_tokens)
                 if seq.slot is not None:
                     fresh.append(seq)    # a reused slot starts from zero
         if fresh:
@@ -349,6 +423,7 @@ class Engine:
         paged_cache.copy_page_rows(self.pools, [f.src for f in forks],
                                    [f.dst for f in forks])
         self._c_cow_forks.inc(len(forks))
+        self.spans.instant("cow_fork", pages=len(forks))
         for s in seqs:
             if s.fork is not None:
                 if s.fork.pinned_src:
@@ -368,6 +443,8 @@ class Engine:
         if req.trace.e2e is not None:
             self._h_e2e.observe(req.trace.e2e)
         self._c_expired.inc()
+        self._tenant(req)["expired"].inc()
+        self.metrics.event("expired", uid=req.uid, engine=self.engine_id)
 
     # -- device step ---------------------------------------------------------
 
@@ -417,6 +494,7 @@ class Engine:
         live = torch.as_tensor([s is not None for s in seqs],
                                device=rows.device)
         bad = ((~torch.isfinite(rows)).any(dim=-1) & live).sum()
+        stok = self.spans.begin("sample")
         toks = sample_stateless(
             self._base_key,
             col(lambda r: r.uid & 0xFFFFFFFF, 0, np.int64),   # probes wrap
@@ -426,11 +504,13 @@ class Engine:
             col(lambda r: r.top_p, 1.0, np.float32))
         out = toks.cpu().numpy()
         self.nonfinite_rows += int(bad)
+        self.spans.end(stok)
         return out
 
     # -- prefill ------------------------------------------------------------
 
     def _prefill_step(self, work: List[Sequence]) -> None:
+        stok = self.spans.begin("prefill_step")
         sc = self.sched_cfg
         b, c, m = sc.prefill_batch, sc.prefill_chunk, sc.table_width
         tokens = np.zeros((b, c), np.int64)
@@ -447,6 +527,9 @@ class Engine:
                        for s in work]
         self._c_prefill_tokens.inc(sum(t for _, t in planned))
         for i, (seq, take) in enumerate(planned):
+            self._tenant(seq.req)["prefill"].inc(take)
+            self.spans.instant("prefill_chunk", uid=seq.req.uid,
+                               tokens=take)
             start = seq.prefill_pos
             tr = seq.req.trace
             if tr.count("prefill") == 0:
@@ -490,11 +573,14 @@ class Engine:
             seq.req.t_first = now
             seq.req.trace.stamp("first_token", now)
             self._c_tokens.inc()
+            self._tenant(seq.req)["decode"].inc()
             if tok == seq.req.eos_id or \
                     len(seq.req.out_tokens) >= seq.req.max_new:
                 self._finish(seq, now)
         self._flush_cache_copies()
         self._c_prefill_steps.inc()
+        stok.args["rows"] = len(planned)
+        self.spans.end(stok)
 
     def _prefix_insert(self, seq: Sequence) -> None:
         """Donate a fully prefilled prompt to the prefix cache. An
@@ -533,6 +619,7 @@ class Engine:
                                    [s for s, _ in self._cache_copies],
                                    [d for _, d in self._cache_copies])
         self._c_cow_forks.inc(len(self._cache_copies))
+        self.spans.instant("cache_tail_copy", pages=len(self._cache_copies))
         self.sched.alloc.free([d for _, d in self._cache_copies])
         self._cache_copies.clear()
         self.sched._sync_gauges()
@@ -554,6 +641,9 @@ class Engine:
             if value is not None:
                 hist.observe(value)
         self._c_requests.inc()
+        self._tenant(req)["requests"].inc()
+        self.metrics.event("done", uid=req.uid, engine=self.engine_id,
+                           tokens=len(req.out_tokens))
         self.sched.finished(seq)
 
     # -- decode -------------------------------------------------------------
@@ -568,10 +658,20 @@ class Engine:
             self.pools, victim.table.pages, self._slot_ids(victim))
         self._pending_snaps.append(snap)
         self.sched.evicted(victim, snap)
+        self.spans.instant("preempt", uid=victim.req.uid)
         victim.req.trace.stamp("preempted")
+        self.metrics.event("preempted", uid=victim.req.uid,
+                           engine=self.engine_id)
         self._c_preemptions.inc()
 
     def _decode_step(self, ready: List[Sequence]) -> bool:
+        stok = self.spans.begin("decode_step")
+        try:
+            return self._decode_once(ready, stok)
+        finally:
+            self.spans.end(stok)
+
+    def _decode_once(self, ready: List[Sequence], stok) -> bool:
         sc = self.sched_cfg
         batch: List[Sequence] = []
         for seq in ready:
@@ -615,10 +715,12 @@ class Engine:
             if seq.req.trace.count("decode") == 0:
                 seq.req.trace.stamp("decode", now)
             self._c_tokens.inc()
+            self._tenant(seq.req)["decode"].inc()
             if tok == seq.req.eos_id or \
                     len(seq.req.out_tokens) >= seq.req.max_new:
                 self._finish(seq, now)
         self._c_decode_steps.inc()
+        stok.args["rows"] = len(batch)
         self._maybe_sample_quality()
         return True
 
@@ -654,5 +756,7 @@ class Engine:
                 "bytes_per_token_per_layer":
                     self.plan.bytes_per_token(self.cfg, ml, self.paged),
                 "pool_bytes": paged_cache.pool_bytes(self.pools),
+                "pool_bytes_per_device":
+                    paged_cache.pool_bytes_per_device(self.pools),
                 "free_pages": self.sched.alloc.free_pages,
                 "free_slots": self.sched.free_slots}

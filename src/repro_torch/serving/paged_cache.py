@@ -340,3 +340,9 @@ def apply_moves(pools: Dict, moves: Dict[int, int]) -> Dict:
 def pool_bytes(pools: Dict) -> int:
     return sum(a.numel() * a.element_size()
                for part in ("paged", "slot") for a in _leaves(pools[part]))
+
+
+def pool_bytes_per_device(pools: Dict) -> int:
+    """Bytes one device holds: every pool, since the port serves on one
+    card (the reference's mesh-sharded pools are not ported)."""
+    return pool_bytes(pools)

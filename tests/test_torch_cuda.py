@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Marked ``cuda``: without an NVIDIA GPU every test here skips. On the
-card (no jax there, so the repository's conftest is bypassed):
+Marked ``cuda``: without an NVIDIA GPU these tests skip (the last test,
+the dispatchers' gradients on the CPU, runs everywhere). On the card
+(no jax there, so the repository's conftest is bypassed):
 
     PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
@@ -199,3 +200,104 @@ def test_fwht_and_circulant_match_plain_on_card(cuda_device):
                     far = y.abs() > 1e-3
                     got, want = got[far], want[far]
                 torch.testing.assert_close(got, want, **_tol(dtype, epi))
+
+
+# Ragged shapes aimed at the circulant kernel's tile rules (BM = BN = 128
+# output rows and columns a block, chunks of BK = 32 input columns):
+# (nb, n, B, m). n < BN and n < BK; n not a multiple of BK; m not a
+# multiple of BN; tiles that cross a generator block (n = 160, 200) next
+# to window tiles (n = 256, 1024); B = 1; n = 1000 (rows 16-byte aligned
+# in both dtypes, a tile crossing each block boundary) and rows that are
+# not 16-byte aligned (n = 70 in both dtypes, n = 12 in bf16).
+CIRC_RAGGED = [(2, 16, 8, 32), (3, 40, 7, 120), (3, 160, 130, 400),
+               (2, 200, 33, 330), (2, 256, 5, 384), (1, 1024, 1, 1000),
+               (2, 1000, 9, 1500), (2, 70, 17, 140), (3, 12, 6, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n,b,m", CIRC_RAGGED)
+def test_circulant_ragged_tiles_on_card(cuda_device, nb, n, b, m):
+    """The tensor-core circulant kernel on the ragged shapes above, every
+    epilogue, f32 and bf16, against ``ref.circulant_project_ref`` within
+    ``_tol`` (exp in log space, heaviside where |y| > 1e-3); then once
+    more from an x whose base is not 16-byte aligned."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn((nb, n), generator=gen, device=cuda_device).to(dtype)
+        x = (torch.randn((b, n), generator=gen, device=cuda_device)
+             * 0.3).to(dtype)
+        sq = 0.5 * (x.float() ** 2).sum(-1)
+        y = ref.circulant_project_ref(g, x, m).float()
+        for epi in kcirc.EPILOGUES:
+            got = kcirc.circulant_project_cuda(g, x, m, epi, sq).float()
+            want = ref.circulant_project_ref(g, x, m, epi, sq).float()
+            if epi == "exp":
+                got, want = got.log(), want.log()
+            if epi == "heaviside":
+                far = y.abs() > 1e-3
+                got, want = got[far], want[far]
+            torch.testing.assert_close(got, want, **_tol(dtype, epi),
+                                       msg=lambda s: f"{epi} {dtype}: {s}")
+        flat = torch.zeros(b * n + 1, dtype=dtype, device=cuda_device)
+        shifted = flat[1:].view(b, n)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 != 0
+        torch.testing.assert_close(
+            kcirc.circulant_project_cuda(g, shifted, m).float(), y,
+            **_tol(dtype))
+
+
+def _grad_cases(dev):
+    """(name, call) for every kernels.ops dispatcher, each with one CUDA
+    input that requires grad."""
+    def leaf(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, dtype=dtype).requires_grad_()
+    params = {"g": torch.randn((1, 64), device=dev),
+              "d0": torch.ones(64, device=dev),
+              "d1": torch.ones(64, device=dev)}
+    pool = torch.randint(-127, 128, (5, 4, 8), device=dev,
+                         dtype=torch.int8)
+    tables = torch.randint(0, 5, (2, 3), device=dev)
+    s, z = torch.zeros((1, 2, 16, 8), device=dev), torch.zeros(
+        (1, 2, 16), device=dev)
+    return [
+        ("spinner_project", lambda: ops.spinner_project(
+            "circulant", params, leaf(3, 64), 64)),
+        ("spinner_project_seeded", lambda: ops.spinner_project_seeded(
+            "circulant", 7, leaf(3, 64), 64)),
+        ("srf_decode", lambda: ops.srf_decode(
+            s.clone(), z.clone(), leaf(1, 2, 16), torch.rand(
+                (1, 2, 16), device=dev), torch.randn((1, 2, 8), device=dev))),
+        ("paged_gather", lambda: ops.paged_gather(leaf(5, 4, 8), tables)),
+        ("paged_gather_dequant", lambda: ops.paged_gather_dequant(
+            pool, leaf(5, 4, 1), tables)),
+        ("fwht", lambda: ops.fwht(leaf(3, 64))),
+        ("circulant_project", lambda: ops.circulant_project(
+            torch.randn((2, 32), device=dev), leaf(3, 32), 48)),
+    ]
+
+
+@pytest.mark.cuda
+def test_dispatchers_refuse_grad_on_card(cuda_device):
+    """Every kernels.ops dispatcher raises on a CUDA input that requires
+    grad while grad mode is on (the kernels have no backward yet), and
+    launches its kernel under torch.no_grad()."""
+    cases = _grad_cases(cuda_device)
+    assert len(cases) == 7
+    for name, call in cases:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            out = call()
+        out = out[-1] if isinstance(out, tuple) else out
+        assert out.is_cuda and not out.requires_grad, name
+
+
+def test_dispatchers_differentiate_on_cpu():
+    """On the CPU the same calls take the plain versions, which keep
+    their gradients (no card needed: this test runs everywhere)."""
+    for name, call in _grad_cases(torch.device("cpu")):
+        out = call()
+        out = out[-1] if isinstance(out, tuple) else out
+        assert out.requires_grad, name
+        out.float().sum().backward()

@@ -430,3 +430,36 @@ def test_dispatchers_check_the_reference_preconditions():
         ops.circulant_project(g, x, 16, "sign")
     with pytest.raises(ValueError, match="sq"):
         ops.circulant_project(g, x, 16, "exp")
+
+
+# (nb, n, m): window tiles only (n = 1024), none (n < BN), both (n = 200,
+# 256 + 128 = 384, 1000: tiles that cross a generator block next to
+# windows), n not a multiple of BK, m not a multiple of BN.
+B_TILE_SHAPES = [(1, 16, 16), (3, 40, 120), (4, 64, 256), (2, 200, 330),
+                 (2, 384, 700), (1, 1000, 1000), (4, 1024, 4096)]
+
+
+@pytest.mark.parametrize("nb,n,m", B_TILE_SHAPES)
+def test_circulant_b_tile_matches_circulant_matrix(nb, n, m):
+    """The circulant kernel's index rules (``circulant.b_tile``, the
+    Toeplitz window and the per-row rule): every A[i, j] of every
+    (chunk, column tile) equals ``ref.circulant_matrix``; the window is
+    taken exactly where a tile lies in one generator block."""
+    from repro_torch.kernels import ref
+    g = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (nb, n)).astype(np.float32))
+    dense = ref.circulant_matrix(g, m)
+    windows = 0
+    for i0 in range(0, m, kcirc.BN):
+        assert kcirc.window_ok(n, i0) == \
+            (i0 // n == (i0 + kcirc.BN - 1) // n)
+        windows += kcirc.window_ok(n, i0)
+        for j0 in range(0, n, kcirc.BK):
+            tile = kcirc.b_tile(g, m, i0, j0)
+            assert tile.shape == (kcirc.BK, kcirc.BN)
+            cols, rows = min(kcirc.BN, m - i0), min(kcirc.BK, n - j0)
+            assert torch.equal(tile[:rows, :cols],
+                               dense[i0:i0 + cols, j0:j0 + rows].T)
+            if not kcirc.window_ok(n, i0):
+                assert not tile[rows:].any() and not tile[:, cols:].any()
+    assert (windows > 0) == (n >= kcirc.BN)
