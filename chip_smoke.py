@@ -15,8 +15,12 @@ result line):
 2. Kernels against their plain versions on the card.
    * spinner at the serving shapes (circulant n=128, m=256, G=8 kv heads;
      decode query B=32, decode key B=8, prefill query B=512, prefill key
-     B=128; bf16 and f32) and a sweep over every kernel kind x epilogue x
-     grouped/ungrouped with ragged B and m; srf_decode at (B=8, H=32,
+     B=128; bf16 and f32), at the library shape (G=1, B=8192, n=1024,
+     m=4096, f32 and bf16: timed beside ``z @ A.T`` on the materialized A
+     in the same dtype, for orientation) and a sweep over every kernel
+     kind x epilogue x grouped/ungrouped with ragged B and m; both spinner
+     kernels run on the tensor cores (``csrc/window_mma.cuh``, shared
+     with circulant_project); srf_decode at (B=8, H=32,
      m=256, dv=128) and two ragged shapes. Tolerance: max|kernel - plain|
      <= 1e-4 * max|plain| in f32, 2e-2 * max|plain| in bf16.
    * paged_gather (bf16, f32, int8 pools) and paged_gather_dequant (int8
@@ -26,8 +30,9 @@ result line):
      tables: bit-equal (torch.equal).
    * the seeded spinner at the seeded serving shapes (circulant n=128,
      m=256, G = 8 kv heads x 8 requests = 64 groups; decode query B=4,
-     decode key B=1, prefill query B=64, prefill key B=16; bf16 and f32)
-     and a sweep over every kernel kind x epilogue x grouped/ungrouped
+     decode key B=1, prefill query B=64, prefill key B=16; bf16 and f32),
+     the library shape as above, and a sweep over every kernel kind x
+     epilogue x grouped/ungrouped
      with ragged B and m: held to its plain version (the tolerance
      above) and to the materialized spinner kernel run on
      ``seedgen.grouped_params`` computed on the card (bit-equal, or
@@ -181,8 +186,10 @@ def spinner_inputs(kind, gsz, bsz, n, m, dtype, gen, use_hd=True):
 
 def bound(byts: float, ops: float):
     """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
-    and f32 operations over the f32 peak (both kernels compute in f32 on
-    the CUDA cores)."""
+    and operations over the f32 peak (the operations counted are the
+    function's own: FFT products, butterflies and the seeded draws, f32
+    and integer work of the CUDA cores; not the dense products the
+    kernels run on the tensor cores)."""
     t_b, t_o = byts / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -198,6 +205,35 @@ def spinner_bound(kind, gsz, bsz, n, m, itemsize, gen_elems, width):
     ops = gsz * bsz * (structured.flops_fast(kind, m, n)
                        + n * math.log2(n))
     return bound(byts, ops)
+
+
+LIBRARY = (1, 8192, 1024, 4096)        # G, B, n, m: one estimate's call
+
+
+def library_shape(label, kernel, plain, x, p, dtype, bound_ms):
+    """A spinner kernel at the library shape (one call of
+    ``estimators.estimate`` at m = 4096): checked against its plain
+    version, timed beside it, and beside ``z @ A.T`` on the materialized A
+    in the same dtype (z = D1 H D0 x / sqrt(n) by the plain version's HD:
+    the dense product the kernel's tensor-core mainloop does, for
+    orientation; not the same function, so no ``library_ms``)."""
+    from repro_torch.core import structured
+    from repro_torch.kernels import ref
+    gsz, bsz, n, m = LIBRARY
+    k = kernel()
+    err = check(f"{label} library shape {str(dtype)[6:]} (B={bsz}, n={n}, "
+                f"m={m})", k, plain(), dtype)
+    del k
+    k_ms = device_ms(kernel, launches=5, repeats=3)
+    p_ms = device_ms(plain, launches=3, repeats=3)
+    z = ref._hd_kron(x[0].float(), p["d0"][0].float(),
+                     p["d1"][0].float()).to(dtype)
+    a = structured.materialize("circulant", {"g": p["g"][0]}, m, n).to(dtype)
+    mm_ms = device_ms(lambda: z @ a.T, launches=5, repeats=3)
+    log(f"    kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  z @ A.T {mm_ms:.4f} "
+        f"ms  bound {bound_ms[0]:.5f} ms ({bound_ms[1]})")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, matmul_ms=mm_ms,
+                bound_ms=bound_ms[0], bound_by=bound_ms[1])
 
 
 def phase_spinner(gen):
@@ -227,6 +263,17 @@ def phase_spinner(gen):
                 f"bound {b_ms:.5f} ms ({b_by})")
             records[(label, dtype)] = dict(err=err, ms=k_ms, plain_ms=p_ms,
                                            bound_ms=b_ms, bound_by=b_by)
+        gsz_l, bsz_l, n_l, m_l = LIBRARY
+        x, p = spinner_inputs("circulant", gsz_l, bsz_l, n_l, m_l, dtype, gen)
+        args = ("circulant", p["g"], x, m_l)
+        kw = dict(d0=p["d0"], d1=p["d1"])
+        records[("library", dtype)] = library_shape(
+            "spinner", lambda: kspin.spinner_project_cuda(*args, **kw),
+            lambda: ref.spinner_project_ref(*args, **kw), x, p, dtype,
+            spinner_bound("circulant", gsz_l, bsz_l, n_l, m_l,
+                          x.element_size(), p["g"][0].numel(), m_l))
+        del x, p, args, kw
+        torch.cuda.empty_cache()
 
     # every kernel kind x epilogue x grouped/ungrouped, ragged B and m
     n, m, bsz = 64, 200, 13
@@ -352,6 +399,28 @@ def phase_seeded_spinner(gen):
             records[(label, dtype)] = dict(err=err, ms=k_ms, plain_ms=p_ms,
                                            materialized_ms=mat_ms,
                                            bound_ms=b_ms, bound_by=b_by)
+        gsz_l, bsz_l, n_l, m_l = LIBRARY
+        x = (torch.randn((gsz_l, bsz_l, n_l), generator=gen, device=dev)
+             * n_l ** -0.25).to(dtype)
+        seeds = torch.randint(0, 2 ** 32, (gsz_l,), generator=gen,
+                              device=dev, dtype=torch.int64)
+        gp = {k_: v.to(dtype) for k_, v in seedgen.grouped_params(
+            "circulant", n_l, m_l, seeds).items()}
+        records[("library", dtype)] = library_shape(
+            "seeded spinner",
+            lambda: kspin.spinner_project_seeded_cuda("circulant", seeds, x,
+                                                      m_l),
+            lambda: ref.spinner_project_seeded_ref("circulant", seeds, x,
+                                                   m_l), x, gp, dtype,
+            seeded_bound("circulant", gsz_l, bsz_l, n_l, m_l,
+                         x.element_size(), m_l))
+        equal += _against_twin(
+            f"seeded spinner library shape {str(dtype)[6:]}",
+            kspin.spinner_project_seeded_cuda("circulant", seeds, x, m_l),
+            _materialized_twin("circulant", seeds, x, m_l, "identity", 1.0,
+                               1.0), dtype)
+        del x, gp
+        torch.cuda.empty_cache()
 
     # every kernel kind x epilogue x grouped/ungrouped, ragged B and m
     n, m, bsz, cases = 64, 200, 13, 0
@@ -395,8 +464,9 @@ def phase_seeded_spinner(gen):
                     raise AssertionError(f"{name}: distinct seeds gave the "
                                          f"same output")
                 cases += 1
-    log(f"  seeded spinner: {cases} sweep cases and 8 serving shapes; "
-        f"{equal} of {cases + 8} bit-equal to the materialized kernel; "
+    log(f"  seeded spinner: {cases} sweep cases, 8 serving shapes and 2 "
+        f"library shapes; {equal} of {cases + 10} bit-equal to the "
+        f"materialized kernel; "
         f"distinct seeds gave distinct outputs in every sweep case")
     return records
 
@@ -811,7 +881,7 @@ def phase_estimators(gen):
     v = torch.randn((2, N, n), generator=gen, device=dev)
     v1, v2 = v / v.norm(dim=-1, keepdim=True)
     closed = {f: estimators.exact(f, v1, v2) for f in FNAMES}
-    errs, worst = {}, 0.0
+    errs, worst, times = {}, 0.0, {}
     ops.reset_counts()
     for build in ("single", "hd_chain"):
         for m in (256, 4096):
@@ -844,6 +914,8 @@ def phase_estimators(gen):
                         f"estimate {build} m={m} {f}: card route differs "
                         f"from the plain route by {diff.max().item():.3e}")
                 worst = max(worst, diff.max().item())
+                if build == "single":
+                    times[f] = (t_card, t_plain)
                 log(f"  estimate {build} m={m} {f}: mean|est-exact| "
                     f"{errs[(build, m, f)]:.5f} (m=256: "
                     f"{errs[(build, 256, f)]:.5f}); card {1e3 * t_card:.1f} "
@@ -851,6 +923,9 @@ def phase_estimators(gen):
     counts = ops.launch_counts()
     log(f"    launches (card routes): {counts}; max|card - plain| "
         f"{worst:.3e}")
+    faster = [f for f in FNAMES if times[f][0] < times[f][1]]
+    log(f"    spinner.single m=4096: the card route faster than the plain "
+        f"route for {len(faster)} of {len(FNAMES)} f ({', '.join(faster)})")
     if counts["spinner"] <= 0 or counts["spinner_plain_on_cuda"]:
         raise AssertionError(f"estimators: spinner launches {counts}")
     for build in ("single", "hd_chain"):

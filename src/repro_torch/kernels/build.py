@@ -8,7 +8,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 into ``build/kernels/`` at the repository root (listed in .gitignore), at
 first use, and loaded with ``ctypes``. Nothing includes PyTorch's
 headers, so a build takes seconds. The file name carries a hash of the
-source, so an edited kernel is rebuilt and a stale one is never loaded.
+source and of every header it includes from ``csrc/`` (``#include
+"..."``, followed into those headers too), so an edited kernel or shared
+header is rebuilt and a stale library is never loaded.
 Nothing here runs at import: the CPU tests import every module on a
 machine with no ``nvcc``.
 """
@@ -18,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,10 +40,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, each once, in
+    the order first reached."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> List[str]:

@@ -12,12 +12,13 @@ routes CPU tensors to the plain version
 (``kernels.ref.circulant_project_ref``). ``circulant_project_cuda.launches``
 counts launches.
 
-The kernel multiplies on the tensor cores with A regenerated chunk by
-chunk: :func:`b_tile` states, in plain PyTorch, the (BK, BN) operand it
-builds for output columns i0.. and input columns j0.. (a Toeplitz window
-of the generator, or the per-row rule for a tile that crosses a
-generator block), so the index rule is held to ``ref.circulant_matrix``
-on the CPU.
+The kernel is the mainloop of ``csrc/window_mma.cuh`` (shared with the
+spinner kernels) on 128 x 128 output tiles, A regenerated chunk by chunk:
+:func:`b_tile` states, in plain PyTorch, the (BK, BN) operand it reads
+for output columns i0.. and input columns j0.. (a Toeplitz window of the
+generator, or the per-row rule for a tile that crosses a generator
+block: ``kernels.window``), so the index rule is held to
+``ref.circulant_matrix`` on the CPU.
 """
 from __future__ import annotations
 
@@ -27,41 +28,32 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, window
 from .ref import CIRCULANT_EPILOGUES as EPILOGUES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-BM, BN, BK = 128, 128, 32       # the kernel's tile: rows of x, columns of
-#                                 y, and the chunk of j (csrc/circulant.cu)
+BM = 128                # rows of x a block (csrc/circulant.cu)
+BN, BK = window.BN, window.BK
 
 
 def window_ok(n: int, i0: int) -> bool:
     """Whether output columns [i0, i0 + BN) lie in one generator block,
     so that the kernel reads their chunk of A as a Toeplitz window."""
-    return i0 % n + BN <= n
+    return window.layout("circulant", n, i0) == "window"
 
 
 def b_tile(g: torch.Tensor, m: int, i0: int, j0: int) -> torch.Tensor:
-    """The (BK, BN) operand the kernel builds for chunk j0 of output
+    """The (BK, BN) operand the kernel reads for chunk j0 of output
     columns i0: [k, c] = A[i0 + c, j0 + k], by the kernel's rules. A
-    window tile reads w[k - c + BN - 1], w the BN + BK - 1 generator
-    values from (j0 - i0 mod n - (BN - 1)) mod n on (indices mod n: the
-    doubled generator); its columns past m and rows past n are left as
-    the window gives them (the kernel masks the output and zero-fills
-    x). Any other tile takes A[i, j] = g[i // n, (j - i mod n) mod n],
-    zero past m and n."""
-    nb, n = g.shape
-    k = torch.arange(BK)[:, None]
-    c = torch.arange(BN)[None, :]
-    if window_ok(n, i0):
-        base = (j0 - i0 % n - (BN - 1)) % n
-        w = g[i0 // n, (base + torch.arange(BN + BK - 1)) % n]
-        return w[k - c + BN - 1]
-    i, j = i0 + c, j0 + k
-    valid = (i < m) & (j < n)
-    blk = torch.clamp(i // n, max=nb - 1)
-    vals = g[blk.expand(BK, BN), ((j - i % n) % n).expand(BK, BN)]
-    return torch.where(valid, vals, torch.zeros((), dtype=g.dtype))
+    window tile reads w[j0 + k - c + BN - 1], w the generator values from
+    (-i0 mod n - (BN - 1)) mod n on (indices mod n: the doubled
+    generator); its columns past m and rows past n are left as the window
+    gives them (the kernel masks the output and zero-fills x). Any other
+    tile takes A[i, j] = g[i // n, (j - i mod n) mod n], zero past m and
+    n."""
+    n = g.shape[1]
+    return window.operand("circulant", window.dense_source(g, n, m), n, m,
+                          i0, j0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,7 +107,7 @@ def circulant_project_cuda(g: torch.Tensor, x: torch.Tensor, m: int,
           else lib.circulant_project_bf16)
     rc = fn(x.data_ptr(), g.data_ptr(),
             sq.data_ptr() if epilogue == "exp" else None, out.data_ptr(),
-            bsz, n, nb, m, EPILOGUES.index(epilogue),
+            bsz, n, nb, m, window.EPILOGUES.index(epilogue),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"circulant kernel launch failed: cudaError {rc}")

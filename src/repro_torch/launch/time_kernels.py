@@ -1,0 +1,131 @@
+"""Time the spinner, seeded spinner and circulant kernels of one checkout
+on the card, at the serving shapes and the library shape, and print one
+JSON line.
+
+    python src/repro_torch/launch/time_kernels.py [--src DIR] [--label NAME]
+
+``--src`` names the ``src`` directory whose ``repro_torch`` is imported
+and built (default: this checkout's). The script calls only the kernel
+wrappers' public signatures, so it can time another checkout of the port
+(unpacked with ``git archive`` into a directory that .gitignore lists):
+run it on both in turns (A, B, B, A) on one card, one run after the
+other, and compare only numbers taken that way.
+
+Times: CUDA events over back-to-back launches queued behind a device
+sleep, median of the repeats (``chip_smoke.device_ms``). Inputs come
+from a seeded generator; no output is checked here (``chip_smoke.py``
+and ``tests/test_torch_cuda.py`` do that).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# serving: (label, rows a group, epilogue); n = 128, m = 256
+SPINNER_SERVING = [("decode query", 32, "identity"), ("decode key", 8, "exp"),
+                   ("prefill query", 512, "identity"),
+                   ("prefill key", 128, "exp")]
+SEEDED_SERVING = [("decode query", 4, "identity"), ("decode key", 1, "exp"),
+                  ("prefill query", 64, "identity"),
+                  ("prefill key", 16, "exp")]
+LIBRARY = (1, 8192, 1024, 4096)        # G, B, n, m: one estimate's call
+CIRCULANT = (4, 1024, 8192, 4096)      # nb, n, B, m (chip_smoke.CIRC_REAL)
+
+
+def device_ms(torch, fn, launches, repeats):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / launches)
+    return statistics.median(out)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--label", default="this checkout")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build, circulant as kcirc
+    from repro_torch.kernels import spinner as kspin
+    t0 = time.perf_counter()
+    build.build(["spinner", "circulant"])
+    built = time.perf_counter() - t0
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = "cuda"
+    res = {}
+
+    def spin_inputs(gsz, bsz, n, m, dtype):
+        x = torch.randn((gsz, bsz, n), generator=gen, device=dev) * n ** -.25
+        g = torch.randn((gsz, -(-m // n), n), generator=gen, device=dev)
+        d = (2 * torch.randint(0, 2, (2, gsz, n), generator=gen,
+                               device=dev) - 1).float()
+        return x.to(dtype), g.to(dtype), d[0].to(dtype), d[1].to(dtype)
+
+    def seeds(gsz):
+        return torch.randint(0, 2 ** 32, (gsz,), generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for label, bsz, epi in SPINNER_SERVING:
+            x, g, d0, d1 = spin_inputs(8, bsz, 128, 256, dtype)
+            res[f"spinner {label} {dt}"] = device_ms(
+                torch, lambda: kspin.spinner_project_cuda(
+                    "circulant", g, x, 256, d0=d0, d1=d1, epilogue=epi,
+                    out_scale=256 ** -.5), 100, 5)
+        for label, bsz, epi in SEEDED_SERVING:
+            x = spin_inputs(64, bsz, 128, 256, dtype)[0]
+            sd = seeds(64)
+            res[f"seeded {label} {dt}"] = device_ms(
+                torch, lambda: kspin.spinner_project_seeded_cuda(
+                    "circulant", sd, x, 256, epilogue=epi,
+                    out_scale=256 ** -.5), 100, 5)
+        gsz, bsz, n, m = LIBRARY
+        x, g, d0, d1 = spin_inputs(gsz, bsz, n, m, dtype)
+        res[f"spinner library {dt}"] = device_ms(
+            torch, lambda: kspin.spinner_project_cuda(
+                "circulant", g, x, m, d0=d0, d1=d1), 5, 3)
+        sd = seeds(gsz)
+        res[f"seeded library {dt}"] = device_ms(
+            torch, lambda: kspin.spinner_project_seeded_cuda(
+                "circulant", sd, x, m), 5, 3)
+        del x, g
+        nb, n, b, m = CIRCULANT
+        g = torch.randn((nb, n), generator=gen, device=dev).to(dtype)
+        x = torch.randn((b, n), generator=gen, device=dev)
+        x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+        res[f"circulant {dt}"] = device_ms(
+            torch, lambda: kcirc.circulant_project_cuda(g, x, m), 10, 3)
+        del x, g
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({"label": args.label, "card": smi,
+                      "build_s": round(built, 1), "ms": res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,8 @@ the dispatchers' gradients on the CPU, runs everywhere). On the card
     PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
 Tolerances: spinner, seeded spinner and srf_decode f32 max|kernel -
-plain| <= 1e-4 * max|plain|, bf16 2e-2; the paged gathers bit for bit
+plain| <= 1e-4 * max|plain|, bf16 2e-2 (the sign epilogue where |y| is
+beyond f32 summation-order noise of 0); the paged gathers bit for bit
 (torch.equal), and the f32 seeded spinner bit for bit against the
 materialized spinner kernel on the params regenerated on the card; fwht
 and circulant_project elementwise within ``tests/test_kernels.py``'s
@@ -245,6 +246,82 @@ def test_circulant_ragged_tiles_on_card(cuda_device, nb, n, b, m):
         torch.testing.assert_close(
             kcirc.circulant_project_cuda(g, shifted, m).float(), y,
             **_tol(dtype))
+
+
+# Ragged shapes aimed at the spinner kernels' routes and tile rules
+# (window_mma.cuh: BN = 128 output columns a block, chunks of BK = 32;
+# rows resident up to n = 128, a pre-pass above): (G, B, n, m, use_hd).
+# n < BK with no HD (n = 12, circulant tiles built: n < BN); HD at n = 64
+# with m crossing generator blocks; n = 160 without HD (x streamed, n not
+# a multiple of BK, circulant tiles crossing blocks); the pre-pass at
+# n = 256 and 1024, B = 1, m not a multiple of BN; and B = 130 rows past
+# one 128-row tile.
+SPIN_RAGGED = [(2, 1, 12, 40, False), (3, 5, 64, 200, True),
+               (1, 33, 160, 400, False), (2, 7, 256, 300, True),
+               (1, 1, 1024, 1000, True), (1, 130, 1024, 1300, True)]
+SPIN_EPIS = ("identity", "exp", "sign", "cos_sin")
+
+
+def _spin_close(k, p, y, epi, tol):
+    """max|k - p| <= tol * max|p|; sign compared where |y| is beyond f32
+    summation-order noise of the step."""
+    k, p = k.float(), p.float()
+    if epi == "sign":
+        far = (y.abs() > 1e-4 * y.abs().max()).expand_as(p)
+        k, p = k[far], p[far]
+    assert torch.isfinite(k).all()
+    return (k - p).abs().max().item() <= tol * p.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsz,bsz,n,m,use_hd", SPIN_RAGGED)
+def test_spinner_ragged_routes_on_card(cuda_device, gsz, bsz, n, m, use_hd):
+    """Both spinner kernels on the ragged shapes above, every kernel kind,
+    identity / exp / sign / cos_sin, f32 (1e-4 of the largest value) and
+    bf16 (2e-2) against their plain versions; the f32 seeded kernel bit
+    for bit against the materialized kernel on the params regenerated on
+    the card. No HD at n = 160: also from an x whose base is not 16-byte
+    aligned (plain loads instead of cp.async)."""
+    from repro_torch.kernels import seedgen
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    for kind in kspin.KERNEL_KINDS:
+        seeds = torch.randint(0, 2 ** 32, (gsz,), generator=gen,
+                              device=cuda_device, dtype=torch.int64)
+        gp = seedgen.grouped_params(kind, n, m, seeds, use_hd=use_hd)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x = (torch.randn((gsz, bsz, n), generator=gen,
+                             device=cuda_device) * n ** -0.25).to(dtype)
+            p = {k: v.to(dtype) for k, v in gp.items()}
+            hd = dict(d0=p["d0"], d1=p["d1"]) if use_hd else {}
+            y = ref.spinner_project_ref(kind, gp["g"], x.float(), m,
+                                        d0=gp.get("d0"), d1=gp.get("d1"))
+            for epi in SPIN_EPIS:
+                kw = dict(epilogue=epi, y_scale=0.9, out_scale=m ** -0.5)
+                k = kspin.spinner_project_cuda(kind, p["g"].contiguous(),
+                                               x, m, **hd, **kw)
+                want = ref.spinner_project_ref(kind, p["g"], x, m, **hd,
+                                               **kw)
+                assert _spin_close(k, want, y, epi, tol), \
+                    (kind, epi, dtype, "materialized")
+                s = kspin.spinner_project_seeded_cuda(kind, seeds, x, m,
+                                                      use_hd=use_hd, **kw)
+                want = ref.spinner_project_seeded_ref(kind, seeds, x, m,
+                                                      use_hd=use_hd, **kw)
+                assert _spin_close(s, want, y, epi, tol), \
+                    (kind, epi, dtype, "seeded")
+                if dtype == torch.float32:
+                    assert torch.equal(s, k), (kind, epi)
+            if n == 160:
+                flat = torch.zeros(x.numel() + 1, dtype=dtype,
+                                   device=cuda_device)
+                shifted = flat[1:].view(x.shape)
+                shifted.copy_(x)
+                assert shifted.data_ptr() % 16 != 0
+                torch.testing.assert_close(
+                    kspin.spinner_project_cuda(kind, p["g"].contiguous(),
+                                               shifted, m),
+                    kspin.spinner_project_cuda(kind, p["g"].contiguous(),
+                                               x, m))
 
 
 def _grad_cases(dev):

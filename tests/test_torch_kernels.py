@@ -439,27 +439,134 @@ B_TILE_SHAPES = [(1, 16, 16), (3, 40, 120), (4, 64, 256), (2, 200, 330),
                  (2, 384, 700), (1, 1000, 1000), (4, 1024, 4096)]
 
 
+def _check_b_tiles(tile_of, dense, kind, n, m):
+    """Every (chunk, column tile) operand ``tile_of(i0, j0)`` equals the
+    dense A where both indices are in range, and a built tile is zero past
+    them (``kernels.window``, the rule of ``csrc/window_mma.cuh``).
+    Returns the number of column tiles read as a window."""
+    from repro_torch.kernels import window
+    windows = 0
+    for i0 in range(0, m, window.BN):
+        built = window.layout(kind, n, i0) == "built"
+        windows += not built
+        for j0 in range(0, n, window.BK):
+            tile = tile_of(i0, j0)
+            assert tile.shape == (window.BK, window.BN)
+            cols, rows = min(window.BN, m - i0), min(window.BK, n - j0)
+            assert torch.equal(tile[:rows, :cols],
+                               dense[i0:i0 + cols, j0:j0 + rows].T), \
+                (kind, n, m, i0, j0)
+            if built:
+                assert not tile[rows:].any() and not tile[:, cols:].any()
+    return windows
+
+
 @pytest.mark.parametrize("nb,n,m", B_TILE_SHAPES)
 def test_circulant_b_tile_matches_circulant_matrix(nb, n, m):
-    """The circulant kernel's index rules (``circulant.b_tile``, the
-    Toeplitz window and the per-row rule): every A[i, j] of every
-    (chunk, column tile) equals ``ref.circulant_matrix``; the window is
-    taken exactly where a tile lies in one generator block."""
+    """The circulant kernel's index rules (``circulant.b_tile``: the
+    shared rule of ``kernels.window``, the Toeplitz window and the per-row
+    rule): every A[i, j] of every (chunk, column tile) equals
+    ``ref.circulant_matrix``; the window is taken exactly where a tile
+    lies in one generator block."""
     from repro_torch.kernels import ref
     g = torch.from_numpy(np.random.default_rng(n).standard_normal(
         (nb, n)).astype(np.float32))
-    dense = ref.circulant_matrix(g, m)
-    windows = 0
     for i0 in range(0, m, kcirc.BN):
         assert kcirc.window_ok(n, i0) == \
             (i0 // n == (i0 + kcirc.BN - 1) // n)
-        windows += kcirc.window_ok(n, i0)
-        for j0 in range(0, n, kcirc.BK):
-            tile = kcirc.b_tile(g, m, i0, j0)
-            assert tile.shape == (kcirc.BK, kcirc.BN)
-            cols, rows = min(kcirc.BN, m - i0), min(kcirc.BK, n - j0)
-            assert torch.equal(tile[:rows, :cols],
-                               dense[i0:i0 + cols, j0:j0 + rows].T)
-            if not kcirc.window_ok(n, i0):
-                assert not tile[rows:].any() and not tile[:, cols:].any()
+    windows = _check_b_tiles(lambda i0, j0: kcirc.b_tile(g, m, i0, j0),
+                             ref.circulant_matrix(g, m), "circulant", n, m)
     assert (windows > 0) == (n >= kcirc.BN)
+
+
+# (n, m) for every spinner kind: n < BK (12), n < BN with m crossing
+# generator blocks (40, 64), n not a multiple of BK (40, 70, 200), tiles
+# crossing a block next to windows (160, 200), m not a multiple of BN,
+# and the pre-pass widths (256, 1024) with m > n.
+SPIN_TILE_SHAPES = [(12, 36), (40, 120), (64, 200), (70, 140), (160, 400),
+                    (200, 330), (256, 384), (1024, 1300)]
+
+
+@pytest.mark.parametrize("n,m", SPIN_TILE_SHAPES)
+@pytest.mark.parametrize("kind", kspin.KERNEL_KINDS)
+def test_spinner_b_tile_matches_materialize(kind, n, m):
+    """Both spinner kernels' B operand rules (``spinner.b_tile``: Toeplitz
+    and Hankel windows, built tiles for circulant / skew tiles across a
+    block and for dense A) give ``structured.materialize`` at every
+    (chunk, column tile); windows exactly where ``window.layout`` says,
+    and a built tile reserved exactly where one is built
+    (``window.crosses_block``)."""
+    from repro_torch.core import structured
+    from repro_torch.kernels import seedgen
+    g = seedgen.seeded_params(kind, n, m, 11, use_hd=False)["g"]
+    dense = structured.materialize(kind, {"g": g}, m, n)
+    windows = _check_b_tiles(lambda i0, j0: kspin.b_tile(kind, g, m, i0, j0),
+                             dense, kind, n, m)
+    from repro_torch.kernels import window
+    tiles = -(-m // window.BN)
+    if kind in ("toeplitz", "hankel"):
+        assert windows == tiles
+    elif kind == "unstructured" or n < window.BN:
+        assert windows == 0
+    else:
+        assert 0 < windows
+    if kind in ("circulant", "skew_circulant"):
+        # the launch reserves a built tile's shared memory by this rule
+        assert window.crosses_block(n, m) == (windows < tiles)
+
+
+@pytest.mark.parametrize("n,m", SPIN_TILE_SHAPES)
+@pytest.mark.parametrize("kind", kspin.KERNEL_KINDS)
+def test_seeded_b_tile_draw_positions(kind, n, m):
+    """The seeded kernel draws each generator value a column tile reads
+    once (``window.seeded_positions``: whole generator blocks, or the
+    BN + n - 1 Toeplitz / Hankel diagonals) and builds its operand from
+    them: equal, bit for bit, to the materialized kernel's operand on
+    ``seedgen.grouped_params`` of the same seed, padding included; the
+    drawn positions lie in the canonical generator array."""
+    from repro_torch.kernels import seedgen, window
+    seed = 5 + n
+    g = seedgen.grouped_params(kind, n, m, torch.tensor([seed]),
+                               use_hd=False)["g"][0]
+    for i0 in range(0, m, window.BN):
+        base, pos = window.seeded_positions(kind, n, m, i0)
+        assert pos.numel() == 0 or (0 <= int(pos.min())
+                                    and int(pos.max()) < g.numel())
+        for j0 in range(0, n, window.BK):
+            assert torch.equal(kspin.seeded_b_tile(kind, seed, n, m, i0, j0),
+                               kspin.b_tile(kind, g, m, i0, j0)), \
+                (kind, n, m, i0, j0)
+
+
+@pytest.mark.parametrize("n,use_hd,epilogue,dtype,want", [
+    (128, True, "exp", torch.float32, (False, False)),
+    (128, False, "identity", torch.bfloat16, (False, False)),
+    (256, True, "identity", torch.float32, (True, False)),
+    (1024, True, "exp", torch.bfloat16, (True, True)),
+    (160, False, "exp", torch.float32, (False, True)),
+    (160, False, "identity", torch.bfloat16, (True, False))])
+def test_spinner_scratch_rule(n, use_hd, epilogue, dtype, want):
+    """The pre-pass's scratch (z, 0.5||x||^2) exactly above n = 128: z
+    with HD or for bf16 x (the mainloop's A operand is f32), the norms
+    for exp."""
+    assert kspin.scratch(n, use_hd, epilogue, dtype) == want
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """``build.lib_path`` hashes a source and the ``csrc/`` headers it
+    includes: editing the shared header renames both libraries that
+    include it (spinner, circulant) and no other (no nvcc needed)."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("spinner", "circulant", "fwht", "srf_decode", "paged_gather")
+    before = {name: build.lib_path(name) for name in names}
+    assert [p.name for p in build.sources("spinner")] == [
+        "spinner.cu", "window_mma.cuh"]
+    header = csrc / "window_mma.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: build.lib_path(name) for name in names}
+    assert {name for name in names if after[name] != before[name]} == {
+        "spinner", "circulant"}
