@@ -24,10 +24,15 @@ result line):
      m=256, dv=128) and two ragged shapes. Tolerance: max|kernel - plain|
      <= 1e-4 * max|plain| in f32, 2e-2 * max|plain| in bf16.
    * paged_gather (bf16, f32, int8 pools) and paged_gather_dequant (int8
-     -> bf16, f32) at the full-width decode shape (R=8, M=16, P=16,
-     D=1024), a prefill-sized shape (R=32, M=64) and ragged shapes (row
-     bytes not a multiple of 16, ids out of range), int32 and int64
-     tables: bit-equal (torch.equal).
+     -> bf16, f32; one pool, and a layer's K and V in one launch through
+     paged_gather_dequant_kv) at the full-width decode shape (R=8, M=16,
+     P=16, D=1024), a prefill-sized shape (R=32, M=64) and ragged shapes
+     (row bytes not a multiple of 16, ids out of range), int32 and int64
+     tables; the dequant kernel also on pool views off 16-byte alignment
+     (its vector and scalar paths), a page of 64 rows (larger than a ring
+     stage) and rows of 32768 int8 (cut within the row): bit-equal
+     (torch.equal). Times: the dequant gather for one pool, and for K
+     and V in one launch beside two single-pool launches.
    * the seeded spinner at the seeded serving shapes (circulant n=128,
      m=256, G = 8 kv heads x 8 requests = 64 groups; decode query B=4,
      decode key B=1, prefill query B=64, prefill key B=16; bf16 and f32),
@@ -69,8 +74,9 @@ result line):
    warm, in one engine); then with SRF attention. Every count is set to
    0 just before each run and read just after; a run fails unless every
    request finishes with 32 tokens, every sampled logit row is finite,
-   and its kernels launched as the path needs (full KV: paged_gather, or
-   paged_gather_dequant on int8 pages, exactly 72 per step and the other
+   and its kernels launched as the path needs (full KV: paged_gather
+   exactly 72 per step on bf16 pages, or paged_gather_dequant_kv exactly
+   36 per step on int8 pages, a layer's K and V in one launch; the other
    gathers never; SRF: the spinner at least 72 per step and srf_decode
    36 per decode step). The prefix run must serve prompt tokens from the
    cache and leak no page. Then seeded SRF (``SRFAttnConfig(seeded=True)``,
@@ -574,12 +580,77 @@ def _cycle(fn, pools):
     return lambda: fn(next(it))
 
 
+def _dequant_exact(label, kq, ks, vq, vs, t):
+    """paged_gather_dequant on the K pool and paged_gather_dequant_kv on
+    both, int8 -> bf16 and f32, bit-equal to the plain version."""
+    from repro_torch.kernels import paged_gather as kpg, ref
+    for odt in (torch.bfloat16, torch.float32):
+        want_k = ref.paged_gather_dequant_ref(kq, ks, t, odt)
+        want_v = ref.paged_gather_dequant_ref(vq, vs, t, odt)
+        exact(f"paged_gather_dequant {label} int8->{str(odt)[6:]}",
+              kpg.paged_gather_dequant_cuda(kq, ks, t, odt), want_k)
+        k, v = kpg.paged_gather_dequant_kv_cuda(kq, ks, vq, vs, t, odt)
+        exact(f"paged_gather_dequant_kv {label} K int8->{str(odt)[6:]}",
+              k, want_k)
+        exact(f"paged_gather_dequant_kv {label} V int8->{str(odt)[6:]}",
+              v, want_v)
+
+
+def _offset(t, elems):
+    """A copy of ``t`` whose base lies ``elems`` elements past an
+    allocation's start: off 16-byte alignment unless 0."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _dequant_paths(gen):
+    """The dequant kernel's other paths, bit-equal: pool views off 16-byte
+    alignment at the decode widths (the vector and scalar paths of the
+    same kernel), a page of 64 rows (64 KB, cut into ring stages), and
+    rows of 32768 int8 longer than a stage (cut within the row)."""
+    from repro_torch.kernels import paged_gather as kpg
+    dev = "cuda"
+    cases = [("decode widths", 257, 16, 1024, 8, 16),
+             ("page of 64 rows", 65, 64, 1024, 4, 8),
+             ("rows of 32768", 9, 4, 32768, 3, 5)]
+    for label, n, p, d, r, m in cases:
+        t = torch.randint(-3, n + 3, (r, m), generator=gen, device=dev,
+                          dtype=torch.int32)
+        q = torch.randint(-127, 128, (2, n, p, d), generator=gen,
+                          device=dev, dtype=torch.int8)
+        sc = torch.rand((2, n, p, 1), generator=gen, device=dev) / 127
+        views = [("aligned", (0, 0))]
+        if label == "decode widths":
+            views += [("pool at +8 bytes", (8, 0)),
+                      ("pool at +1 byte", (1, 0)),
+                      ("scales at +4 bytes", (0, 1))]
+        for how, (qo, so) in views:
+            kq, vq = _offset(q[0], qo), _offset(q[1], qo)
+            ks, vs = _offset(sc[0], so), _offset(sc[1], so)
+            plan = kpg.dequant_plan(
+                p, d, 2, r * m, (kq.data_ptr() | vq.data_ptr()) % 16, 0,
+                torch.bfloat16,
+                scales_addr_mod16=(ks.data_ptr() | vs.data_ptr()) % 16,
+                n_pages=n, sms=torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+            _dequant_exact(f"{label}, {how}, {plan.path} path, "
+                           f"{plan.chunk_rows} x {plan.chunk_cols} chunks "
+                           f"(N={n}, P={p}, D={d}, R={r}, M={m})",
+                           kq, ks, vq, vs, t)
+
+
 def phase_paged_gather(gen):
     """Both gathers, bit-equal (torch.equal) to their plain versions at
     the full-width decode shape (R=8 rows, M=16 pages of P=16 tokens,
     D = 8 kv heads x 128; N=257 pages, the engine's default pool), a
     prefill-sized shape (R=32, M=64) and ragged shapes (row bytes not a
-    multiple of 16, ids out of range on both sides)."""
+    multiple of 16, ids out of range on both sides); the int8 gather for
+    one pool and for a layer's K and V in one launch, and on its other
+    paths (``_dequant_paths``). Times at the decode and prefill shapes:
+    the int8 gather for one pool, and for K and V in one launch beside
+    two single-pool launches (how the attention gathered them before)."""
     from repro_torch.kernels import paged_gather as kpg, ref
     dev = "cuda"
     shapes = [("decode", 257, 16, 1024, 8, 16),
@@ -594,30 +665,21 @@ def phase_paged_gather(gen):
                                dtype=torch.int64)
         for tdt in (torch.int64, torch.int32):
             t = tables.to(tdt)
+            what = f"(N={n}, P={p}, D={d}, R={r}, M={m}, {str(tdt)[6:]})"
             for dtype in (torch.bfloat16, torch.float32, torch.int8):
                 pool = _layer_pools(1, n, p, d, dtype, gen)[0]
                 k = kpg.paged_gather_cuda(pool, t)
                 pl = ref.paged_gather_ref(pool, t)
-                exact(f"paged_gather {label} {str(dtype)[6:]} "
-                      f"(N={n}, P={p}, D={d}, R={r}, M={m}, {str(tdt)[6:]})",
-                      k, pl)
-            q = _layer_pools(1, n, p, d, torch.int8, gen)[0]
-            sc = torch.rand((n, p, 1), generator=gen, device=dev) / 127
-            for odt in (torch.bfloat16, torch.float32):
-                k = kpg.paged_gather_dequant_cuda(q, sc, t, odt)
-                pl = ref.paged_gather_dequant_ref(q, sc, t, odt)
-                exact(f"paged_gather_dequant {label} int8->{str(odt)[6:]} "
-                      f"(N={n}, P={p}, D={d}, R={r}, M={m}, {str(tdt)[6:]})",
-                      k, pl)
+                exact(f"paged_gather {label} {str(dtype)[6:]} {what}", k, pl)
+            kq, vq = _layer_pools(2, n, p, d, torch.int8, gen)
+            ks, vs = (torch.rand((n, p, 1), generator=gen, device=dev) / 127
+                      for _ in range(2))
+            _dequant_exact(f"{label} {what}", kq, ks, vq, vs, t)
         if ragged:
             continue
-        # times: cycling through 36 layer pools, as one decode step does
+        # times: cycling through 36 layers' pools, as one decode step does
         nl = 36
         pools = _layer_pools(nl, n, p, d, torch.bfloat16, gen)
-        qpools = _layer_pools(nl, n, p, d, torch.int8, gen)
-        scs = [torch.rand((n, p, 1), generator=gen, device=dev) / 127
-               for _ in range(nl)]
-        spools = list(zip(qpools, scs))
         rows = r * m * p
         g_ms = device_ms(_cycle(lambda a: kpg.paged_gather_cuda(a, tables),
                                 pools))
@@ -625,25 +687,50 @@ def phase_paged_gather(gen):
                                    pools))
         g_lib = device_ms(_cycle(lambda a: a[tables], pools))
         g_b, g_by = bound(2 * rows * d * 2, 0)
-        dq_ms = device_ms(_cycle(lambda a: kpg.paged_gather_dequant_cuda(
-            a[0], a[1], tables, torch.bfloat16), spools))
-        dq_plain = device_ms(_cycle(lambda a: ref.paged_gather_dequant_ref(
-            a[0], a[1], tables, torch.bfloat16), spools))
-        dq_b, dq_by = bound(rows * d + 4 * rows + 2 * rows * d,
-                            rows * d)
-        log(f"    {label} paged_gather bf16: kernel {g_ms:.4f} ms  plain "
-            f"{g_plain:.4f} ms  pool[tables] {g_lib:.4f} ms  bound "
+        del pools
+        qpools = _layer_pools(2 * nl, n, p, d, torch.int8, gen)
+        scs = [torch.rand((n, p, 1), generator=gen, device=dev) / 127
+               for _ in range(2 * nl)]
+        layers = [((qpools[2 * i], scs[2 * i]),
+                   (qpools[2 * i + 1], scs[2 * i + 1])) for i in range(nl)]
+        bf = torch.bfloat16
+        one_ms = device_ms(_cycle(lambda a: kpg.paged_gather_dequant_cuda(
+            a[0][0], a[0][1], tables, bf), layers))
+        kv_ms = device_ms(_cycle(lambda a: kpg.paged_gather_dequant_kv_cuda(
+            a[0][0], a[0][1], a[1][0], a[1][1], tables, bf), layers))
+        two_ms = device_ms(_cycle(lambda a: [
+            kpg.paged_gather_dequant_cuda(q, sc, tables, bf)
+            for q, sc in a], layers))
+        one_plain = device_ms(_cycle(lambda a: ref.paged_gather_dequant_ref(
+            a[0][0], a[0][1], tables, bf), layers))
+        kv_plain = device_ms(_cycle(lambda a: [
+            ref.paged_gather_dequant_ref(q, sc, tables, bf)
+            for q, sc in a], layers))
+        del qpools, scs, layers
+        # one pool: int8 pages and f32 scales read once, bf16 written once
+        one_b, one_by = bound(rows * d + 4 * rows + 2 * rows * d, rows * d)
+        kv_b, kv_by = bound(2 * (rows * d + 4 * rows + 2 * rows * d),
+                            2 * rows * d)
+        log(f"    {label} paged_gather bf16: kernel {g_ms:.5f} ms  plain "
+            f"{g_plain:.5f} ms  pool[tables] {g_lib:.5f} ms  bound "
             f"{g_b:.5f} ms ({g_by})")
-        log(f"    {label} paged_gather_dequant int8->bf16: kernel "
-            f"{dq_ms:.4f} ms  plain {dq_plain:.4f} ms  bound {dq_b:.5f} ms "
-            f"({dq_by})")
+        log(f"    {label} paged_gather_dequant int8->bf16, one pool: kernel "
+            f"{one_ms:.5f} ms ({100 * one_b / one_ms:.0f}% of bound)  plain "
+            f"{one_plain:.5f} ms  bound {one_b:.5f} ms ({one_by})")
+        log(f"    {label} paged_gather_dequant int8->bf16, K and V: one "
+            f"launch {kv_ms:.5f} ms ({100 * kv_b / kv_ms:.0f}% of bound)  "
+            f"two single launches {two_ms:.5f} ms  plain {kv_plain:.5f} ms  "
+            f"bound {kv_b:.5f} ms ({kv_by})")
         records[label] = {
             "paged_gather": dict(err=0.0, ms=g_ms, plain_ms=g_plain,
                                  library_ms=g_lib, bound_ms=g_b,
                                  bound_by=g_by),
-            "paged_gather_dequant": dict(err=0.0, ms=dq_ms,
-                                         plain_ms=dq_plain, library_ms=None,
-                                         bound_ms=dq_b, bound_by=dq_by)}
+            "paged_gather_dequant": dict(
+                err=0.0, ms=kv_ms, plain_ms=kv_plain, library_ms=None,
+                bound_ms=kv_b, bound_by=kv_by, one_pool_ms=one_ms,
+                one_pool_plain_ms=one_plain, one_pool_bound_ms=one_b,
+                two_single_launches_ms=two_ms)}
+    _dequant_paths(gen)
     return records
 
 
@@ -987,6 +1074,7 @@ def phase_reduced_agreement():
     versions), with SRF state, bf16 KV pages and int8 KV pages: the
     greedy tokens must be equal."""
     from repro_torch.configs import registry
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as model_lib
     for label, attn, dtype, quant in REDUCED:
@@ -997,11 +1085,18 @@ def phase_reduced_agreement():
             args = serve_args(attn, reduced=True, requests=8, prompt_len=24,
                               max_new=6, slots=4, max_len=64, seed=3,
                               device=device, quantize_kv=quant)
+            ops.reset_counts()
             res = serve.serve(args, cfg, _to(params, device))
             out[device] = {r.uid: r.out_tokens for r in res["done"]}
         if out["cpu"] != out["cuda"] or len(out["cuda"]) != 8:
             raise AssertionError(f"reduced {label}: greedy tokens differ "
                                  f"between card and CPU: {out}")
+        counts = ops.launch_counts()
+        if quant and (counts["paged_gather_dequant_kv"] == 0
+                      or counts["paged_gather_dequant"]):
+            raise AssertionError(f"reduced {label}: int8 pages not gathered "
+                                 f"by paged_gather_dequant_kv alone: "
+                                 f"{counts}")
         log(f"  reduced qwen3-4b {label}: card tokens == CPU tokens "
             f"({sum(len(t) for t in out['cuda'].values())} tokens)")
 
@@ -1078,7 +1173,8 @@ def _check_serve(label, res, args, counts, expect):
     if eng.nonfinite_rows:
         raise AssertionError(f"{label}: {eng.nonfinite_rows} logit rows "
                              f"not finite")
-    for name in ("paged_gather", "paged_gather_dequant", "spinner_seeded",
+    for name in ("paged_gather", "paged_gather_dequant",
+                 "paged_gather_dequant_kv", "spinner_seeded",
                  "spinner_seeded_plain_on_cuda", "fwht", "fwht_plain_on_cuda",
                  "circulant_project"):
         expect.setdefault(name, (0, True))
@@ -1127,6 +1223,8 @@ def phase_serve_kv():
     _describe(cfg, params, t0)
     per_step = 2 * cfg.n_layers
     out = {}
+    # bf16 pages: paged_gather for K and for V of every layer (72 a step);
+    # int8 pages: one paged_gather_dequant_kv launch a layer (36 a step)
     for label, flags in (("bf16 pages", {}),
                          ("int8 pages", {"quantize_kv": True})):
         a = serve_args(**TRAFFIC, **flags)
@@ -1141,10 +1239,11 @@ def phase_serve_kv():
         _serve_line(label, res, steps,
                     torch.cuda.max_memory_allocated() / 2 ** 30)
         log(f"    launches: {counts}")
-        name = "paged_gather_dequant" if a.quantize_kv else "paged_gather"
+        gathers = ({"paged_gather_dequant_kv": (cfg.n_layers * steps, True)}
+                   if a.quantize_kv else
+                   {"paged_gather": (per_step * steps, True)})
         _check_serve(label, res, a, counts, {
-            name: (per_step * steps, True), "spinner": (0, True),
-            "srf_decode": (0, True)})
+            **gathers, "spinner": (0, True), "srf_decode": (0, True)})
         out[label] = counts
 
     a = serve_args(**TRAFFIC, prefix_cache=True, shared_prefix=SHARED)
@@ -1333,12 +1432,14 @@ def _leaves(tree):
 
 
 def _record(name, source, replaces, launches, rec, shape):
+    extra = {k: v for k, v in rec.items() if k.startswith(("one_pool_",
+                                                           "two_single_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            "library_ms": rec.get("library_ms"), "shape": shape}
+            "library_ms": rec.get("library_ms"), "shape": shape, **extra}
 
 
 def main() -> int:
@@ -1404,9 +1505,12 @@ def main() -> int:
                 gather["decode"]["paged_gather"], decode + ", bf16"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
-                kv["int8 pages"]["paged_gather_dequant"],
+                kv["int8 pages"]["paged_gather_dequant_kv"],
                 gather["decode"]["paged_gather_dequant"],
-                decode + ", int8 -> bf16"),
+                decode + ", int8 -> bf16, a layer's K and V in one launch "
+                "(paged_gather_dequant_kv, as the int8 serve run launches "
+                "it); plain_ms: two plain calls; one_pool_*: the "
+                "single-pool launch"),
         _record("seeded_spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:249",
                 seeded_srf["spinner_seeded"],

@@ -32,6 +32,7 @@ are the kernels' own. Launch counts live on the kernel wrappers
 ``srf_decode.srf_decode_cuda.launches``,
 ``paged_gather.paged_gather_cuda.launches``,
 ``paged_gather.paged_gather_dequant_cuda.launches``,
+``paged_gather.paged_gather_dequant_kv_cuda.launches``,
 ``fwht.fwht_cuda.launches``,
 ``circulant.circulant_project_cuda.launches``);
 :func:`launch_counts` reads them and :func:`reset_counts` zeroes them.
@@ -57,6 +58,8 @@ def launch_counts() -> Dict[str, int]:
             "srf_decode": _dec.srf_decode_cuda.launches,
             "paged_gather": _pg.paged_gather_cuda.launches,
             "paged_gather_dequant": _pg.paged_gather_dequant_cuda.launches,
+            "paged_gather_dequant_kv":
+                _pg.paged_gather_dequant_kv_cuda.launches,
             "spinner_seeded": _spin.spinner_project_seeded_cuda.launches,
             "spinner_plain_on_cuda": spinner_project.plain_calls,
             "spinner_seeded_plain_on_cuda":
@@ -71,6 +74,7 @@ def reset_counts() -> None:
     _dec.srf_decode_cuda.launches = 0
     _pg.paged_gather_cuda.launches = 0
     _pg.paged_gather_dequant_cuda.launches = 0
+    _pg.paged_gather_dequant_kv_cuda.launches = 0
     _spin.spinner_project_seeded_cuda.launches = 0
     spinner_project.plain_calls = 0
     spinner_project_seeded.plain_calls = 0
@@ -147,6 +151,23 @@ def paged_gather_dequant(pool: torch.Tensor, scales: torch.Tensor,
         _no_grad_needed("paged_gather_dequant", pool, scales)
         return _pg.paged_gather_dequant_cuda(pool, scales, tables, out_dtype)
     return _ref.paged_gather_dequant_ref(pool, scales, tables, out_dtype)
+
+
+def paged_gather_dequant_kv(k_pool: torch.Tensor, k_scales: torch.Tensor,
+                            v_pool: torch.Tensor, v_scales: torch.Tensor,
+                            tables: torch.Tensor, out_dtype=torch.float32
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's K and V: :func:`paged_gather_dequant` of both int8 pools
+    (one shape) through one table, as (k, v); on the card one launch."""
+    if k_pool.is_cuda:
+        _no_grad_needed("paged_gather_dequant_kv", k_pool, k_scales, v_pool,
+                        v_scales)
+        return _pg.paged_gather_dequant_kv_cuda(k_pool, k_scales, v_pool,
+                                                v_scales, tables, out_dtype)
+    return (_ref.paged_gather_dequant_ref(k_pool, k_scales, tables,
+                                          out_dtype),
+            _ref.paged_gather_dequant_ref(v_pool, v_scales, tables,
+                                          out_dtype))
 
 
 def srf_decode(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,

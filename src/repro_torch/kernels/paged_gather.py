@@ -3,16 +3,20 @@
     out[r, j*P:(j+1)*P, :] = pool[clamp(tables[r, j], 0, N-1)]
 
 from a (N, P, D) pool of any dtype, and the int8 variant that multiplies
-each page row by its f32 scale and writes bf16 or f32.
+each page row by its f32 scale and writes bf16 or f32, for one pool or
+for a layer's K and V pools in one launch.
 
 Counterparts of ``repro.kernels.paged_gather.paged_gather_pallas`` and
-``paged_gather_dequant_pallas``. CUDA tensors only; ``kernels.ops``
-routes CPU tensors to the plain versions (``kernels.ref``). Each wrapper
-counts its launches in ``.launches``.
+``paged_gather_dequant_pallas`` (the K and V launch is two calls of the
+latter). CUDA tensors only; ``kernels.ops`` routes CPU tensors to the
+plain versions (``kernels.ref``). Each wrapper counts its launches in
+``.launches``. :func:`dequant_plan` is the dequant kernel's launch plan,
+pure Python so that the CPU tests reach it.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -22,16 +26,119 @@ from . import build
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 OUT_DTYPES = (torch.bfloat16, torch.float32)
 
+# The dequant kernel's launch plan (see csrc/paged_gather.cu).
+PATHS = ("tma", "vector", "scalar")
+STAGE_MAX = 16384       # int8 bytes of one ring stage at most
+STAGE_MIN = 4096        # chunks are not cut below this to make more items
+STAGES = 4              # ring depth: 4 x 16 KB + scales, 3 blocks an SM
+BLOCKS_PER_SM = 3
+CONSUMERS = 256         # converting threads a block (warps 1-8 on TMA)
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class DequantPlan:
+    """How one dequant launch runs. ``path``: "tma" (a ring of shared-memory
+    stages filled by the TMA, warp 0 the producer), "vector" (pieces of 8
+    or 4 int8 read from device memory) or "scalar" (one element a step).
+    A work item is ``chunk_rows`` x ``chunk_cols`` elements of one page of
+    one pool (rows are cut only when one row exceeds a stage); ``items``
+    of them walked by ``grid`` persistent blocks of ``threads``.
+    ``stage_bytes``, ``slot_bytes`` (a stage's scales), ``stages`` and
+    ``smem_bytes`` are 0 off the TMA path."""
+    path: str
+    chunk_rows: int
+    chunk_cols: int
+    chunks_per_page: int
+    items: int
+    stage_bytes: int
+    slot_bytes: int
+    stages: int
+    grid: int
+    threads: int
+    smem_bytes: int
+
+
+def _divisors_down(n: int, cap: int):
+    return [d for d in range(min(n, cap), 0, -1) if n % d == 0]
+
+
+def dequant_plan(P: int, D: int, n_pools: int, rm: int,
+                 pool_addr_mod16: int, out_addr_mod16: int, out_dtype,
+                 scales_addr_mod16: int = 0, n_pages: int = 4,
+                 sms: int = H100_SMS) -> DequantPlan:
+    """The launch plan of ``n_pools`` (1, or 2 for K and V) int8 pools of
+    ``n_pages`` pages (P, D), ``rm`` page slots, writing ``out_dtype``.
+    The ``*_mod16`` are the base addresses modulo 16 (for two pools, of
+    either: any misalignment counts).
+
+    TMA when every bulk copy is 16-byte aligned: D % 16 == 0, pools,
+    output and scales on 16 bytes, and ``n_pages * P`` a multiple of 4 (a
+    chunk's scales are copied as the 16-byte span around them). Else the
+    vector path when a piece (8 int8 for bf16 out, 4 for f32) never
+    crosses a row and the pools and output allow its loads and 16-byte
+    stores; else the scalar path. Chunks: whole rows, as many as divide P
+    and fit ``STAGE_MAX`` bytes, halved while that leaves fewer than two
+    items for every block the card holds (down to ``STAGE_MIN``); a row
+    longer than a stage (TMA only) is cut into equal pieces of at most a
+    stage."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"paged_gather_dequant writes bf16 or f32, not "
+                         f"{out_dtype}")
+    vec = 8 if out_dtype == torch.bfloat16 else 4
+    if (D % 16 == 0 and pool_addr_mod16 == 0 and out_addr_mod16 == 0
+            and scales_addr_mod16 == 0 and (n_pages * P) % 4 == 0):
+        path = "tma"
+    elif (D % vec == 0 and pool_addr_mod16 % vec == 0
+          and out_addr_mod16 == 0):
+        path = "vector"
+    else:
+        path = "scalar"
+    full_grid = BLOCKS_PER_SM * sms
+
+    def chunk(cap):
+        if D > cap and path == "tma":
+            w = next(w for w in _divisors_down(D, cap) if w % 16 == 0)
+            return 1, w
+        return next(c for c in _divisors_down(P, max(cap // D, 1))), D
+
+    cap = STAGE_MAX
+    rows, cols = chunk(cap)
+    while (cap > STAGE_MIN and n_pools * rm * (P * D // (rows * cols))
+           < 2 * full_grid):
+        cap //= 2
+        rows, cols = chunk(cap)
+    per_page = P * D // (rows * cols)
+    items = n_pools * rm * per_page
+    grid = max(1, min(items, full_grid))
+    if path != "tma":
+        return DequantPlan(path, rows, cols, per_page, items, 0, 0, 0, grid,
+                           CONSUMERS, 0)
+    stage = rows * cols
+    slot = -(-(rows + 3) * 4 // 16) * 16
+    return DequantPlan(path, rows, cols, per_page, items, stage, slot,
+                       STAGES, grid, 32 + CONSUMERS,
+                       STAGES * (stage + slot + 16 + 4))
+
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("paged_gather")
     lib.paged_gather.argtypes = [_P, _P, _I, _P, _L, _L, _L, _P]
     lib.paged_gather.restype = ctypes.c_int
+    plan = [_I] * 9
     lib.paged_gather_dequant.argtypes = [_P, _P, _P, _I, _P, _I, _L, _L, _I,
-                                         _I, _P]
+                                         _I, *plan, _P]
     lib.paged_gather_dequant.restype = ctypes.c_int
+    lib.paged_gather_dequant_kv.argtypes = [_P, _P, _P, _P, _P, _I, _P, _I,
+                                            _L, _L, _I, _I, *plan, _P]
+    lib.paged_gather_dequant_kv.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name: str, pool: torch.Tensor, tables: torch.Tensor) -> None:
@@ -78,34 +185,70 @@ def paged_gather_cuda(pool: torch.Tensor, tables: torch.Tensor
     return out
 
 
+def _check_dequant(name, pools, scales, tables, out_dtype):
+    """The int8 pools (all one shape) and their scales, as the kernel
+    takes them."""
+    for pool in pools:
+        _check(name, pool, tables)
+    n, p, d = pools[0].shape
+    for pool, sc in zip(pools, scales):
+        if pool.dtype != torch.int8 or pool.shape != pools[0].shape:
+            raise ValueError(f"{name} kernel takes int8 pools of one shape, "
+                             f"got {pool.dtype} {tuple(pool.shape)}")
+        if (sc.dtype != torch.float32 or tuple(sc.shape) != (n, p, 1)
+                or not sc.is_contiguous() or sc.device != pool.device):
+            raise ValueError(f"{name} kernel: scales must be a contiguous "
+                             f"float32 ({n}, {p}, 1) tensor on "
+                             f"{pool.device}, got {sc.dtype} "
+                             f"{tuple(sc.shape)} on {sc.device}")
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"{name} kernel writes bf16 or f32, not "
+                         f"{out_dtype}")
+    r, m = tables.shape
+    if len(pools) * r * m * p * d >= 2 ** 31 or n * p >= 2 ** 31:
+        raise ValueError(f"{name} kernel: {len(pools)} x {r * m} pages of "
+                         f"{p} x {d} exceed its 32-bit item indices")
+
+
+def _plan_for(pools, scales, out, tables):
+    n, p, d = pools[0].shape
+    mod = 0
+    for t in pools:
+        mod |= t.data_ptr() % 16
+    smod = 0
+    for t in scales:
+        smod |= t.data_ptr() % 16
+    return dequant_plan(p, d, len(pools), tables.numel(), mod,
+                        out.data_ptr() % 16, out.dtype,
+                        scales_addr_mod16=smod, n_pages=n,
+                        sms=_sms(out.device.index or 0))
+
+
+def _plan_args(plan: DequantPlan):
+    return (PATHS.index(plan.path), plan.chunk_rows, plan.chunk_cols,
+            plan.stages, plan.stage_bytes, plan.slot_bytes, plan.grid,
+            plan.threads, plan.smem_bytes)
+
+
 def paged_gather_dequant_cuda(pool: torch.Tensor, scales: torch.Tensor,
                               tables: torch.Tensor,
                               out_dtype=torch.float32) -> torch.Tensor:
     """pool (N, P, D) int8; scales (N, P, 1) float32 row scales; tables
     (R, M) int32/int64 -> (R, M*P, D) ``out_dtype`` (bf16 or f32).
     ``paged_gather_dequant_cuda.launches`` counts launches."""
-    _check("paged_gather_dequant", pool, tables)
+    _check_dequant("paged_gather_dequant", (pool,), (scales,), tables,
+                   out_dtype)
     n, p, d = pool.shape
-    if pool.dtype != torch.int8:
-        raise ValueError(f"paged_gather_dequant kernel takes an int8 pool, "
-                         f"got {pool.dtype}")
-    if (scales.dtype != torch.float32 or tuple(scales.shape) != (n, p, 1)
-            or not scales.is_contiguous() or scales.device != pool.device):
-        raise ValueError(f"paged_gather_dequant kernel: scales must be a "
-                         f"contiguous float32 ({n}, {p}, 1) tensor on "
-                         f"{pool.device}, got {scales.dtype} "
-                         f"{tuple(scales.shape)} on {scales.device}")
-    if out_dtype not in OUT_DTYPES:
-        raise ValueError(f"paged_gather_dequant kernel writes bf16 or f32, "
-                         f"not {out_dtype}")
     r, m = tables.shape
     out = torch.empty((r, m * p, d), dtype=out_dtype, device=pool.device)
     if out.numel() == 0:
         return out
+    plan = _plan_for((pool,), (scales,), out, tables)
     rc = _lib().paged_gather_dequant(
         pool.data_ptr(), scales.data_ptr(), tables.data_ptr(),
         int(tables.dtype == torch.int64), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), r * m, n, p, d, _stream(pool))
+        int(out_dtype == torch.bfloat16), r * m, n, p, d, *_plan_args(plan),
+        _stream(pool))
     if rc != 0:
         raise RuntimeError(f"paged_gather_dequant kernel launch failed: "
                            f"cudaError {rc}")
@@ -113,5 +256,39 @@ def paged_gather_dequant_cuda(pool: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def paged_gather_dequant_kv_cuda(k_pool: torch.Tensor,
+                                 k_scales: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 v_scales: torch.Tensor,
+                                 tables: torch.Tensor,
+                                 out_dtype=torch.float32):
+    """A layer's K and V gathers in one launch: two int8 pools of one shape
+    (N, P, D) with their (N, P, 1) f32 scales, one table (R, M) ->
+    (k, v), each (R, M*P, D) ``out_dtype``, views of one buffer.
+    ``paged_gather_dequant_kv_cuda.launches`` counts launches."""
+    pools, scales = (k_pool, v_pool), (k_scales, v_scales)
+    _check_dequant("paged_gather_dequant_kv", pools, scales, tables,
+                   out_dtype)
+    n, p, d = k_pool.shape
+    r, m = tables.shape
+    out = torch.empty((2, r, m * p, d), dtype=out_dtype,
+                      device=k_pool.device)
+    if out.numel() == 0:
+        return out[0], out[1]
+    plan = _plan_for(pools, scales, out, tables)
+    rc = _lib().paged_gather_dequant_kv(
+        k_pool.data_ptr(), k_scales.data_ptr(), v_pool.data_ptr(),
+        v_scales.data_ptr(), tables.data_ptr(),
+        int(tables.dtype == torch.int64), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), r * m, n, p, d, *_plan_args(plan),
+        _stream(k_pool))
+    if rc != 0:
+        raise RuntimeError(f"paged_gather_dequant_kv kernel launch failed: "
+                           f"cudaError {rc}")
+    paged_gather_dequant_kv_cuda.launches += 1
+    return out[0], out[1]
+
+
 paged_gather_cuda.launches = 0
 paged_gather_dequant_cuda.launches = 0
+paged_gather_dequant_kv_cuda.launches = 0

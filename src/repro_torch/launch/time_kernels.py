@@ -1,15 +1,24 @@
-"""Time the spinner, seeded spinner and circulant kernels of one checkout
-on the card, at the serving shapes and the library shape, and print one
-JSON line.
+"""Time the spinner, seeded spinner, circulant and int8 paged gather
+kernels of one checkout on the card, at the serving shapes and the
+library shape, and print one JSON line.
 
     python src/repro_torch/launch/time_kernels.py [--src DIR] [--label NAME]
+        [--kernels spinner,circulant,gather]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is imported
 and built (default: this checkout's). The script calls only the kernel
 wrappers' public signatures, so it can time another checkout of the port
 (unpacked with ``git archive`` into a directory that .gitignore lists):
 run it on both in turns (A, B, B, A) on one card, one run after the
-other, and compare only numbers taken that way.
+other, and compare only numbers taken that way. ``--kernels`` picks the
+groups timed (default: all three).
+
+The int8 gather (``paged_gather_dequant``, int8 -> bf16) is timed at the
+full-width decode shape (R = 8, M = 16, P = 16, D = 1024, N = 257) and a
+prefill shape (R = 32, M = 64, N = 2049), cycling through 36 layers'
+pools so pages come from HBM: one pool a call, and a layer's K and V
+(``paged_gather_dequant_kv`` where the checkout has it, else two calls of
+the single-pool kernel, as the parent's attention made them).
 
 Times: CUDA events over back-to-back launches queued behind a device
 sleep, median of the repeats (``chip_smoke.device_ms``). Inputs come
@@ -19,6 +28,7 @@ and ``tests/test_torch_cuda.py`` do that).
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -35,6 +45,9 @@ SEEDED_SERVING = [("decode query", 4, "identity"), ("decode key", 1, "exp"),
                   ("prefill key", 16, "exp")]
 LIBRARY = (1, 8192, 1024, 4096)        # G, B, n, m: one estimate's call
 CIRCULANT = (4, 1024, 8192, 4096)      # nb, n, B, m (chip_smoke.CIRC_REAL)
+GATHER = [("decode", 257, 8, 16), ("prefill", 2049, 32, 64)]   # N, R, M
+GATHER_P, GATHER_D, LAYERS = 16, 1024, 36
+GROUPS = ("spinner", "circulant", "gather")
 
 
 def device_ms(torch, fn, launches, repeats):
@@ -59,16 +72,21 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--kernels", default=",".join(GROUPS))
     args = ap.parse_args()
+    groups = set(args.kernels.split(","))
+    if not groups <= set(GROUPS):
+        ap.error(f"--kernels: pick from {GROUPS}")
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build, circulant as kcirc
+    from repro_torch.kernels import paged_gather as kpg
     from repro_torch.kernels import spinner as kspin
     t0 = time.perf_counter()
-    build.build(["spinner", "circulant"])
+    build.build([{"gather": "paged_gather"}.get(g, g) for g in sorted(groups)])
     built = time.perf_counter() - t0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -86,38 +104,67 @@ def main() -> int:
         return torch.randint(0, 2 ** 32, (gsz,), generator=gen, device=dev,
                              dtype=torch.int64)
 
+    for label, n, r, m in GATHER if "gather" in groups else []:
+        tables = torch.randint(1, n, (r, m), generator=gen, device=dev)
+        layers = [[(torch.randint(-127, 128, (n, GATHER_P, GATHER_D),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int8),
+                    torch.rand((n, GATHER_P, 1), generator=gen,
+                               device=dev) / 127) for _ in range(2)]
+                  for _ in range(LAYERS)]
+        it = itertools.cycle(layers)
+
+        def single():
+            (q, sc), _ = next(it)
+            kpg.paged_gather_dequant_cuda(q, sc, tables, torch.bfloat16)
+
+        def pair():
+            (kq, ks), (vq, vs) = next(it)
+            if hasattr(kpg, "paged_gather_dequant_kv_cuda"):
+                kpg.paged_gather_dequant_kv_cuda(kq, ks, vq, vs, tables,
+                                                 torch.bfloat16)
+            else:
+                kpg.paged_gather_dequant_cuda(kq, ks, tables, torch.bfloat16)
+                kpg.paged_gather_dequant_cuda(vq, vs, tables, torch.bfloat16)
+
+        res[f"dequant {label} one pool"] = device_ms(torch, single, 100, 5)
+        res[f"dequant {label} K and V"] = device_ms(torch, pair, 100, 5)
+        del layers
+        torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
-        for label, bsz, epi in SPINNER_SERVING:
-            x, g, d0, d1 = spin_inputs(8, bsz, 128, 256, dtype)
-            res[f"spinner {label} {dt}"] = device_ms(
+        if "spinner" in groups:
+            for label, bsz, epi in SPINNER_SERVING:
+                x, g, d0, d1 = spin_inputs(8, bsz, 128, 256, dtype)
+                res[f"spinner {label} {dt}"] = device_ms(
+                    torch, lambda: kspin.spinner_project_cuda(
+                        "circulant", g, x, 256, d0=d0, d1=d1, epilogue=epi,
+                        out_scale=256 ** -.5), 100, 5)
+            for label, bsz, epi in SEEDED_SERVING:
+                x = spin_inputs(64, bsz, 128, 256, dtype)[0]
+                sd = seeds(64)
+                res[f"seeded {label} {dt}"] = device_ms(
+                    torch, lambda: kspin.spinner_project_seeded_cuda(
+                        "circulant", sd, x, 256, epilogue=epi,
+                        out_scale=256 ** -.5), 100, 5)
+            gsz, bsz, n, m = LIBRARY
+            x, g, d0, d1 = spin_inputs(gsz, bsz, n, m, dtype)
+            res[f"spinner library {dt}"] = device_ms(
                 torch, lambda: kspin.spinner_project_cuda(
-                    "circulant", g, x, 256, d0=d0, d1=d1, epilogue=epi,
-                    out_scale=256 ** -.5), 100, 5)
-        for label, bsz, epi in SEEDED_SERVING:
-            x = spin_inputs(64, bsz, 128, 256, dtype)[0]
-            sd = seeds(64)
-            res[f"seeded {label} {dt}"] = device_ms(
+                    "circulant", g, x, m, d0=d0, d1=d1), 5, 3)
+            sd = seeds(gsz)
+            res[f"seeded library {dt}"] = device_ms(
                 torch, lambda: kspin.spinner_project_seeded_cuda(
-                    "circulant", sd, x, 256, epilogue=epi,
-                    out_scale=256 ** -.5), 100, 5)
-        gsz, bsz, n, m = LIBRARY
-        x, g, d0, d1 = spin_inputs(gsz, bsz, n, m, dtype)
-        res[f"spinner library {dt}"] = device_ms(
-            torch, lambda: kspin.spinner_project_cuda(
-                "circulant", g, x, m, d0=d0, d1=d1), 5, 3)
-        sd = seeds(gsz)
-        res[f"seeded library {dt}"] = device_ms(
-            torch, lambda: kspin.spinner_project_seeded_cuda(
-                "circulant", sd, x, m), 5, 3)
-        del x, g
-        nb, n, b, m = CIRCULANT
-        g = torch.randn((nb, n), generator=gen, device=dev).to(dtype)
-        x = torch.randn((b, n), generator=gen, device=dev)
-        x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
-        res[f"circulant {dt}"] = device_ms(
-            torch, lambda: kcirc.circulant_project_cuda(g, x, m), 10, 3)
-        del x, g
+                    "circulant", sd, x, m), 5, 3)
+            del x, g
+        if "circulant" in groups:
+            nb, n, b, m = CIRCULANT
+            g = torch.randn((nb, n), generator=gen, device=dev).to(dtype)
+            x = torch.randn((b, n), generator=gen, device=dev)
+            x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+            res[f"circulant {dt}"] = device_ms(
+                torch, lambda: kcirc.circulant_project_cuda(g, x, m), 10, 3)
+            del x, g
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -29,7 +29,7 @@ else holds a view of those rows).
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -139,14 +139,17 @@ def _paged_hist(pool_arr: torch.Tensor, tables: torch.Tensor
     return hist.view((tables.shape[0], -1) + tuple(pool_arr.shape[2:]))
 
 
-def _paged_hist_dq(pool_arr: torch.Tensor, scale_arr: torch.Tensor,
-                   tables: torch.Tensor, dtype) -> torch.Tensor:
-    """int8 variant of :func:`_paged_hist`: (N, P, ...) int8 pages and
-    (N, P, 1) f32 scales -> (B, M*P, ...) ``dtype`` history, the dequant
-    fused into the gather (paged_gather_dequant kernel)."""
-    hist = kops.paged_gather_dequant(_flat_pages(pool_arr), scale_arr,
-                                     tables, out_dtype=dtype)
-    return hist.view((tables.shape[0], -1) + tuple(pool_arr.shape[2:]))
+def _paged_hist_dq_kv(pool: Dict[str, torch.Tensor], tables: torch.Tensor,
+                      dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 variant of :func:`_paged_hist` for a layer's K and V: (N, P,
+    ...) int8 pages and (N, P, 1) f32 scales of each -> two (B, M*P, ...)
+    ``dtype`` histories, the dequant fused into the gather (one
+    paged_gather_dequant launch for both)."""
+    k, v = kops.paged_gather_dequant_kv(
+        _flat_pages(pool["k"]), pool["k_scale"], _flat_pages(pool["v"]),
+        pool["v_scale"], tables, out_dtype=dtype)
+    shape = (tables.shape[0], -1) + tuple(pool["k"].shape[2:])
+    return k.view(shape), v.view(shape)
 
 
 def _quantize_paged_kv(x: torch.Tensor):
@@ -197,8 +200,7 @@ def _paged_full(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _paged_scatter(pool[name], qr, tables, positions, q_valid)
             _paged_scatter(pool[f"{name}_scale"], sc, tables, positions,
                            q_valid)
-        kf = _paged_hist_dq(pool["k"], pool["k_scale"], tables, q.dtype)
-        vf = _paged_hist_dq(pool["v"], pool["v_scale"], tables, q.dtype)
+        kf, vf = _paged_hist_dq_kv(pool, tables, q.dtype)
     else:
         _paged_scatter(pool["k"], kt, tables, positions, q_valid)
         _paged_scatter(pool["v"], vt, tables, positions, q_valid)

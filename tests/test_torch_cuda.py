@@ -72,13 +72,36 @@ def test_kernels_match_plain_on_card(cuda_device):
             assert (gt - wt).abs().max() <= 1e-4 * wt.abs().max()
 
 
+def _offset_view(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies ``elems`` elements past
+    an allocation's start (so not 16-byte aligned unless 0)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _dequant_path(pool, scales, tables, out, n_pools=1):
+    n, p, d = pool.shape
+    return kpg.dequant_plan(p, d, n_pools, tables.numel(),
+                            pool.data_ptr() % 16, 0, out,
+                            scales_addr_mod16=scales.data_ptr() % 16,
+                            n_pages=n, sms=torch.cuda.get_device_properties(
+                                pool.device).multi_processor_count).path
+
+
 @pytest.mark.cuda
 def test_paged_gathers_bit_equal_on_card(cuda_device):
     """paged_gather (bf16, f32, int8 pools) and paged_gather_dequant
-    (int8 -> bf16, f32) against their plain versions, bit for bit: an
-    aligned shape, ragged row widths and ids out of range."""
+    (int8 -> bf16, f32; one pool, and a layer's K and V in one launch)
+    against their plain versions, bit for bit: aligned shapes (the TMA
+    path), a page of 64 rows cut into chunks, rows of 32768 cut into
+    pieces, ragged row widths, pool views off 16-byte alignment (the
+    vector and scalar paths), ids out of range on both sides, int32 and
+    int64 tables."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for n, p, d, r, m in ((33, 16, 64, 4, 8), (7, 3, 13, 3, 5),
+    for n, p, d, r, m in ((33, 16, 64, 4, 8), (9, 64, 1024, 3, 4),
+                          (5, 4, 32768, 2, 3), (7, 3, 13, 3, 5),
                           (9, 2, 1, 5, 2)):
         tables = torch.randint(-2, n + 2, (r, m), generator=gen,
                                device=cuda_device)
@@ -89,13 +112,37 @@ def test_paged_gathers_bit_equal_on_card(cuda_device):
             got = ops.paged_gather(pool, tables)
             assert kpg.paged_gather_cuda.launches == before + 1
             assert torch.equal(got, ref.paged_gather_ref(pool, tables))
-        q = torch.randint(-127, 128, (n, p, d), generator=gen,
+        q = torch.randint(-127, 128, (2, n, p, d), generator=gen,
                           device=cuda_device, dtype=torch.int8)
-        sc = torch.rand((n, p, 1), generator=gen, device=cuda_device)
-        for out in (torch.bfloat16, torch.float32):
-            got = ops.paged_gather_dequant(q, sc, tables.int(), out)
-            want = ref.paged_gather_dequant_ref(q, sc, tables, out)
-            assert got.dtype == out and torch.equal(got, want)
+        sc = torch.rand((2, n, p, 1), generator=gen, device=cuda_device)
+        views = [(q[0], sc[0], q[1], sc[1])]
+        if d % 16 == 0:
+            assert _dequant_path(q[0], sc[0], tables, torch.bfloat16) == \
+                "tma"
+            views += [tuple(_offset_view(t, o) for t, o in
+                            zip((q[0], sc[0], q[1], sc[1]), offs))
+                      for offs in ((8, 0, 0, 0), (1, 0, 1, 0),
+                                   (0, 1, 0, 0))]
+            assert [_dequant_path(v[0], v[1], tables, torch.bfloat16)
+                    for v in views[1:]] == ["vector", "scalar", "vector"]
+        for kq, ks, vq, vs in views:
+            for tdt in (torch.int64, torch.int32):
+                t = tables.to(tdt)
+                for out in (torch.bfloat16, torch.float32):
+                    want_k = ref.paged_gather_dequant_ref(kq, ks, t, out)
+                    want_v = ref.paged_gather_dequant_ref(vq, vs, t, out)
+                    before = kpg.paged_gather_dequant_cuda.launches
+                    got = ops.paged_gather_dequant(kq, ks, t, out)
+                    assert kpg.paged_gather_dequant_cuda.launches == \
+                        before + 1
+                    assert got.dtype == out and torch.equal(got, want_k)
+                    before = kpg.paged_gather_dequant_kv_cuda.launches
+                    got_k, got_v = ops.paged_gather_dequant_kv(
+                        kq, ks, vq, vs, t, out)
+                    assert kpg.paged_gather_dequant_kv_cuda.launches == \
+                        before + 1
+                    assert torch.equal(got_k, want_k), (n, p, d, tdt, out)
+                    assert torch.equal(got_v, want_v), (n, p, d, tdt, out)
 
 
 @pytest.mark.cuda
@@ -334,6 +381,7 @@ def _grad_cases(dev):
               "d1": torch.ones(64, device=dev)}
     pool = torch.randint(-127, 128, (5, 4, 8), device=dev,
                          dtype=torch.int8)
+    ones = torch.ones((5, 4, 1), device=dev)
     tables = torch.randint(0, 5, (2, 3), device=dev)
     s, z = torch.zeros((1, 2, 16, 8), device=dev), torch.zeros(
         (1, 2, 16), device=dev)
@@ -348,6 +396,8 @@ def _grad_cases(dev):
         ("paged_gather", lambda: ops.paged_gather(leaf(5, 4, 8), tables)),
         ("paged_gather_dequant", lambda: ops.paged_gather_dequant(
             pool, leaf(5, 4, 1), tables)),
+        ("paged_gather_dequant_kv", lambda: ops.paged_gather_dequant_kv(
+            pool, ones, pool, leaf(5, 4, 1), tables)),
         ("fwht", lambda: ops.fwht(leaf(3, 64))),
         ("circulant_project", lambda: ops.circulant_project(
             torch.randn((2, 32), device=dev), leaf(3, 32), 48)),
@@ -360,7 +410,7 @@ def test_dispatchers_refuse_grad_on_card(cuda_device):
     grad while grad mode is on (the kernels have no backward yet), and
     launches its kernel under torch.no_grad()."""
     cases = _grad_cases(cuda_device)
-    assert len(cases) == 7
+    assert len(cases) == 8
     for name, call in cases:
         with pytest.raises(RuntimeError, match="no backward"):
             call()

@@ -177,6 +177,8 @@ def test_cpu_route_leaves_launch_counters_at_zero():
     tables = torch.zeros(1, 2, dtype=torch.long)
     ops.paged_gather(pool, tables)
     ops.paged_gather_dequant(pool, torch.ones(3, 2, 1), tables)
+    ops.paged_gather_dequant_kv(pool, torch.ones(3, 2, 1), pool,
+                                torch.ones(3, 2, 1), tables)
     ops.spinner_project_seeded("toeplitz", torch.tensor([3, 4]),
                                torch.from_numpy(x), M, grouped=True)
     ops.spinner_project_seeded("ldr", 5, torch.from_numpy(x[0]), M)
@@ -187,6 +189,7 @@ def test_cpu_route_leaves_launch_counters_at_zero():
     assert ops.launch_counts() == {"spinner": 0, "srf_decode": 0,
                                    "paged_gather": 0,
                                    "paged_gather_dequant": 0,
+                                   "paged_gather_dequant_kv": 0,
                                    "spinner_seeded": 0,
                                    "spinner_plain_on_cuda": 0,
                                    "spinner_seeded_plain_on_cuda": 0,
@@ -209,6 +212,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kpg.paged_gather_cuda(pool, tables)
     with pytest.raises(ValueError, match="CUDA"):
         kpg.paged_gather_dequant_cuda(pool, torch.ones(3, 2, 1), tables)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpg.paged_gather_dequant_kv_cuda(pool, torch.ones(3, 2, 1), pool,
+                                         torch.ones(3, 2, 1), tables)
     with pytest.raises(ValueError, match="CUDA"):
         kspin.spinner_project_seeded_cuda(
             "circulant", torch.zeros(G, dtype=torch.int64),
