@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the CUDA
 kernels, holds each against its plain PyTorch version, runs the paper's
-kernel estimates through the port's library, then serves full-width
+kernel estimates through the port's library, serves full-width
 qwen3-4b through the port's engine with full-KV pages (bf16, int8,
 prefix cache), with SRF attention, and with seeded SRF attention
-(per-request embed seeds, greedy and sampled requests in one batch).
+(per-request embed seeds, greedy and sampled requests in one batch),
+then trains full-width qwen3-4b with SRF and with full attention.
 
     python3 chip_smoke.py
 
@@ -56,6 +57,13 @@ result line):
      Times at (8192, 1024) f32 beside ``x @ H_n``, and at the real
      circulant shape, f32 (3xTF32 on the tensor cores) and bf16, beside
      ``x @ A.T`` in the same dtype, each with its bytes bound.
+   * both spinner kernels at the training shapes (G = 8 kv heads, n =
+     128, m = 256, bf16; query B = 2048 rows with ``identity``, key B =
+     512 with ``exp``): against the plain version, timed beside it and
+     its bound, and the plain backward that training runs after each
+     forward (the VJP with respect to g, x, d0, d1; seeded: x) timed.
+     The key's ``exp`` features span decades, so they are held element
+     by element (``check_rel``), not against their largest value.
    Times: CUDA events over back-to-back launches queued behind a device
    sleep, median of 5 repeats (3 for the circulant); the gathers cycle
    through 36 layer pools, as a decode step does, so pages come from HBM.
@@ -91,9 +99,29 @@ result line):
    mixed embed seeds and mixed greedy / sampled requests) are also
    served on the card and on the CPU (plain versions); their tokens
    must be equal.
-5. Print the card (nvidia-smi name, power limit), one JSON line with a
-   record per kernel, and the result line. ``library_ms`` is
-   ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
+5. Train (after freeing the serving memory). Full-width, full-depth
+   qwen3-4b (bf16, remat full, B = 8, seq = 64, the training launcher's
+   defaults), random weights, 5 steps of ``launch.steps.make_train_step``
+   fed by ``data.loader.ShardedLoader`` over ``synth.full_batch`` (the
+   Trainer's step without its 44 GB checkpoint): SRF attention, seeded
+   SRF, then full attention. Every loss and gradient norm finite, the
+   first loss within 0.5 of ln(V_pad) + 1/2 (random weights' expected
+   first loss), each SRF run's spinner (materialized or seeded) launched
+   exactly 4 per layer a step (2 in the forward, 2 in the recompute)
+   with 2 plain backward calls per layer, the plain forward and the
+   other spinner never; step ms, training tokens/s and the bf16-peak
+   share of 6·N·tokens a step (``launch.profile_train.timed`` and
+   ``step_rates``, the one definition both scripts use) and peak memory
+   printed. Then the reference test's crash-and-resume
+   (``tests/test_trainer_ft.py``) on the card under
+   ``torch.use_deterministic_algorithms(True)`` (reduced, 2 layers; full
+   and SRF attention): final params torch.equal. Then reduced seeded SRF
+   (f32), 3 steps on the card and on the CPU: losses within rtol 1e-4.
+6. Print the card (nvidia-smi name, power limit), one JSON line with a
+   record per kernel, and the result line. The spinner records carry
+   their training fields (``train_*``: the training run's launches and
+   plain backward calls, and the kernel at the training shapes).
+   ``library_ms`` is ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
    for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
    (nor with A, D0 and D1 regenerated from a seed), the fused in-place
@@ -107,13 +135,19 @@ import gc
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import torch
+# deterministic cuBLAS for phase 5's crash-and-resume check: read when
+# the CUDA context is made, so it is set before torch is imported
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -163,6 +197,30 @@ def check(name: str, k: torch.Tensor, p: torch.Tensor, dtype) -> float:
     if not err <= limit:
         raise AssertionError(f"{name}: max|k-p| {err:.3e} > {limit:.3e}")
     return err
+
+
+def check_rel(name: str, k: torch.Tensor, p: torch.Tensor,
+              rtol: float = TOL[torch.bfloat16]) -> float:
+    """Element by element, |k - p| <= rtol |p| + rtol mean|p|: for outputs
+    whose largest values sit far above a typical one (the exp epilogue),
+    where a limit scaled by max|p| would let most elements go unchecked."""
+    if k.shape != p.shape:
+        raise AssertionError(f"{name}: shape {tuple(k.shape)} != "
+                             f"{tuple(p.shape)}")
+    if not torch.isfinite(k).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    k, p = k.float(), p.float()
+    typical = p.abs().mean().item()
+    diff = (k - p).abs()
+    rel = diff / (rtol * (p.abs() + typical))
+    worst = rel.max().item()
+    log(f"  {name}: typical |p| (mean) {typical:.3e}, max|p| "
+        f"{p.abs().max().item():.3e}; max|k-p| / (rtol (|p| + mean|p|)) = "
+        f"{worst:.3f} (limit 1, rtol {rtol})")
+    if not worst <= 1:
+        raise AssertionError(f"{name}: {int((rel > 1).sum())} elements "
+                             f"outside rtol {rtol} (|p| + mean|p|)")
+    return diff.max().item()
 
 
 def exact(name: str, k: torch.Tensor, p: torch.Tensor) -> None:
@@ -474,6 +532,72 @@ def phase_seeded_spinner(gen):
         f"library shapes; {equal} of {cases + 10} bit-equal to the "
         f"materialized kernel; "
         f"distinct seeds gave distinct outputs in every sweep case")
+    return records
+
+
+# the SRF feature maps of one full-width training step (qwen3-4b: 8 kv
+# heads, batch 8 x seq 64; the 4 query heads of a kv head grouped onto
+# it): (label, rows per group, epilogue)
+TRAIN_SHAPES = [("train query", 8 * 4 * 64, "identity"),
+                ("train key", 8 * 64, "exp")]
+
+
+def phase_spinner_train(gen):
+    """Both spinner kernels at the training shapes (G = 8, n = 128, m =
+    256, bf16): the forward against its plain version and timed beside
+    it and its bound, and the backward that training runs after it (the
+    plain version's VJP: g, x, d0, d1 materialized; x seeded) timed by
+    events."""
+    from repro_torch.kernels import ref, seedgen, spinner as kspin
+    n, m, gsz, dtype = 128, 256, 8, torch.bfloat16
+    records = {}
+    for label, bsz, epi in TRAIN_SHAPES:
+        x, p = spinner_inputs("circulant", gsz, bsz, n, m, dtype, gen)
+        seeds = torch.randint(0, 2 ** 32, (gsz,), generator=gen,
+                              device="cuda", dtype=torch.int64)
+        kw = dict(epilogue=epi, out_scale=m ** -0.5)
+        dy = torch.randn((gsz, bsz, m), generator=gen,
+                         device="cuda").to(dtype)
+        leaves = [t.clone().requires_grad_()
+                  for t in (p["g"], x, p["d0"], p["d1"])]
+
+        def bwd():
+            y = ref.spinner_project_ref("circulant", leaves[0], leaves[1], m,
+                                        d0=leaves[2], d1=leaves[3], **kw)
+            return torch.autograd.grad(y, leaves, dy)
+        xs = x.clone().requires_grad_()
+
+        def seeded_bwd():           # regenerates the params, as it must
+            gp = seedgen.grouped_params("circulant", n, m, seeds)
+            y = ref.spinner_project_ref("circulant", gp["g"], xs, m,
+                                        d0=gp["d0"], d1=gp["d1"], **kw)
+            return torch.autograd.grad(y, [xs], dy)
+        for name, kernel, plain, backward, b in (
+                ("spinner", lambda: kspin.spinner_project_cuda(
+                    "circulant", p["g"], x, m, d0=p["d0"], d1=p["d1"], **kw),
+                 lambda: ref.spinner_project_ref(
+                    "circulant", p["g"], x, m, d0=p["d0"], d1=p["d1"], **kw),
+                 bwd, spinner_bound("circulant", gsz, bsz, n, m,
+                                    x.element_size(), p["g"][0].numel(), m)),
+                ("seeded spinner", lambda: kspin.spinner_project_seeded_cuda(
+                    "circulant", seeds, x, m, **kw),
+                 lambda: ref.spinner_project_seeded_ref(
+                    "circulant", seeds, x, m, **kw),
+                 seeded_bwd, seeded_bound("circulant", gsz, bsz, n, m,
+                                          x.element_size(), m))):
+            # exp features span decades (mean ~0.06, max ~1e4): checked
+            # element by element; the identity's against its largest value
+            what = f"{name} {label} bf16 (G={gsz}, B={bsz})"
+            err = (check_rel(what, kernel(), plain()) if epi == "exp"
+                   else check(what, kernel(), plain(), dtype))
+            k_ms = device_ms(kernel)
+            p_ms = device_ms(plain, launches=10, repeats=3)
+            b_ms = device_ms(backward, launches=10, repeats=3)
+            log(f"    kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  plain "
+                f"backward {b_ms:.4f} ms  bound {b[0]:.5f} ms ({b[1]})")
+            records[(name, label)] = dict(err=err, ms=k_ms, plain_ms=p_ms,
+                                          bwd_ms=b_ms, bound_ms=b[0],
+                                          bound_by=b[1])
     return records
 
 
@@ -1147,12 +1271,12 @@ def phase_reduced_seeded_agreement():
         f"({sum(len(t) for t in out['cuda'].values())} tokens)")
 
 
-def _to(tree, device):
+def _to(tree, device, copy=False):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: _to(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_to(v, device) for v in tree)
-    return tree.to(device)
+        return type(tree)(_to(v, device, copy) for v in tree)
+    return tree.to(device, copy=copy)
 
 
 SHARED = 96                       # prompt tokens the prefix run shares
@@ -1415,6 +1539,230 @@ def phase_serve_seeded():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5: train
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 5
+TRAIN_BATCH, TRAIN_SEQ = 8, 64        # the training launcher's defaults
+
+
+def _train_step_fn(cfg, steps_total):
+    """``launch.steps.make_train_step`` with the launcher's schedule for
+    a run of ``steps_total`` steps at its default learning rate."""
+    from repro_torch.launch import steps
+    return steps.make_train_step(cfg, steps.TrainHyper(
+        lr=3e-4, warmup=min(50, steps_total // 5 + 1),
+        total_steps=steps_total))
+
+
+def _loader(cfg, batch, seq, seed=0):
+    from repro_torch.data import synth
+    from repro_torch.data.loader import ShardedLoader
+    return ShardedLoader(lambda step, shard: synth.full_batch(
+        cfg, batch, seq, step, seed=seed, shard=shard))
+
+
+def _train_run(attn, seeded=False):
+    """TRAIN_STEPS steps of full-width, full-depth qwen3-4b (bf16, remat
+    full) as the Trainer takes them: ``make_train_step`` fed by
+    ``ShardedLoader`` over ``synth.full_batch``, each step timed by
+    ``profile_train.timed``. Counts are zeroed just before the steps and
+    read just after."""
+    from repro_torch.configs import registry
+    from repro_torch.data.loader import device_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_train import timed
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.optim import adamw
+    cfg = registry.get("qwen3-4b", attn_impl=attn)
+    if seeded:
+        cfg = _seeded(cfg)
+    t0 = time.perf_counter()
+    params = model_lib.requires_grad(model_lib.init(cfg, seed=0,
+                                                    device="cuda"))
+    state = adamw.init(params)
+    torch.cuda.synchronize()
+    _describe(cfg, params, t0)
+    fn = _train_step_fn(cfg, TRAIN_STEPS)
+    loader = _loader(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    it = iter(loader)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, gnorms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        step_i, host = next(it)
+        assert step_i == i
+        batch = device_batch(host, "cuda")
+        (params, state, m), sec = timed(fn, params, state, i, batch)
+        times.append(sec)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = ops.launch_counts()
+    loader.stop()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, losses, gnorms, times, peak, counts
+
+
+TRAIN_RUNS = (("srf", False), ("srf", True), ("full", False))
+
+
+def phase_train_full():
+    """Full-width, full-depth qwen3-4b trains TRAIN_STEPS steps with SRF
+    attention, with seeded SRF, then with full attention (freeing between
+    runs). Every loss and gradient norm finite; the first loss within 0.5
+    of ln(V_pad) + 1/2, the expected first loss of random weights (the
+    head's N(0, 1/d) columns on unit-RMS rows give unit-variance logits:
+    E[logsumexp] = ln V_pad + 1/2; ln(151936) = 11.93 alone sits 0.50
+    below it). SRF: its spinner kernel (materialized or seeded) launched
+    2 per layer in the forward and 2 per layer in the remat recompute,
+    its plain backward once per forward launch of the first pass, no
+    plain forward on the card, no launch of the other spinner. Step ms,
+    training tokens/s and bf16-peak share by ``profile_train.step_rates``
+    over the median of steps 2 on."""
+    from repro_torch.launch.profile_train import step_rates
+    out = {}
+    for attn, seeded in TRAIN_RUNS:
+        run = attn + (" seeded" if seeded else "")
+        cfg, losses, gnorms, times, peak, counts = _train_run(attn, seeded)
+        rates = step_rates(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           statistics.median(times[1:]))
+        log(f"  train {run}: losses {[round(x, 4) for x in losses]}, "
+            f"grad norms {[round(x, 3) for x in gnorms]}")
+        log(f"    step {rates['step_ms']:.1f} ms (median of steps 2-"
+            f"{TRAIN_STEPS}; first {1e3 * times[0]:.1f} ms), "
+            f"{rates['tokens_s']:.1f} training tokens/s, peak memory "
+            f"{peak:.2f} GiB, 6*N*tokens/step at "
+            f"{100 * rates['bf16_peak_share']:.2f}% of bf16 dense peak "
+            f"(N = {cfg.param_count():,})")
+        log(f"    launches: {counts}")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError(f"train {run}: non-finite loss or grad "
+                                 f"norm: {losses} {gnorms}")
+        centre = math.log(cfg.padded_vocab) + 0.5
+        log(f"    first loss {losses[0]:.4f}: {losses[0] - centre:+.4f} from "
+            f"ln(V_pad) + 1/2 = {centre:.4f}, "
+            f"{losses[0] - math.log(cfg.vocab):+.4f} from ln(V) = "
+            f"{math.log(cfg.vocab):.4f}")
+        if not abs(losses[0] - centre) <= 0.5:
+            raise AssertionError(f"train {run}: first loss {losses[0]} not "
+                                 f"within 0.5 of {centre}")
+        per_step = 2 * cfg.n_layers * (2 if cfg.remat == "full" else 1)
+        key = "spinner_seeded" if seeded else "spinner"
+        expect = {k: 0 for k in counts}
+        if attn == "srf":
+            expect[key] = per_step * TRAIN_STEPS
+            expect[key + "_bwd"] = 2 * cfg.n_layers * TRAIN_STEPS
+        bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+        if bad:
+            raise AssertionError(f"train {run}: launches (got, expected) "
+                                 f"{bad}")
+        if attn == "srf":
+            log(f"    {key}: {counts[key] // TRAIN_STEPS} forward launches "
+                f"a step ({per_step // 2} in the forward, {per_step // 2} "
+                f"in the recompute), {counts[key + '_bwd'] // TRAIN_STEPS} "
+                f"plain backward calls a step")
+        out[run] = dict(losses=losses, peak_gib=peak, counts=counts, **rates)
+    return out
+
+
+def phase_train_resume():
+    """The reference test ``tests/test_trainer_ft.py``'s crash-and-resume
+    on the card, under deterministic algorithms: reduced qwen3-4b (2
+    layers), run A uninterrupted for 30 steps, run B crashes at step 17,
+    restarts and resumes from the step-10 checkpoint; the final params
+    must be torch.equal. Full attention, then SRF (the spinner kernel's
+    forward inside the check)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.train.trainer import CrashInjected, Trainer, TrainerConfig
+    torch.use_deterministic_algorithms(True)
+    try:
+        for attn in ("full", "srf"):
+            cfg = registry.reduced("qwen3-4b", n_layers=2, attn_impl=attn)
+            with tempfile.TemporaryDirectory() as tmp:
+                def tcfg(sub):
+                    return TrainerConfig(
+                        num_steps=30, batch=4, seq=32, ckpt_every=10,
+                        log_every=5, ckpt_dir=os.path.join(tmp, sub),
+                        device="cuda", hyper=steps.TrainHyper(
+                            lr=1e-2, warmup=5, total_steps=30))
+                ops.reset_counts()
+                ta = Trainer(cfg, tcfg("a"))
+                out_a = ta.train()
+                tb = Trainer(cfg, tcfg("b"), crash_at=17)
+                try:
+                    tb.train()
+                    raise AssertionError("crash_at=17 did not raise")
+                except CrashInjected:
+                    pass
+                tb.ckpt.wait()
+                tb2 = Trainer(cfg, tcfg("b"))
+                if not tb2.try_resume() or tb2.step != 10:
+                    raise AssertionError(f"resume {attn}: step {tb2.step}")
+                out_b = tb2.train()
+                counts = ops.launch_counts()
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree_lib.leaves(ta.params), tree_lib.leaves(tb2.params)))
+                if not same or out_a["final_step"] != out_b["final_step"]:
+                    raise AssertionError(f"resume {attn}: final params differ "
+                                         f"from the uninterrupted run")
+                if attn == "srf" and (counts["spinner"] == 0
+                                      or counts["spinner_plain_on_cuda"]):
+                    raise AssertionError(f"resume srf: launches {counts}")
+                losses = [round(r["loss"], 4) for r in out_a["log"]]
+                log(f"  crash at 17, resume from 10, reduced {attn}: final "
+                    f"params bit-equal to the uninterrupted run (losses "
+                    f"{losses}; spinner launches {counts['spinner']})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_train_agreement():
+    """Reduced qwen3-4b (f32) with seeded SRF: 3 training steps on the card
+    (the seeded spinner kernel forward, its plain backward) and on the
+    CPU (plain versions) from the same params; the losses agree within
+    rtol 1e-4."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synth
+    from repro_torch.data.loader import device_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.optim import adamw
+    cfg = _seeded(registry.reduced("qwen3-4b", attn_impl="srf",
+                                   dtype="float32"))
+    base = model_lib.init(cfg, seed=3, device="cpu")
+    losses = {}
+    for device in ("cpu", "cuda"):
+        # a copy on either device: the step updates params in place
+        params = model_lib.requires_grad(_to(base, device, copy=True))
+        state = adamw.init(params)
+        fn = _train_step_fn(cfg, 3)
+        ops.reset_counts()
+        losses[device] = []
+        for i in range(3):
+            batch = device_batch(synth.full_batch(cfg, 4, 32, i, seed=3),
+                                 device)
+            params, state, m = fn(params, state, i, batch)
+            losses[device].append(float(m["loss"]))
+        counts = ops.launch_counts()
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"seeded SRF training: card losses "
+                                 f"{losses['cuda']} != CPU {losses['cpu']}")
+    if counts["spinner_seeded"] != 3 * 2 * cfg.n_layers or \
+            counts["spinner_seeded_bwd"] != 3 * 2 * cfg.n_layers or \
+            counts["spinner_seeded_plain_on_cuda"] or counts["spinner"]:
+        raise AssertionError(f"seeded SRF training: launches {counts}")
+    log(f"  reduced seeded SRF, 3 steps: card losses {losses['cuda']} == CPU "
+        f"{losses['cpu']} within rtol 1e-4; launches {counts}")
+
+
 def _unseeded_pipeline(cfg):
     from repro_torch.models import attention as attn_lib
     return dataclasses.replace(attn_lib.srf_cfg(cfg), seeded=False).pipeline
@@ -1432,8 +1780,8 @@ def _leaves(tree):
 
 
 def _record(name, source, replaces, launches, rec, shape):
-    extra = {k: v for k, v in rec.items() if k.startswith(("one_pool_",
-                                                           "two_single_"))}
+    extra = {k: v for k, v in rec.items() if k.startswith((
+        "one_pool_", "two_single_", "train_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -1463,6 +1811,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     spin = phase_spinner(gen)
     seeded = phase_seeded_spinner(gen)
+    spin_train = phase_spinner_train(gen)
     dec = phase_srf_decode(gen)
     gather = phase_paged_gather(gen)
     fwht = phase_fwht(gen)
@@ -1484,6 +1833,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seeded_srf = phase_serve_seeded()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 5: train")
+    train = phase_train_full()
+    phase_train_resume()
+    phase_train_agreement()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1491,10 +1847,31 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0])
     src = "src/repro_torch/kernels/csrc/"
     decode = "R=8, M=16, P=16, D=8*128, N=257, 36 layer pools cycled"
+
+    def train_extra(name, counts, key, run):
+        """Training fields: the launches of a training run (its forward
+        kernel launches and its plain backward calls) and the kernel at
+        the training shapes (forward ms, plain ms, plain backward ms,
+        bound)."""
+        out = {"train_launches": counts[key],
+               "train_bwd_launches": counts[key + "_bwd"],
+               "train_launches_of": run,
+               "train_shape": "G=8, n=128, m=256, bf16; query B=2048 "
+                              "identity, key B=512 exp"}
+        for label, _, _ in TRAIN_SHAPES:
+            rec = spin_train[(name, label)]
+            tag = label.split()[1]
+            out.update({f"train_{tag}_{k}": rec[k] for k in (
+                "ms", "plain_ms", "bwd_ms", "bound_ms", "bound_by")})
+            out[f"train_{tag}_max_abs_err"] = rec["err"]
+        return out
     kernels = [
         _record("spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:111", srf["spinner"],
-                spin[("decode query", torch.bfloat16)],
+                {**spin[("decode query", torch.bfloat16)],
+                 **train_extra("spinner", train["srf"]["counts"], "spinner",
+                               f"full-width SRF training, {TRAIN_STEPS} "
+                               f"steps")},
                 "decode query: G=8, B=32, n=128, m=256, bf16, identity"),
         _record("srf_decode", src + "srf_decode.cu",
                 "src/repro/kernels/srf_decode.py:26", srf["srf_decode"],
@@ -1514,7 +1891,11 @@ def main() -> int:
         _record("seeded_spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:249",
                 seeded_srf["spinner_seeded"],
-                seeded[("decode query", torch.bfloat16)],
+                {**seeded[("decode query", torch.bfloat16)],
+                 **train_extra("seeded spinner",
+                               train["srf seeded"]["counts"],
+                               "spinner_seeded", f"full-width seeded-SRF "
+                               f"training, {TRAIN_STEPS} steps")},
                 "decode query: G=64 (8 kv heads x 8 requests), B=4, n=128, "
                 "m=256, bf16, identity"),
         _record("fwht", src + "fwht.cu", "src/repro/kernels/fwht.py:25",

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of ``repro``: structured nonlinear embeddings
-f(A·D1·H·D0·x) and the paged serving path (full-KV or SRF attention),
-for one NVIDIA H100.
+f(A·D1·H·D0·x), the paged serving path (full-KV or SRF attention) and
+the training path (loss, AdamW, checkpointed trainer), for one NVIDIA
+H100.
 
 Layout mirrors ``src/repro`` (``repro_torch/core/spinner.py`` ↔
 ``repro/core/spinner.py`` and so on). The package imports torch and

@@ -8,7 +8,9 @@ and per-layer ``attn.srf`` generators and HD diagonals, or the uint32
 ``seed`` leaves of seeded SRF, shaped (layers, kv heads)) with every
 leaf a torch tensor. Seeds become int64 tensors holding the same 32-bit
 values, the port's seed representation (``kernels.seedgen``). Both
-packages then compute the same function.
+packages then compute the same function. ``opt_state_from_jax`` carries
+the reference's AdamW state across the same way, so both packages can
+train on from one optimizer state.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.models import transformer as model_lib
 
 
@@ -60,3 +63,19 @@ def params_from_jax(tree, cfg, device="cuda"):
         raise ValueError(f"embed is {emb}, config needs "
                          f"{(cfg.padded_vocab, cfg.d_model)}")
     return _tree(tree, device, model_lib.dtype_of(cfg))
+
+
+def opt_state_from_jax(state, params, device="cuda"):
+    """Reference AdamW state ``{"mu", "nu", "count"}`` (numpy leaves, as
+    ``jax.tree.map(np.asarray, state)``) -> the port's, on ``device``:
+    f32 moments shaped like the port's ``params``, an int32 count."""
+    out = {k: _tree(state[k], device, torch.float32) for k in ("mu", "nu")}
+    for key in ("mu", "nu"):
+        for (path, got), want in zip(tree_lib.leaves_with_path(out[key]),
+                                     tree_lib.leaves(params)):
+            if got.shape != want.shape:
+                raise ValueError(f"{key}/{path}: {tuple(got.shape)} != "
+                                 f"param {tuple(want.shape)}")
+    out["count"] = torch.tensor(np.array(state["count"]),
+                                   dtype=torch.int32, device=device)
+    return out

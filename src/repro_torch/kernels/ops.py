@@ -18,8 +18,16 @@ block-circulant projection. Routing follows where the tensor lies:
   circulant kernel takes every valid call (any n, m <= nb * n): it has
   no such rule.
 
-The kernels have no backward yet (the training slice brings one
-``torch.autograd.Function`` for each): a call that would launch one with
+The two spinner ops are differentiable on the card, as the reference's
+``_spinner_pallas_vjp`` and ``_spinner_seeded_vjp`` are: a
+``torch.autograd.Function`` runs the CUDA kernel forward and the VJP of
+the plain version backward (with respect to g, x, d0 and d1; seeded:
+the params regenerated from the seeds, then x only, seeds get no
+gradient). The reference has no backward kernel to port: its backward
+is jnp ops outside any Pallas kernel, and this one is PyTorch ops. The
+backward calls are counted apart (``spinner_project.backward_calls``,
+``spinner_project_seeded.backward_calls``). The other five kernels have
+no backward (nor has the reference): a call that would launch one with
 an input that requires grad, while grad mode is on, raises instead of
 returning a result with no ``grad_fn``. Under ``torch.no_grad()`` the
 kernels run; the plain versions, on the CPU and on the card, stay
@@ -64,6 +72,8 @@ def launch_counts() -> Dict[str, int]:
             "spinner_plain_on_cuda": spinner_project.plain_calls,
             "spinner_seeded_plain_on_cuda":
                 spinner_project_seeded.plain_calls,
+            "spinner_bwd": spinner_project.backward_calls,
+            "spinner_seeded_bwd": spinner_project_seeded.backward_calls,
             "fwht": _fwht.fwht_cuda.launches,
             "fwht_plain_on_cuda": fwht.plain_calls,
             "circulant_project": _circ.circulant_project_cuda.launches}
@@ -78,6 +88,8 @@ def reset_counts() -> None:
     _spin.spinner_project_seeded_cuda.launches = 0
     spinner_project.plain_calls = 0
     spinner_project_seeded.plain_calls = 0
+    spinner_project.backward_calls = 0
+    spinner_project_seeded.backward_calls = 0
     _fwht.fwht_cuda.launches = 0
     fwht.plain_calls = 0
     _circ.circulant_project_cuda.launches = 0
@@ -213,12 +225,8 @@ def spinner_project(kind: str, params: Dict[str, torch.Tensor],
         d0 = None if d0 is None else d0[None]
         d1 = None if d1 is None else d1[None]
     if x.is_cuda and kernel_takes(kind, n, m, d0 is not None):
-        _no_grad_needed("spinner_project", x, g, d0, d1)
-        y = _spin.spinner_project_cuda(
-            kind, g.contiguous(), xf.contiguous(), m,
-            d0=None if d0 is None else d0.contiguous(),
-            d1=None if d1 is None else d1.contiguous(),
-            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        y = _SpinnerKernel.apply(g, xf, d0, d1, kind, m, epilogue, y_scale,
+                                 out_scale)
     else:
         if x.is_cuda:
             spinner_project.plain_calls += 1
@@ -229,6 +237,50 @@ def spinner_project(kind: str, params: Dict[str, torch.Tensor],
 
 
 spinner_project.plain_calls = 0
+spinner_project.backward_calls = 0
+
+
+def _vjp(fn, inputs, needs, dy):
+    """The VJP of ``fn(*inputs)`` at ``dy`` for the inputs flagged in
+    ``needs`` (None for the others), by autograd on fresh leaves."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(inputs, needs)]
+        y = fn(*leaves)
+        want = [t for t, need in zip(leaves, needs) if need]
+        got = iter(torch.autograd.grad(y, want, dy) if want else ())
+    return tuple(next(got) if need else None for need in needs)
+
+
+class _SpinnerKernel(torch.autograd.Function):
+    """The spinner kernel forward, the plain version's VJP backward (the
+    reference's ``_spinner_pallas_vjp``). g, x, d0, d1 are grouped:
+    (G, ...) leaves, x (G, B, n)."""
+
+    @staticmethod
+    def forward(ctx, g, x, d0, d1, kind, m, epilogue, y_scale, out_scale):
+        ctx.save_for_backward(g, x, d0, d1)
+        ctx.conf = (kind, m, epilogue, y_scale, out_scale)
+        return _spin.spinner_project_cuda(
+            kind, g.contiguous(), x.contiguous(), m,
+            d0=None if d0 is None else d0.contiguous(),
+            d1=None if d1 is None else d1.contiguous(),
+            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        kind, m, epilogue, y_scale, out_scale = ctx.conf
+        spinner_project.backward_calls += 1
+
+        def plain(g, x, d0, d1):
+            return _ref.spinner_project_ref(kind, g, x, m, d0=d0, d1=d1,
+                                            epilogue=epilogue,
+                                            y_scale=y_scale,
+                                            out_scale=out_scale)
+        with torch.profiler.record_function("spinner_project_bwd"):
+            grads = _vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:4],
+                         dy)
+        return grads + (None,) * 5
 
 
 def _groups(x: torch.Tensor, grouped: bool) -> torch.Tensor:
@@ -255,10 +307,8 @@ def spinner_project_seeded(kind: str, seeds: Union[int, torch.Tensor],
     sd = torch.as_tensor(seeds, dtype=torch.int64,
                          device=x.device).reshape(xf.shape[0])
     if x.is_cuda and kernel_takes(kind, n, m, use_hd):
-        _no_grad_needed("spinner_project_seeded", x)
-        y = _spin.spinner_project_seeded_cuda(
-            kind, sd.contiguous(), xf.contiguous(), m, use_hd=use_hd,
-            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        y = _SeededSpinnerKernel.apply(sd, xf, kind, m, r, ldr_nnz, use_hd,
+                                       epilogue, y_scale, out_scale)
     else:
         if x.is_cuda:
             spinner_project_seeded.plain_calls += 1
@@ -269,3 +319,39 @@ def spinner_project_seeded(kind: str, seeds: Union[int, torch.Tensor],
 
 
 spinner_project_seeded.plain_calls = 0
+spinner_project_seeded.backward_calls = 0
+
+
+class _SeededSpinnerKernel(torch.autograd.Function):
+    """The seeded spinner kernel forward; backward: regenerate the params
+    from the seeds (``seedgen.grouped_params``) and take the plain
+    version's VJP with respect to x only (the reference's
+    ``_spinner_seeded_vjp``). The seeds are integers: no gradient."""
+
+    @staticmethod
+    def forward(ctx, seeds, x, kind, m, r, ldr_nnz, use_hd, epilogue,
+                y_scale, out_scale):
+        ctx.save_for_backward(seeds, x)
+        ctx.conf = (kind, m, r, ldr_nnz, use_hd, epilogue, y_scale,
+                    out_scale)
+        return _spin.spinner_project_seeded_cuda(
+            kind, seeds.contiguous(), x.contiguous(), m, use_hd=use_hd,
+            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from . import seedgen
+        kind, m, r, ldr_nnz, use_hd, epilogue, y_scale, out_scale = ctx.conf
+        seeds, x = ctx.saved_tensors
+        spinner_project_seeded.backward_calls += 1
+        with torch.profiler.record_function("spinner_project_seeded_bwd"):
+            p = seedgen.grouped_params(kind, x.shape[-1], m, seeds, r=r,
+                                       ldr_nnz=ldr_nnz, use_hd=use_hd)
+
+            def plain(xx):
+                return _ref.spinner_project_ref(
+                    kind, p["g"], xx, m, d0=p.get("d0"), d1=p.get("d1"),
+                    h=p.get("h"), epilogue=epilogue, y_scale=y_scale,
+                    out_scale=out_scale)
+            dx, = _vjp(plain, (x,), (ctx.needs_input_grad[1],), dy)
+        return (None, dx) + (None,) * 8

@@ -3,10 +3,13 @@
 Each ``*_ref`` is the semantic ground truth: the CPU route of
 ``kernels.ops`` runs it, the CPU tests hold it to ``repro.kernels.ref``,
 and ``chip_smoke.py`` holds each CUDA kernel to it on the card. The
-serving path never calls these when its tensors lie on the card.
+serving path never calls these when its tensors lie on the card; in
+training, the spinner kernels' backward on the card is the VJP of
+:func:`spinner_project_ref` (``kernels.ops``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -102,33 +105,32 @@ def _skew_matvec_diag(w: torch.Tensor, d1: Optional[torch.Tensor],
     return y.reshape(*w.shape[:-1], -1)[..., :m]
 
 
+@functools.lru_cache(maxsize=32)
+def _kron_hadamards(n: int, dtype: torch.dtype, device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two Kronecker factors of H_n on ``device``, 1/sqrt(n) folded
+    into the left one; made once per (n, dtype, device): building them
+    copies from the host, which on the card waits for the stream. Made
+    outside inference mode, so autograd may save them; shared by every
+    caller, so none may write into them."""
+    a, b = transforms.kron_factors(n)
+    with torch.inference_mode(False):
+        ha = transforms.hadamard(a, dtype, normalized=False,
+                                 device=device) * (1.0 / math.sqrt(n))
+        hb = transforms.hadamard(b, dtype, normalized=False, device=device)
+    return ha, hb
+
+
 def _hd_kron(x: torch.Tensor, d0: torch.Tensor,
              d1: Optional[torch.Tensor]) -> torch.Tensor:
     """D1 · H · D0 · x with the Kronecker-form FWHT and 1/sqrt(n) folded
     into the left Hadamard factor. d1=None skips the output diagonal."""
     n = x.shape[-1]
     a, b = transforms.kron_factors(n)
-    ha = transforms.hadamard(a, x.dtype, normalized=False,
-                             device=x.device) * (1.0 / math.sqrt(n))
-    hb = transforms.hadamard(b, x.dtype, normalized=False, device=x.device)
+    ha, hb = _kron_hadamards(n, x.dtype, x.device)
     xm = (d0 * x).reshape(*x.shape[:-1], a, b)
-    y = torch.einsum("pa,...ab,bq->...pq", ha, xm, hb)
-    y = y.reshape(*x.shape[:-1], n)
+    y = torch.matmul(torch.matmul(ha, xm), hb).reshape(*x.shape[:-1], n)
     return y if d1 is None else d1 * y
-
-
-def _spinner_one(kind: str, m: int, epilogue: str, y_scale: float,
-                 out_scale: float, g, h, d0, d1, x):
-    params = {"g": g} if h is None else {"g": g, "h": h}
-    if kind == "skew_circulant":
-        w = x if d0 is None else _hd_kron(x, d0, None)
-        y = _skew_matvec_diag(w, None if d0 is None else d1, g, m)
-    else:
-        v = x if d0 is None else _hd_kron(x, d0, d1)
-        y = structured.matvec(kind, params, v, m)
-    if y_scale != 1.0:
-        y = y * y_scale
-    return _spinner_epilogue(y, x, epilogue, out_scale)
 
 
 def spinner_project_ref(kind: str, g: torch.Tensor, x: torch.Tensor, m: int,
@@ -143,7 +145,8 @@ def spinner_project_ref(kind: str, g: torch.Tensor, x: torch.Tensor, m: int,
     x: (G, B, n); g (and the optional ldr ``h``) carry a leading group
     axis G; d0/d1: (G, n) or None (no HD). Output (G, B, m), or
     (G, B, 2m) = [cos | sin] for cos_sin. Kronecker-form FWHT and the
-    FFT structured matvec, one group at a time.
+    epilogue for all groups at once, the FFT structured matvec one group
+    at a time.
 
     All arithmetic is f32 with one cast to x's dtype on the way out —
     the CUDA kernel's (and the TPU kernel's) numerics. For f32 inputs
@@ -151,13 +154,26 @@ def spinner_project_ref(kind: str, g: torch.Tensor, x: torch.Tensor, m: int,
     the reference instead rounds the projection to bf16 before the
     epilogue.
     """
-    f32 = lambda t: None if t is None else t.float()      # noqa: E731
-    outs = [_spinner_one(kind, m, epilogue, y_scale, out_scale,
-                         f32(g[i]), f32(None if h is None else h[i]),
-                         f32(None if d0 is None else d0[i]),
-                         f32(None if d1 is None else d1[i]), x[i].float())
-            for i in range(x.shape[0])]
-    return torch.stack(outs).to(x.dtype)
+    xf = x.float()
+    skew = kind == "skew_circulant"
+    v = xf
+    if d0 is not None:      # skew folds D1 into its modulation instead
+        v = _hd_kron(xf, d0.float()[:, None],
+                     None if skew else d1.float()[:, None])
+    ys = []
+    for i in range(x.shape[0]):
+        gi = g[i].float()
+        if skew:
+            ys.append(_skew_matvec_diag(
+                v[i], None if d0 is None else d1[i].float(), gi, m))
+        else:
+            params = {"g": gi} if h is None else {"g": gi,
+                                                  "h": h[i].float()}
+            ys.append(structured.matvec(kind, params, v[i], m))
+    y = torch.stack(ys)
+    if y_scale != 1.0:
+        y = y * y_scale
+    return _spinner_epilogue(y, xf, epilogue, out_scale).to(x.dtype)
 
 
 def spinner_project_seeded_ref(kind: str, seeds: torch.Tensor,

@@ -47,8 +47,12 @@ PORT_KERNELS = ("paged_gather_kernel", "paged_gather_dequant_kernel",
                 "srf_decode_kernel")
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, total: bool = False) -> float:
+    """An event's own device time in µs, or with ``total`` that of
+    everything it launched (the names differ between torch versions)."""
+    names = (("device_time_total", "cuda_time_total") if total else
+             ("self_device_time_total", "self_cuda_time_total"))
+    for name in names:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0

@@ -1,0 +1,64 @@
+"""Training step factories: port of the training half of
+``repro.launch.steps`` (``TrainHyper``, ``make_train_step``,
+``make_grad_step``). Each step is one eager function: forward and loss,
+``torch.autograd.grad`` over the float params, the schedule, AdamW."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.models import transformer as model
+from repro_torch.optim import adamw, schedule
+
+
+@dataclass(frozen=True)
+class TrainHyper:
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10000
+    adam: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
+    aux_weight: float = 0.01
+
+
+def _grads(params, loss: torch.Tensor):
+    """d loss / d params for every param that requires grad; None for
+    the others (the integer seeds of seeded SRF)."""
+    leaves = [p for p in tree_lib.leaves(params) if p.requires_grad]
+    got = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    return tree_lib.map(lambda p: got.get(id(p)), params)
+
+
+def _detached(metrics: Dict) -> Dict:
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_grad_step(cfg, aux_weight: float = 0.01):
+    """(params, batch) -> (grads, {"loss", "xent", "aux"}): gradients
+    only (for a trainer that reduces them before the optimizer)."""
+    def grad_step(params, batch) -> Tuple[Dict, Dict]:
+        loss, metrics = model.loss_fn(params, cfg, batch, aux_weight)
+        return _grads(params, loss), {"loss": loss.detach(),
+                                      **_detached(metrics)}
+    return grad_step
+
+
+def make_train_step(cfg, hyper: TrainHyper = TrainHyper()):
+    """(params, opt_state, step_idx, batch) -> (params, opt_state,
+    {"loss", "lr", "xent", "aux", "grad_norm"}), params and moments
+    updated in place (``adamw.update``). Metrics are 0-d tensors on the
+    params' device: reading one syncs the host."""
+    grad_step = make_grad_step(cfg, hyper.aux_weight)
+
+    def train_step(params, opt_state, step_idx, batch):
+        grads, metrics = grad_step(params, batch)
+        lr = schedule.warmup_cosine(step_idx, hyper.lr, hyper.warmup,
+                                    hyper.total_steps,
+                                    device=metrics["loss"].device)
+        params, opt_state, stats = adamw.update(grads, opt_state, params,
+                                                lr, hyper.adam)
+        return params, opt_state, {"loss": metrics["loss"], "lr": lr,
+                                   **metrics, **stats}
+    return train_step

@@ -1,14 +1,16 @@
-"""GQA attention for the paged serving engine: full-KV pages or the
-paper's SRF state.
+"""GQA attention: the paged serving engine's step (full-KV pages or the
+paper's SRF state) and the training forward.
 
-Port of the paged paths of ``repro.models.attention``: ``srf_cfg``,
-``attn_init`` and ``attention`` in mode ``"paged"``.
+Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init`` and
+``attention`` in modes ``"paged"`` and ``"train"``.
 
 * ``attn_impl="full"`` (the configs' default): the chunk's k/v rows are
   scattered into the request's KV pages (bf16/f32, or int8 with one f32
   scale per token), then the whole table width is gathered back through
   the paged_gather / paged_gather_dequant CUDA kernels and attended with
-  an f32 softmax (``_paged_full``).
+  an f32 softmax (``_paged_full``). In training, causal softmax
+  attention (``_softmax_attn``, query-chunked as the reference chunks
+  it; plain PyTorch ops, as the reference's is plain jnp).
 * ``attn_impl="srf"``: the per-request state is one constant-size page
   {"s": (Hq, m, dv), "z": (Hq, m)} at the request's slot. Decode
   (C == 1) runs the fused CUDA srf_decode kernel; chunked prefill
@@ -16,22 +18,25 @@ Port of the paged paths of ``repro.models.attention``: ``srf_cfg``,
   (``SRFAttnConfig(seeded=True)``) takes the layer's seeds folded with
   the per-request embed seeds from ``cache["srf_folded"]``: the feature
   maps then run one zero-storage projection per (head, request) through
-  the seeded spinner kernel.
+  the seeded spinner kernel. In training, the feature maps (the spinner
+  kernels under autograd, ``kernels.ops``) feed
+  ``srf_attention.attention_causal``.
 
 Not ported yet (they raise NotImplementedError): MLA, cross attention,
-mesh tensor parallelism (``tp_axis``) and the train / prefill / decode
-modes of the non-paged cache.
+M-RoPE, mesh tensor parallelism (``tp_axis``) and the encoder, prefill
+and decode modes of the non-paged cache.
 
-Unlike the reference, which returns new pools, both paths write into
-the pool IN PLACE (the pool is the engine's preallocated buffer; nothing
-else holds a view of those rows).
+Unlike the reference, which returns new pools, both paged paths write
+into the pool IN PLACE (the pool is the engine's preallocated buffer;
+nothing else holds a view of those rows).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import srf_attention as srf
 from repro_torch.core.srf_attention import SRFConfig
@@ -98,8 +103,56 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
-    """(B, Hkv, ...) -> (B, Hkv*g, ...)."""
-    return torch.repeat_interleave(x, g, dim=1)
+    """(B, Hkv, ...) -> (B, Hkv*g, ...): each head repeated g times in
+    place (an expand, so its backward is a sum, not an index_add)."""
+    b, h = x.shape[:2]
+    return x[:, :, None].expand(b, h, g, *x.shape[2:]).reshape(
+        b, h * g, *x.shape[2:])
+
+
+ATTN_Q_CHUNK = 1024   # query-chunked attention block (memory: qc*S probs
+                      # instead of L*S; the chunk body is recomputed)
+
+
+def _attn_block(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, mask) -> torch.Tensor:
+    """qg: (B, Hkv, G, qc, hd); mask: (qc, S) or None -> (..., qc, dv).
+    Scores and softmax in f32; the probabilities are cast back to v's
+    dtype for the value product, as in the reference."""
+    logits = torch.einsum("bhgld,bhsd->bhgls", qg.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhgls,bhsd->bhgld", w, v)
+
+
+def _softmax_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool,
+                  q_chunk: int = ATTN_Q_CHUNK) -> torch.Tensor:
+    """q: (B, Hq, L, hd), k, v: (B, Hkv, S, hd) -> (B, Hq, L, dv); GQA by
+    head grouping. A query axis longer than ``q_chunk`` (and a multiple
+    of it) runs in chunks, each recomputed in the backward
+    (``torch.utils.checkpoint``), so one (qc, S) probability block is the
+    only live attention buffer."""
+    b, hq, l, hd = q.shape
+    hkv, s, dv = k.shape[1], k.shape[2], v.shape[-1]
+    qg = q.reshape(b, hkv, hq // hkv, l, hd)
+    cols = torch.arange(s, device=q.device)[None, :]
+    if l <= q_chunk or l % q_chunk:
+        mask = None
+        if causal:
+            mask = torch.arange(l, device=q.device)[:, None] + (s - l) >= cols
+        out = _attn_block(qg, k, v, scale, mask)
+        return out.reshape(b, hq, l, dv).to(q.dtype)
+    outs = []
+    for off in range(0, l, q_chunk):
+        mask = None
+        if causal:
+            rows = off + torch.arange(q_chunk, device=q.device)[:, None]
+            mask = rows + (s - l) >= cols
+        outs.append(checkpoint(_attn_block, qg[:, :, :, off:off + q_chunk],
+                               k, v, scale, mask, use_reentrant=False))
+    return torch.cat(outs, dim=3).reshape(b, hq, l, dv).to(q.dtype)
 
 
 def _paged_scatter(pool_arr: torch.Tensor, new: torch.Tensor,
@@ -254,16 +307,19 @@ def _paged_srf(pool: Dict[str, torch.Tensor], slots: torch.Tensor,
 
 
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
-              cache: Dict) -> torch.Tensor:
-    """Paged GQA attention: (B, C, d) -> (B, C, d). ``cache["pool"]`` is
-    the layer's KV page pool (full) or slot pool (srf), updated in
-    place."""
-    if mode != "paged":
+              cache: Optional[Dict] = None) -> torch.Tensor:
+    """GQA attention: (B, L, d) -> (B, L, d).
+
+    ``mode="paged"``: one serving step; ``cache["pool"]`` is the layer's
+    KV page pool (full) or slot pool (srf), updated in place.
+    ``mode="train"``: causal attention over the whole sequence, no cache
+    (full softmax, or SRF's causal linear attention)."""
+    if mode not in ("paged", "train"):
         raise NotImplementedError(f"attention mode {mode!r} is "
                                   f"{NOT_IN_SLICE}")
     if cfg.is_mla:
         raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
-    if cache.get("tp_axis"):
+    if cache is not None and cache.get("tp_axis"):
         raise NotImplementedError(f"tensor-parallel attention (tp_axis) is "
                                   f"{NOT_IN_SLICE}")
     if cfg.m_rope:
@@ -282,15 +338,19 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     if cfg.attn_impl != "srf":
-        out = _paged_full(cfg, q, k, v, positions, cache)
+        if mode == "train":
+            out = _softmax_attn(q, k, v, 1.0 / math.sqrt(cfg.head_dim),
+                                causal=True)
+        else:
+            out = _paged_full(cfg, q, k, v, positions, cache)
         return _merge_heads(out) @ p["wo"]
 
     sc = srf_cfg(cfg)
     g = cfg.n_heads // cfg.n_kv_heads
     b, hq, l, hd = q.shape
     qg = q.reshape(b, cfg.n_kv_heads, g * l, hd)
-    folded = cache.get("srf_folded")         # per-(head, request) seeds
-    if folded is None:
+    folded = None if cache is None else cache.get("srf_folded")
+    if folded is None:                       # per-(head, request) seeds
         phi_q = srf.feature_map(sc, p["srf"], qg, is_query=True)
         phi_k = srf.feature_map(sc, p["srf"], k, is_query=False)
     else:
@@ -298,6 +358,9 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
         phi_k = srf.feature_map_folded(sc, folded, k, is_query=False)
     phi_q = phi_q.reshape(b, hq, l, -1)
     phi_k = _repeat_kv(phi_k, g)
-    out = _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k,
-                     _repeat_kv(v, g), cache["q_valid"])
+    if mode == "train":
+        out = srf.attention_causal(sc, phi_q, phi_k, _repeat_kv(v, g))
+    else:
+        out = _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k,
+                         _repeat_kv(v, g), cache["q_valid"])
     return _merge_heads(out) @ p["wo"]

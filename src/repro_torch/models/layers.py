@@ -82,3 +82,64 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["tok"][tokens]
+
+
+def unembed(p_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, L, d) @ (d, V) in f32 for a stable softmax-xent."""
+    return x.float() @ p_head.float()
+
+
+# rows of logits whose f32 temporaries exist at once inside cross_entropy
+# (about 64 MiB of f32 at a vocabulary of 150k)
+XENT_ROWS = 128
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Mean xent of (R, V) logits over valid rows, with the f32 upcast
+    inside the reductions, a chunk of ``XENT_ROWS`` rows at a time: no
+    (R, V) f32 copy of bf16 logits is made, in the forward or in the
+    backward. As in the reference: the row max m is taken without
+    gradient (``stop_gradient``), exp runs in f32 on ``logits - m``
+    rounded to the logits' dtype, and the gradient (softmax minus
+    one-hot) reaches the logits in their dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, safe, mask):
+        rows = logits.shape[0]
+        m = torch.empty((rows, 1), dtype=logits.dtype, device=logits.device)
+        z = torch.empty(rows, dtype=torch.float32, device=logits.device)
+        for i in range(0, rows, XENT_ROWS):
+            lg = logits[i:i + XENT_ROWS]
+            m[i:i + XENT_ROWS] = torch.amax(lg, dim=-1, keepdim=True)
+            z[i:i + XENT_ROWS] = torch.sum(
+                torch.exp((lg - m[i:i + XENT_ROWS]).float()), dim=-1)
+        logz = torch.log(z) + m[:, 0].float()
+        gold = torch.gather(logits, -1, safe[:, None])[:, 0]
+        count = torch.clamp(mask.sum(), min=1)
+        nll = (logz - gold.float()) * mask
+        ctx.save_for_backward(logits, safe, mask, m, z, count)
+        return nll.sum() / count
+
+    @staticmethod
+    def backward(ctx, dloss):
+        logits, safe, mask, m, z, count = ctx.saved_tensors
+        w = (dloss * mask / count)[:, None]                  # (R, 1) f32
+        grad = torch.empty_like(logits)
+        cols = torch.arange(logits.shape[1], device=logits.device)
+        for i in range(0, logits.shape[0], XENT_ROWS):
+            sl = slice(i, i + XENT_ROWS)
+            p = torch.exp((logits[sl] - m[sl]).float()) / z[sl, None]
+            gold = (cols[None, :] == safe[sl, None]) * w[sl]
+            grad[sl] = (p * w[sl]).to(logits.dtype) - gold.to(logits.dtype)
+        return grad, None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Mean xent over valid labels; labels >= vocab or < 0 are masked
+    (covers the vocab-padding tokens). logits (..., V), labels (...)."""
+    mask = (labels >= 0) & (labels < vocab)
+    safe = torch.where(mask, labels, 0).long()
+    v = logits.shape[-1]
+    return _CrossEntropy.apply(logits.reshape(-1, v), safe.reshape(-1),
+                               mask.reshape(-1).float())

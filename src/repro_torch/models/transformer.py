@@ -1,8 +1,11 @@
-"""Dense decoder LM for the paged serving path (full-KV or SRF attention).
+"""Dense decoder LM: the paged serving step and the training forward
+(full-KV or SRF attention).
 
-Port of the serving half of ``repro.models.transformer`` for the dense
-family: ``init``, ``paged_step``, ``_paged_layer`` and ``_logits`` as
-functions over a param dict. The param tree has the reference's layout,
+Port of ``repro.models.transformer`` for the dense family: ``init``,
+``paged_step``, ``_paged_layer`` and ``_logits`` for serving, and
+``layer_apply``, ``run_segment`` (mode ``"train"``), ``embed_inputs``,
+``forward`` and ``loss_fn`` for training, as functions over a param
+dict. The param tree has the reference's layout,
 so ``repro_torch.convert.params_from_jax`` maps one onto the other leaf
 for leaf:
 
@@ -13,16 +16,22 @@ for leaf:
      "head": (d, V)}                                  # absent when tied
 
 Layers run as a Python loop over the stacked layer axis (the reference
-scans). Attention is full-KV (paged pools) or SRF (slot pools), as the
-config's ``attn_impl`` says. Other families (MoE, MLA, SSM, hybrid,
-enc-dec, vision) are not ported yet and raise NotImplementedError.
+scans). In training, each layer (or group of ``cfg.scan_group`` layers)
+is recomputed in the backward as the config's ``remat`` says
+(``torch.utils.checkpoint``, see ``_remat``). Attention is full-KV
+(paged pools) or SRF (slot pools), as the config's ``attn_impl`` says.
+Other families (MoE, MLA, SSM, hybrid, enc-dec, vision) are not ported
+yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import srf_attention as srf
 
 from . import attention, hooks, layers
@@ -71,6 +80,15 @@ def init(cfg, seed: int = 0, device="cuda") -> Dict:
     return params
 
 
+def requires_grad(params) -> Dict:
+    """Mark every float leaf of ``params`` as a trainable leaf (in place;
+    integer leaves, the seeds of seeded SRF, stay untracked)."""
+    for t in tree_lib.leaves(params):
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    return params
+
+
 def tree_index(tree, i: int):
     """The i-th slice of every tensor leaf of a nested dict/tuple/list."""
     if isinstance(tree, dict):
@@ -78,6 +96,119 @@ def tree_index(tree, i: int):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_index(v, i) for v in tree)
     return tree[i]
+
+
+def layer_apply(p, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor,
+                mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer of the dense family -> (x, aux_loss)."""
+    if kind != "dense":
+        raise NotImplementedError(f"{kind} layers are "
+                                  f"{attention.NOT_IN_SLICE}")
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + attention.attention(p["attn"], cfg, h, positions, mode)
+    x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of matrix products, recompute everything else."""
+    policy = ckpt.CheckpointPolicy
+    return policy.MUST_SAVE if op in (torch.ops.aten.mm.default,
+                                      torch.ops.aten.bmm.default) \
+        else policy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """``fn`` recomputed in the backward as ``cfg.remat`` says: "none"
+    keeps every activation, "full" keeps only the inputs, "dots" keeps
+    the matmul outputs (the reference's ``checkpoint_dots`` policy)."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r} not in none | dots | full")
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def run_segment(stacked, cfg, kind: str, x: torch.Tensor,
+                positions: torch.Tensor, mode: str = "train"
+                ) -> Tuple[torch.Tensor, None, torch.Tensor]:
+    """All layers of one segment in training -> (x, None, aux_sum).
+
+    With ``cfg.scan_group`` g > 1 (dividing the layer count) the
+    recompute nests as the reference's does: the outer checkpoint keeps
+    the residual only every g layers, and the inner per-layer checkpoints
+    recompute one layer's internals at a time. The reference's
+    ``_barrier`` (an XLA scheduling device, the identity on values) has
+    no counterpart: eager PyTorch runs the layers in program order."""
+    if mode != "train":
+        raise NotImplementedError(f"run_segment mode {mode!r} is "
+                                  f"{attention.NOT_IN_SLICE}")
+    count = tree_lib.leaves(stacked)[0].shape[0]
+    g = cfg.scan_group if (cfg.scan_group > 1
+                           and count % cfg.scan_group == 0) else 1
+
+    def one_layer(x, lp):
+        return layer_apply(lp, cfg, kind, x, positions, mode)
+    inner = _remat(cfg, one_layer) if g > 1 else one_layer
+
+    def body(x, *group):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in group:
+            x, a = inner(x, lp)
+            aux = aux + a
+        return x, aux
+    body = _remat(cfg, body)
+    per_layer = tree_lib.unbind(stacked, count)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, count, g):
+        x, a = body(x, *per_layer[i:i + g])
+        aux = aux + a
+    return x, None, aux
+
+
+def embed_inputs(params, cfg, batch: Dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (x, positions) for a text batch {"tokens", optional
+    "positions"}; the vision and audio front ends are not ported."""
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name} inputs are "
+                                  f"{attention.NOT_IN_SLICE}")
+    tokens = batch["tokens"]
+    x = layers.embed(params["embed"], tokens).to(dtype_of(cfg))
+    b, l = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(l, device=tokens.device)[None].expand(b, l)
+    return hooks.constrain(x, "activation"), positions
+
+
+def forward(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward -> (logits (B, L, V_padded), aux)."""
+    x, positions = embed_inputs(params, cfg, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg_params, (kind, _) in zip(params["segments"], segments(cfg)):
+        x, _, aux = run_segment(seg_params, cfg, kind, x, positions)
+        aux_total = aux_total + aux
+    return _logits(params, cfg, x), aux_total
+
+
+def loss_fn(params, cfg, batch: Dict, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict]:
+    """-> (loss, {"xent", "aux"}); labels outside [0, vocab) are masked."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:      # vlm: vision prefix unlabeled
+        logits = logits[:, -labels.shape[1]:]
+    xent = layers.cross_entropy(logits, labels, cfg.vocab)
+    return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
 
 def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:

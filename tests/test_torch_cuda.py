@@ -6,7 +6,9 @@ the dispatchers' gradients on the CPU, runs everywhere). On the card
 
     PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
-Tolerances: spinner, seeded spinner and srf_decode f32 max|kernel -
+The two spinner ops differentiate on the card (kernel forward, plain
+VJP backward); the other five dispatchers refuse an input that requires
+grad. Tolerances: spinner, seeded spinner and srf_decode f32 max|kernel -
 plain| <= 1e-4 * max|plain|, bf16 2e-2 (the sign epilogue where |y| is
 beyond f32 summation-order noise of 0); the paged gathers bit for bit
 (torch.equal), and the f32 seeded spinner bit for bit against the
@@ -404,20 +406,92 @@ def _grad_cases(dev):
     ]
 
 
+GRAD_OPS = ("spinner_project", "spinner_project_seeded")
+
+
 @pytest.mark.cuda
 def test_dispatchers_refuse_grad_on_card(cuda_device):
-    """Every kernels.ops dispatcher raises on a CUDA input that requires
-    grad while grad mode is on (the kernels have no backward yet), and
-    launches its kernel under torch.no_grad()."""
+    """The two spinner ops take a CUDA input that requires grad: their
+    kernel runs forward and the gradient flows (through the plain
+    version's VJP). Every other kernels.ops dispatcher raises on one
+    while grad mode is on (those kernels have no backward, nor have the
+    reference's), and launches its kernel under torch.no_grad()."""
     cases = _grad_cases(cuda_device)
     assert len(cases) == 8
     for name, call in cases:
+        if name in GRAD_OPS:
+            ops.reset_counts()
+            out = call()
+            assert out.is_cuda and out.requires_grad, name
+            out.float().sum().backward()
+            counts = ops.launch_counts()
+            key = "spinner_seeded" if "seeded" in name else "spinner"
+            assert counts[key] == 1 and counts[key + "_bwd"] == 1, counts
+            assert counts["spinner_plain_on_cuda"] == 0, counts
+            assert counts["spinner_seeded_plain_on_cuda"] == 0, counts
+            continue
         with pytest.raises(RuntimeError, match="no backward"):
             call()
         with torch.no_grad():
             out = call()
         out = out[-1] if isinstance(out, tuple) else out
         assert out.is_cuda and not out.requires_grad, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,epi", [("circulant", "exp"),
+                                      ("circulant", "identity"),
+                                      ("toeplitz", "cos_sin"),
+                                      ("hankel", "relu")])
+def test_spinner_grads_on_card_equal_plain(cuda_device, kind, epi, dtype):
+    """The kernel-forward Functions' gradients against the plain
+    version's on the card: f32 within 1e-4 of the largest value (the
+    forward outputs that the backward's cotangent sees agree to the
+    kernel tolerance; the backward itself is the plain VJP), bf16 2e-2;
+    seeded: d/dx."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    gsz, bsz, n, m = 3, 40, 128, 256
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    x = (torch.randn((gsz, bsz, n), generator=gen, device=cuda_device)
+         * n ** -0.25).to(dtype)
+    g = torch.randn(kspin._gen_shape(kind, gsz, n, m), generator=gen,
+                    device=cuda_device).to(dtype)
+    d = (2 * torch.randint(0, 2, (2, gsz, n), generator=gen,
+                           device=cuda_device) - 1).to(dtype)
+    kw = dict(epilogue=epi, out_scale=m ** -0.5)
+    dy = torch.randn((gsz, bsz, 2 * m if epi == "cos_sin" else m),
+                     generator=gen, device=cuda_device).to(dtype)
+
+    def grads(route_cuda, seeded=False):
+        leaves = [t.clone().requires_grad_() for t in (x, g, d[0], d[1])]
+        if seeded:
+            seeds = torch.tensor([3, 4, 5], device=cuda_device)
+            if route_cuda:
+                y = ops.spinner_project_seeded(kind, seeds, leaves[0], m,
+                                               grouped=True, **kw)
+            else:
+                y = ref.spinner_project_seeded_ref(kind, seeds, leaves[0],
+                                                   m, **kw)
+            return torch.autograd.grad(y, leaves[:1], dy)
+        p = dict(zip(("g", "d0", "d1"), leaves[1:]))
+        if route_cuda:
+            y = ops.spinner_project(kind, p, leaves[0], m, grouped=True, **kw)
+        else:
+            y = ref.spinner_project_ref(kind, p["g"], leaves[0], m,
+                                        d0=p["d0"], d1=p["d1"], **kw)
+        return torch.autograd.grad(y, leaves, dy)
+    for seeded in (False, True):
+        ops.reset_counts()
+        got = grads(True, seeded)
+        counts = ops.launch_counts()
+        key = "spinner_seeded" if seeded else "spinner"
+        assert counts[key] == 1 and counts[key + "_bwd"] == 1, counts
+        for a, b in zip(got, grads(False, seeded)):
+            assert a.dtype == b.dtype and torch.isfinite(a).all()
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= tol * b.float().abs().max().item(), \
+                (kind, epi, dtype, seeded, err)
 
 
 def test_dispatchers_differentiate_on_cpu():

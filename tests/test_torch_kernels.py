@@ -5,9 +5,14 @@ On the CPU ``repro_torch.kernels.ops`` runs the plain PyTorch versions
 Pallas kernels in interpret mode (``use_pallas=True``) and to its jnp
 oracles, on the same inputs made with numpy. Tolerances: spinner
 rtol=1e-4, atol=1e-5 (FFT, Kronecker and in-kernel sum orders differ);
-srf_decode rtol=1e-5, atol=1e-6. In bf16 the plain spinner is held to
-the Pallas kernel in interpret mode within one bf16 spacing per element
-(rtol=2**-7): both compute in f32 and round once, on write. The plain
+srf_decode rtol=1e-5, atol=1e-6. The gradients of both spinner ops
+(g, x, d0 and d1; seeded: x) are held to ``jax.grad`` through the
+reference's Pallas-forward, reference-backward VJPs in interpret mode
+with the same tolerance; the port's kernel-forward autograd Functions
+are run here with the kernel swapped for its plain version. In bf16
+the plain spinner is held to the Pallas kernel in interpret mode within
+one bf16 spacing per element (rtol=2**-7): both compute in f32 and
+round once, on write. The plain
 paged gathers equal the reference's Pallas kernels in interpret mode
 bit for bit. fwht and circulant_project are held to the reference's
 Pallas kernels in interpret mode and to its jnp oracles within
@@ -85,6 +90,119 @@ def test_plain_spinner_matches_reference(kind, epi):
             y = _jax(kind, params, x, "identity", use_pallas=False)
             g, w = _far_from_step(y, got, want)
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+GRAD_CASES = [("circulant", "relu"), ("circulant", "exp"),
+              ("circulant", "identity"), ("toeplitz", "cos_sin"),
+              ("skew_circulant", "exp"), ("hankel", "relu"),
+              ("unstructured", "identity")]
+
+
+def _torch_grads(y, inputs):
+    return torch.autograd.grad(torch.sin(y).sum(), inputs)
+
+
+@pytest.mark.parametrize("kind,epi", GRAD_CASES)
+def test_spinner_grads_match_reference_vjp(kind, epi):
+    """d/d(g, x, d0, d1) of sum(sin(y)): the port's plain route against
+    ``jax.grad`` through the reference's ``_spinner_pallas_vjp`` (Pallas
+    forward in interpret mode, jnp backward)."""
+    params, x = _inputs(kind)
+    names = ("g", "d0", "d1")
+
+    def jloss(jp, jx):
+        return jnp.sum(jnp.sin(jops.spinner_project(
+            kind, jp, jx, M, epilogue=epi, y_scale=0.8, out_scale=M ** -0.5,
+            grouped=True, use_pallas=True)))
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(
+        {k: jnp.asarray(params[k]) for k in names}, jnp.asarray(x))
+    tp = {k: torch.from_numpy(params[k]).requires_grad_() for k in names}
+    tx = torch.from_numpy(x).requires_grad_()
+    y = ops.spinner_project(kind, tp, tx, M, epilogue=epi, y_scale=0.8,
+                            out_scale=M ** -0.5, grouped=True)
+    got = _torch_grads(y, [tx] + [tp[k] for k in names])
+    for g, w in zip(got, [jgx] + [jgp[k] for k in names]):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("kind,epi", GRAD_CASES[:4])
+def test_seeded_spinner_grads_match_reference_vjp(kind, epi):
+    """d/dx through the reference's ``_spinner_seeded_vjp`` (params
+    regenerated from the seeds; the seeds get no cotangent)."""
+    _, x = _inputs(kind, seed=4)
+    seeds = np.array([5, 2 ** 32 - 3], np.uint32)
+
+    def jloss(jx):
+        return jnp.sum(jnp.sin(jops.spinner_project_seeded(
+            kind, jnp.asarray(seeds), jx, M, epilogue=epi, y_scale=0.8,
+            out_scale=M ** -0.5, grouped=True, use_pallas=True)))
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    tx = torch.from_numpy(x).requires_grad_()
+    y = ops.spinner_project_seeded(kind, torch.from_numpy(
+        seeds.astype(np.int64)), tx, M, epilogue=epi, y_scale=0.8,
+        out_scale=M ** -0.5, grouped=True)
+    got, = _torch_grads(y, [tx])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def _kernel_as_plain(monkeypatch):
+    """Swap both CUDA wrappers for their plain versions (counted), so the
+    autograd Functions run on CPU tensors."""
+    calls = {"fwd": 0, "seeded_fwd": 0}
+
+    def fwd(kind, g, x, m, d0=None, d1=None, **kw):
+        calls["fwd"] += 1
+        return ref_mod.spinner_project_ref(kind, g, x, m, d0=d0, d1=d1, **kw)
+
+    def seeded_fwd(kind, seeds, x, m, use_hd=True, **kw):
+        calls["seeded_fwd"] += 1
+        return ref_mod.spinner_project_seeded_ref(kind, seeds, x, m,
+                                                  use_hd=use_hd, **kw)
+    from repro_torch.kernels import ref as ref_mod
+    monkeypatch.setattr(kspin, "spinner_project_cuda", fwd)
+    monkeypatch.setattr(kspin, "spinner_project_seeded_cuda", seeded_fwd)
+    return calls
+
+
+@pytest.mark.parametrize("kind,epi", GRAD_CASES[:3])
+def test_kernel_functions_backward_is_the_plain_vjp(monkeypatch, kind, epi):
+    """The kernel-forward autograd Functions with the kernel swapped for
+    its plain version: their gradients equal the plain route's (bit for
+    bit: the backward IS the plain version's VJP), the forward runs once
+    a call, the backward is counted apart, and only what requires grad
+    gets a gradient."""
+    calls = _kernel_as_plain(monkeypatch)
+    ops.reset_counts()
+    params, x = _inputs(kind, seed=2)
+    kw = dict(epilogue=epi, y_scale=0.8, out_scale=M ** -0.5)
+    tp = [torch.from_numpy(params[k]).requires_grad_()
+          for k in ("g", "d0", "d1")]
+    tx = torch.from_numpy(x).requires_grad_()
+    y = ops._SpinnerKernel.apply(tp[0], tx, tp[1], tp[2], kind, M,
+                                 *kw.values())
+    got = _torch_grads(y, [tx] + tp)
+    want = _torch_grads(ops.spinner_project(
+        kind, dict(zip(("g", "d0", "d1"), tp)), tx, M, grouped=True, **kw),
+        [tx] + tp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    y = ops._SpinnerKernel.apply(tp[0].detach(), tx, None, None, kind, M,
+                                 *kw.values())
+    gx, = _torch_grads(y, [tx])
+    assert gx.shape == tx.shape
+    seeds = torch.tensor([7, 9])
+    ys = ops._SeededSpinnerKernel.apply(seeds, tx, kind, M, 1, 4, True,
+                                        *kw.values())
+    gs, = _torch_grads(ys, [tx])
+    ws, = _torch_grads(ops.spinner_project_seeded(kind, seeds, tx, M,
+                                                  grouped=True, **kw), [tx])
+    assert torch.equal(gs, ws)
+    assert calls == {"fwd": 2, "seeded_fwd": 1}
+    counts = ops.launch_counts()
+    assert counts["spinner_bwd"] == 2 and counts["spinner_seeded_bwd"] == 1
 
 
 def _bf16_inputs(kind, g, b, n, m, seed=0):
@@ -193,6 +311,8 @@ def test_cpu_route_leaves_launch_counters_at_zero():
                                    "spinner_seeded": 0,
                                    "spinner_plain_on_cuda": 0,
                                    "spinner_seeded_plain_on_cuda": 0,
+                                   "spinner_bwd": 0,
+                                   "spinner_seeded_bwd": 0,
                                    "fwht": 0, "fwht_plain_on_cuda": 0,
                                    "circulant_project": 0}
 
