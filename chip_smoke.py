@@ -4,7 +4,9 @@ kernel estimates through the port's library, serves full-width
 qwen3-4b through the port's engine with full-KV pages (bf16, int8,
 prefix cache), with SRF attention, and with seeded SRF attention
 (per-request embed seeds, greedy and sampled requests in one batch),
-then trains full-width qwen3-4b with SRF and with full attention.
+through the legacy per-slot engine beside the paged one, and through
+the serve CLI with kernel timing and a Chrome trace, then trains
+full-width qwen3-4b with SRF and with full attention.
 
     python3 chip_smoke.py
 
@@ -99,6 +101,31 @@ result line):
    mixed embed seeds and mixed greedy / sampled requests) are also
    served on the card and on the CPU (plain versions); their tokens
    must be equal.
+   The legacy per-slot engine (``serving/legacy.py``): reduced qwen3-4b
+   (f32, 2 layers) with full KV, an int8 KV cache, SRF and seeded SRF,
+   8 mixed-length requests greedy and sampled (temperature 0.8): card
+   tokens equal CPU tokens, and the paged engine's card tokens equal
+   the legacy engine's (int8: greedy; the two quantize per token and
+   per token and head). Then full-width qwen3-4b (bf16), 8 greedy
+   requests (prompt 128, 16 new, 4 slots, max_len 256), full KV and
+   then SRF, through the legacy engine and the paged engine on the same
+   params: every request finishes with 16 tokens, no non-finite logit
+   row; legacy full KV launches no kernel, legacy SRF the spinner at
+   least 2 per layer and model call and its plain route never; the
+   first-token logits of the two engines agree within
+   ``FIRST_LOGIT_TOL`` of each row's largest |logit|, and each within
+   ``F32_ANCHOR_TOL`` of an f32 copy's prefill; tok/s, TTFT p50 and the
+   share of equal generated tokens printed.
+   Kernel timing: ``launch.serve.main`` in process at full width with
+   ``--attn srf`` and with ``--quantize-kv`` (4 requests, 8 new),
+   without, with ``--kernel-timing --metrics-out F --trace-out T``
+   (under ``chiprun_out/chip_smoke/``) and without again: with timing,
+   one ``kernel_dispatch_seconds`` series per kernel launched, its
+   count equal to the launch counter (reset just before the run, read
+   just after), the trace's B/E events paired and monotone; p50 / p99
+   per kernel and tok/s of the three runs printed; one timed dispatch
+   each of ``ops.fwht`` and ``ops.circulant_project`` at the library
+   shapes.
 5. Train (after freeing the serving memory). Full-width, full-depth
    qwen3-4b (bf16, remat full, B = 8, seq = 64, the training launcher's
    defaults), random weights, 5 steps of ``launch.steps.make_train_step``
@@ -120,7 +147,10 @@ result line):
 6. Print the card (nvidia-smi name, power limit), one JSON line with a
    record per kernel, and the result line. The spinner records carry
    their training fields (``train_*``: the training run's launches and
-   plain backward calls, and the kernel at the training shapes).
+   plain backward calls, and the kernel at the training shapes), and
+   the spinner, srf_decode and int8-gather records their dispatch
+   fields (``dispatch_*``: p50, p99 and count from the timed serve
+   run), fwht and circulant_project one timed dispatch.
    ``library_ms`` is ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
    for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
@@ -147,6 +177,7 @@ from pathlib import Path
 # the CUDA context is made, so it is set before torch is imported
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
@@ -1540,6 +1571,410 @@ def phase_serve_seeded():
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (continued): the legacy per-slot engine
+# ---------------------------------------------------------------------------
+
+def _legacy_module():
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        from repro_torch.serving import legacy
+    return legacy
+
+
+# reduced legacy cells: (label, config overrides, seeded SRF)
+LEGACY_REDUCED = [("full KV", {}, False),
+                  ("int8 KV cache", {"kv_cache_dtype": "int8"}, False),
+                  ("SRF", {"attn_impl": "srf"}, False),
+                  ("seeded SRF", {"attn_impl": "srf"}, True)]
+
+
+def _mixed_requests(cfg, temperature):
+    """8 mixed-length requests (tests/test_engine_parity.py's recipe)."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(
+        rng.integers(2, 20))).astype(np.int32),
+        max_new=int(rng.integers(3, 7)), temperature=temperature)
+        for i in range(8)]
+
+
+def phase_reduced_legacy():
+    """Reduced qwen3-4b (f32, 2 layers) through the legacy engine, with
+    full KV, an int8 KV cache, SRF and seeded SRF, greedy and sampled
+    (temperature 0.8): its tokens on the card equal its tokens on the
+    CPU; and on the card the paged engine gives the legacy engine's
+    tokens (int8: int8 pages against the int8 cache, greedy only; the
+    two quantize per token and per token and head, and sampled streams
+    part in the reference too). Counts reset before each card run: the
+    SRF cells must launch their spinner kernel and no plain route."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serving import Engine, PagedConfig
+    legacy = _legacy_module()
+
+    def drive(eng, reqs):
+        for r in reqs:
+            eng.submit(r)
+        return {r.uid: r.out_tokens for r in eng.run()}
+    for label, over, seeded in LEGACY_REDUCED:
+        cfg = registry.reduced("qwen3-4b", n_layers=2, **over)
+        if seeded:
+            cfg = _seeded(cfg)
+        cpu = model_lib.init(cfg, seed=3, device="cpu")
+        card = _to(cpu, "cuda")
+        for t in (0.0, 0.8):
+            kind = "sampled" if t else "greedy"
+            want = drive(legacy.Engine(cfg, cpu, batch_slots=4, max_len=64,
+                                       seed=5, device="cpu"),
+                         _mixed_requests(cfg, t))
+            ops.reset_counts()
+            got = drive(legacy.Engine(cfg, card, batch_slots=4, max_len=64,
+                                      seed=5, device="cuda"),
+                        _mixed_requests(cfg, t))
+            counts = ops.launch_counts()
+            if got != want or len(got) != 8:
+                raise AssertionError(f"reduced legacy {label} {kind}: card "
+                                     f"tokens {got} != CPU {want}")
+            key = "spinner_seeded" if seeded else "spinner"
+            if "attn_impl" in over and (
+                    counts[key] == 0 or counts["spinner_plain_on_cuda"]
+                    or counts["spinner_seeded_plain_on_cuda"]):
+                raise AssertionError(f"reduced legacy {label}: launches "
+                                     f"{counts}")
+            line = (f"  reduced legacy {label} {kind}: card tokens == CPU "
+                    f"tokens ({sum(map(len, got.values()))} tokens)")
+            if label == "int8 KV cache" and t > 0:
+                log(line + "; paged not compared (per-token against "
+                    "per-head quantization)")
+                continue
+            quant = PagedConfig(quantize_kv="kv_cache_dtype" in over)
+            paged = drive(Engine(cfg, card, batch_slots=4, max_len=64,
+                                 seed=5, device="cuda", paged=quant),
+                          _mixed_requests(cfg, t))
+            if paged != got:
+                diverge = {u: next((i for i, (a, b) in enumerate(zip(
+                    paged[u], got[u])) if a != b), None) for u in got
+                    if paged.get(u) != got[u]}
+                raise AssertionError(f"reduced {label} {kind}: paged != "
+                                     f"legacy on the card; first divergent "
+                                     f"token by uid {diverge}")
+            log(line + "; paged == legacy on the card")
+
+
+LEGACY_TRAFFIC = dict(requests=8, prompt_len=128, max_new=16, slots=4,
+                      max_len=256, seed=0, device="cuda")
+# first-token logits, as a share of the row's largest |logit|, between
+# the two bf16 engines: bf16 rounds 2^-9 a step through 36 layers of one
+# 128-token prefill (legacy) against 8 or 4 chunks (paged); SRF's exp
+# features span decades and its normalizer divides their sums, so its
+# rounding travels further (a first card run: 0.070 between the engines,
+# where full KV gave under 1e-5).
+FIRST_LOGIT_TOL = {"full": 2e-2, "srf": 1.5e-1}
+# each bf16 engine against the same prefill of an f32 copy of the
+# weights: bf16's own distance from f32 (card: 0.0195 full KV, 0.115 and
+# 0.120 SRF), bounded to catch a broken engine (an O(1) error), not to
+# grade agreement, which the limit above does
+F32_ANCHOR_TOL = {"full": 5e-2, "srf": 2.5e-1}
+
+
+class first_logits:
+    """Records each request's first-token logits (f32, on the host) from
+    an engine's sampling call: the legacy engine's ``_pick`` or the paged
+    engine's ``_sample_rows``, wrapped on the instance."""
+
+    def __init__(self, eng):
+        self.rows = {}
+        if hasattr(eng, "_pick"):
+            pick = eng._pick
+
+            def wrapped(req, logits):
+                if not req.out_tokens:
+                    self.rows[req.uid] = logits.float().cpu()
+                return pick(req, logits)
+            eng._pick = wrapped
+        else:
+            sample = eng._sample_rows
+
+            def wrapped(rows, seqs):
+                for i, s in enumerate(seqs):
+                    if s is not None and not s.req.out_tokens:
+                        self.rows[s.req.uid] = rows[i].float().cpu()
+                return sample(rows, seqs)
+            eng._sample_rows = wrapped
+
+
+def phase_serve_legacy():
+    """Full-width qwen3-4b (bf16, 36 layers) through the legacy engine, 8
+    greedy requests (prompt 128, 16 new tokens, 4 slots, max_len 256),
+    with full KV and then SRF; then the paged engine on the same
+    requests and params. Every request finishes with 16 tokens and every
+    logit row is finite; full KV launches no kernel, SRF the spinner at
+    least 2 per layer and model call, its plain route never; first-token
+    logits of the two engines agree within FIRST_LOGIT_TOL of each row's
+    largest; tok/s, TTFT p50 and the share of equal generated tokens
+    printed. Returns {attn: {"legacy": result, "paged": result}}."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    out = {}
+    for attn in ("full", "srf"):
+        largs = serve_args(attn, legacy=True, **LEGACY_TRAFFIC)
+        pargs = serve_args(attn, **LEGACY_TRAFFIC)
+        t0 = time.perf_counter()
+        cfg, params = serve.build(largs)
+        torch.cuda.synchronize()
+        _describe(cfg, params, t0)
+        res, firsts = {}, {}
+        for label, a in (("legacy", largs), ("paged", pargs)):
+            serve.warm(a, cfg, params)
+            eng = serve.engine(a, cfg, params)
+            rec = first_logits(eng)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counts()
+            r = serve.serve(a, eng=eng)
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            bad = [q.uid for q in r["done"] if len(q.out_tokens) != 16]
+            if len(r["done"]) != 8 or bad or eng.nonfinite_rows:
+                raise AssertionError(f"{attn} {label}: unfinished {bad} or "
+                                     f"{eng.nonfinite_rows} non-finite rows")
+            log(f"  {attn} {label}: {len(r['done'])} requests, "
+                f"{r['tokens']} tokens in {r['wall_s']:.3f} s: "
+                f"{r['tok_s']:.2f} tok/s, TTFT p50 "
+                f"{r['ttft_s']['p50']:.4f} s, peak {peak:.2f} GiB")
+            log(f"    launches: {counts}")
+            if label == "legacy":
+                calls = len(r["done"]) + sum(len(q.out_tokens) - 1
+                                             for q in r["done"])
+                if attn == "srf":
+                    need = 2 * cfg.n_layers * calls
+                    if counts["spinner"] < need or \
+                            counts["spinner_plain_on_cuda"]:
+                        raise AssertionError(
+                            f"legacy SRF: spinner {counts['spinner']} < "
+                            f"{need} ({calls} model calls) or plain calls")
+                elif any(counts.values()):
+                    raise AssertionError(f"legacy full KV launched a "
+                                         f"kernel: {counts}")
+                r["model_calls"] = calls
+            r["counts"] = counts
+            res[label], firsts[label] = r, rec.rows
+        f32 = _f32_first_logits(cfg, params, largs)
+        tols = {"legacy-paged": FIRST_LOGIT_TOL[attn],
+                "legacy-f32": F32_ANCHOR_TOL[attn],
+                "paged-f32": F32_ANCHOR_TOL[attn]}
+        worst = dict.fromkeys(tols, 0.0)
+        for uid, row in firsts["legacy"].items():
+            pairs = {"legacy-paged": (row, firsts["paged"][uid]),
+                     "legacy-f32": (f32[uid], row),
+                     "paged-f32": (f32[uid], firsts["paged"][uid])}
+            for k, (a, b) in pairs.items():
+                rel = float((a - b).abs().max() / a.abs().max())
+                worst[k] = max(worst[k], rel)
+                if not rel <= tols[k]:
+                    raise AssertionError(
+                        f"{attn}: request {uid} first-token logits "
+                        f"{k} differ by {rel:.4f} of the largest, above "
+                        f"{tols[k]}")
+        toks = {k: {q.uid: q.out_tokens for q in v["done"]}
+                for k, v in res.items()}
+        same = sum(a == b for u in toks["legacy"] for a, b in
+                   zip(toks["legacy"][u], toks["paged"][u]))
+        total = sum(map(len, toks["legacy"].values()))
+        first_same = sum(toks["legacy"][u][0] == toks["paged"][u][0]
+                         for u in toks["legacy"])
+        log(f"    first-token logits, worst share of the row's largest "
+            f"|logit|: " + ", ".join(
+                f"{k} {v:.3e} (limit {tols[k]})" for k, v in worst.items())
+            + "; "
+            f"first tokens equal {first_same}/8; generated tokens equal "
+            f"position by position {same}/{total} ({same / total:.3f})")
+        res["agreement"] = same / total
+        res["first_logit_worst"] = worst
+        out[attn] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _f32_first_logits(cfg, params, args):
+    """{uid: first-token logits (f32, host)} of each of ``args``'
+    requests through ``transformer.prefill`` (batch 1, the legacy
+    engine's call) on an f32 copy of the weights."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as model_lib
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _to_dtype(params, torch.float32)
+    out = {}
+    for r in serve.requests(args, cfg):
+        cache = model_lib.init_serve_cache(cfg32, 1, args.max_len)
+        tokens = torch.as_tensor(r.prompt[None], device="cuda")
+        logits, _ = model_lib.prefill(p32, cfg32, {"tokens": tokens}, cache)
+        out[r.uid] = logits[0, -1, :cfg.vocab].float().cpu()
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _to_dtype(tree, dtype):
+    """Float leaves cast to ``dtype`` (integer leaves, seeds, kept)."""
+    if isinstance(tree, dict):
+        return {k: _to_dtype(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_dtype(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (continued): kernel timing and the Chrome trace, through the CLI
+# ---------------------------------------------------------------------------
+
+TIMING_ARGV = ["--arch", "qwen3-4b", "--requests", "4", "--max-new", "8"]
+
+
+def _cli(argv):
+    """``launch.serve.main(argv)`` in process -> (stdout, launch counts
+    over the run); its lines are logged too."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    ops.reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    counts = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"serve {argv}: exit {rc}")
+    for line in buf.getvalue().splitlines():
+        log("    | " + line)
+    return buf.getvalue(), counts
+
+
+def _tok_s(text):
+    import re
+    return float(re.search(r"tok/s=([0-9.]+)", text).group(1))
+
+
+def _prom_dispatch(path):
+    """{kernel: {"count", "p50", "p99"}} from a metrics-out file."""
+    import re
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        m = re.match(r'kernel_dispatch_seconds(_count)?\{kernel="(\w+)"'
+                     r'(?:,quantile="([0-9.]+)")?\} (\S+)', line)
+        if not m:
+            continue
+        rec = out.setdefault(m.group(2), {})
+        if m.group(1):
+            rec["count"] = int(float(m.group(4)))
+        elif m.group(3) in ("0.5", "0.99"):
+            rec["p50" if m.group(3) == "0.5" else "p99"] = float(m.group(4))
+    return out
+
+
+# launch-counter key -> kernel_dispatch_seconds kernel name
+DISPATCH_NAMES = {"spinner": "spinner_project",
+                  "spinner_seeded": "spinner_project_seeded",
+                  "srf_decode": "srf_decode", "paged_gather": "paged_gather",
+                  "paged_gather_dequant": "paged_gather_dequant",
+                  "paged_gather_dequant_kv": "paged_gather_dequant_kv",
+                  "fwht": "fwht", "circulant_project": "circulant_project"}
+
+
+def _check_trace(path):
+    doc = json.loads(Path(path).read_text())
+    by_pid = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] in "BE":
+            by_pid.setdefault(e["pid"], []).append(e)
+    if not by_pid:
+        raise AssertionError(f"{path}: no B/E events")
+    for pid, seq in by_pid.items():
+        if any(a["ts"] > b["ts"] for a, b in zip(seq, seq[1:])):
+            raise AssertionError(f"{path}: ts not monotone in pid {pid}")
+        stack = []
+        for e in seq:
+            if e["ph"] == "B":
+                stack.append(e["name"])
+            elif not stack or stack.pop() != e["name"]:
+                raise AssertionError(f"{path}: unpaired E {e}")
+        if stack:
+            raise AssertionError(f"{path}: unclosed {stack}")
+    return sum(len(v) for v in by_pid.values())
+
+
+def phase_kernel_timing(out_dir):
+    """``launch.serve.main`` in process at full width, ``--attn srf`` and
+    then the default attention with ``--quantize-kv`` (4 requests, 8 new
+    tokens): off, with ``--kernel-timing --metrics-out F --trace-out T``,
+    off again. With timing, one kernel_dispatch_seconds series per
+    kernel the run launched, each count equal to its launch counter
+    (counts reset just before the run, read just after), and a trace of
+    paired, monotone B/E events. Then one timed dispatch each of
+    ops.fwht and ops.circulant_project at the library shapes. Returns
+    {run: {kernel: {"count", "p50", "p99"}}} and the tok/s of each run."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry, profiling
+    out = {}
+    for label, flags in (("srf", ["--attn", "srf"]),
+                         ("int8 pages", ["--quantize-kv"])):
+        prom = out_dir / f"metrics_{label.split()[0]}.prom"
+        trace = out_dir / f"trace_{label.split()[0]}.json"
+        rates = []
+        for timed in (False, True, False):
+            extra = (["--kernel-timing", "--metrics-out", str(prom),
+                      "--trace-out", str(trace)] if timed else [])
+            text, counts = _cli(TIMING_ARGV + flags + extra)
+            rates.append(_tok_s(text))
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not timed:
+                continue
+            series = _prom_dispatch(prom)
+            launched = {DISPATCH_NAMES[k]: n for k, n in counts.items()
+                        if k in DISPATCH_NAMES and n}
+            if set(series) != set(launched) or any(
+                    series[k]["count"] != n for k, n in launched.items()):
+                raise AssertionError(f"{label}: dispatch series {series} "
+                                     f"against launches {launched}")
+            events = _check_trace(trace)
+            for k, v in sorted(series.items()):
+                log(f"    {label}: {k} dispatches {v['count']} (== "
+                    f"launches), p50 {1e3 * v['p50']:.4f} ms, p99 "
+                    f"{1e3 * v['p99']:.4f} ms (synced before and after)")
+            log(f"    {label}: trace {trace.name} {events} B/E events, "
+                f"paired and monotone")
+            out[label] = {"series": series}
+        out[label]["tok_s"] = rates
+        log(f"    {label}: tok/s without timing {rates[0]:.2f}, with "
+            f"--kernel-timing {rates[1]:.2f}, without again {rates[2]:.2f}")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((8192, 1024), generator=gen, device="cuda")
+    g = torch.randn((4, 1024), generator=gen, device="cuda")
+    ops.fwht(x)
+    ops.circulant_project(g, x, 4096)
+    reg = MetricsRegistry()
+    try:
+        profiling.enable_kernel_timing(reg)
+        ops.fwht(x)
+        ops.circulant_project(g, x, 4096)
+    finally:
+        profiling.disable_kernel_timing()
+    snap = reg.snapshot()["histograms"]["kernel_dispatch_seconds"]
+    for k in ("fwht", "circulant_project"):
+        v = snap[f'kernel="{k}"']
+        log(f"    one timed dispatch: {k} {1e3 * v['sum']:.4f} ms at the "
+            f"library shape (host clock, synced before and after)")
+        out[f"library {k}"] = 1e3 * v["sum"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train
 # ---------------------------------------------------------------------------
 
@@ -1781,7 +2216,7 @@ def _leaves(tree):
 
 def _record(name, source, replaces, launches, rec, shape):
     extra = {k: v for k, v in rec.items() if k.startswith((
-        "one_pool_", "two_single_", "train_"))}
+        "one_pool_", "two_single_", "train_", "dispatch_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -1835,6 +2270,13 @@ def main() -> int:
     seeded_srf = phase_serve_seeded()
     gc.collect()
     torch.cuda.empty_cache()
+    phase_reduced_legacy()
+    phase_serve_legacy()
+    out_dir = ROOT / "chiprun_out" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    timing = phase_kernel_timing(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("phase 5: train")
     train = phase_train_full()
@@ -1865,17 +2307,31 @@ def main() -> int:
                 "ms", "plain_ms", "bwd_ms", "bound_ms", "bound_by")})
             out[f"train_{tag}_max_abs_err"] = rec["err"]
         return out
+    def dispatch(run, name):
+        """kernel_dispatch_seconds of the timed serve run (ms; synced
+        before and after each dispatch) or the one timed library call."""
+        if run.startswith("library"):
+            return {"dispatch_ms": timing[f"library {name}"],
+                    "dispatch_of": "one timed call at the shape above"}
+        v = timing[run]["series"][name]
+        return {"dispatch_p50_ms": 1e3 * v["p50"],
+                "dispatch_p99_ms": 1e3 * v["p99"],
+                "dispatch_count": v["count"],
+                "dispatch_of": f"serve --kernel-timing, {run}, 4 requests "
+                               f"x 8 new tokens"}
     kernels = [
         _record("spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:111", srf["spinner"],
                 {**spin[("decode query", torch.bfloat16)],
                  **train_extra("spinner", train["srf"]["counts"], "spinner",
                                f"full-width SRF training, {TRAIN_STEPS} "
-                               f"steps")},
+                               f"steps"),
+                 **dispatch("srf", "spinner_project")},
                 "decode query: G=8, B=32, n=128, m=256, bf16, identity"),
         _record("srf_decode", src + "srf_decode.cu",
                 "src/repro/kernels/srf_decode.py:26", srf["srf_decode"],
-                dec, "B=8, H=32, m=256, dv=128, f32"),
+                {**dec, **dispatch("srf", "srf_decode")},
+                "B=8, H=32, m=256, dv=128, f32"),
         _record("paged_gather", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:28",
                 kv["bf16 pages"]["paged_gather"],
@@ -1883,7 +2339,8 @@ def main() -> int:
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
                 kv["int8 pages"]["paged_gather_dequant_kv"],
-                gather["decode"]["paged_gather_dequant"],
+                {**gather["decode"]["paged_gather_dequant"],
+                 **dispatch("int8 pages", "paged_gather_dequant_kv")},
                 decode + ", int8 -> bf16, a layer's K and V in one launch "
                 "(paged_gather_dequant_kv, as the int8 serve run launches "
                 "it); plain_ms: two plain calls; one_pool_*: the "
@@ -1899,11 +2356,12 @@ def main() -> int:
                 "decode query: G=64 (8 kv heads x 8 requests), B=4, n=128, "
                 "m=256, bf16, identity"),
         _record("fwht", src + "fwht.cu", "src/repro/kernels/fwht.py:25",
-                fwht["launches"], fwht,
+                fwht["launches"], {**fwht, **dispatch("library", "fwht")},
                 "B=8192, n=1024, f32, normalized; launches: phase_fwht's "
                 "public-op run, (8192, 1024) and (4096, 16384) x f32, bf16"),
         _record("circulant_project", src + "circulant.cu",
-                "src/repro/kernels/circulant.py:46", circ["launches"], circ,
+                "src/repro/kernels/circulant.py:46", circ["launches"],
+                {**circ, **dispatch("library", "circulant_project")},
                 "g (4, 1024), x (8192, 1024), m=4096, f32, identity; "
                 "launches: phase_circulant's public-op run, 5 epilogues x "
                 "f32, bf16")]

@@ -33,6 +33,15 @@ returning a result with no ``grad_fn``. Under ``torch.no_grad()`` the
 kernels run; the plain versions, on the CPU and on the card, stay
 differentiable.
 
+Every dispatcher runs its kernel or plain version through
+``obs.profiling.dispatch`` under the reference's kernel name
+(``spinner_project``, ``spinner_project_seeded``, ``srf_decode``,
+``paged_gather``, ``paged_gather_dequant``, ``fwht``,
+``circulant_project``; the port's own ``paged_gather_dequant_kv`` under
+that name): with ``--kernel-timing`` each dispatch is timed into
+``kernel_dispatch_seconds{kernel=...}``; otherwise the wrapper only
+calls it. The grad refusals run before it, outside the timed region.
+
 There is no interpret route and no block-size plan cache: block sizes
 are the kernels' own. Launch counts live on the kernel wrappers
 (``spinner.spinner_project_cuda.launches``,
@@ -52,6 +61,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core import transforms
+from repro_torch.obs import profiling as _prof
 
 from . import circulant as _circ
 from . import fwht as _fwht
@@ -116,11 +126,12 @@ def fwht(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
     rows = x.reshape(-1, n)
     if x.is_cuda and n <= _fwht.MAX_N:
         _no_grad_needed("fwht", x)
-        y = _fwht.fwht_cuda(rows.contiguous(), normalized)
+        y = _prof.dispatch("fwht", lambda: _fwht.fwht_cuda(
+            rows.contiguous(), normalized))
     else:
         if x.is_cuda:
             fwht.plain_calls += 1
-        y = _ref.fwht_ref(rows, normalized)
+        y = _prof.dispatch("fwht", lambda: _ref.fwht_ref(rows, normalized))
     return y.reshape(x.shape)
 
 
@@ -141,17 +152,22 @@ def circulant_project(g: torch.Tensor, x: torch.Tensor, m: int,
         raise ValueError(f"generators cover {nb * n} rows < m={m}")
     if x.is_cuda:
         _no_grad_needed("circulant_project", g, x, sq)
-        return _circ.circulant_project_cuda(g.contiguous(), x.contiguous(),
-                                            m, epilogue, sq)
-    return _ref.circulant_project_ref(g, x, m, epilogue, sq)
+        return _prof.dispatch(
+            "circulant_project", lambda: _circ.circulant_project_cuda(
+                g.contiguous(), x.contiguous(), m, epilogue, sq))
+    return _prof.dispatch("circulant_project",
+                          lambda: _ref.circulant_project_ref(
+                              g, x, m, epilogue, sq))
 
 
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """pool (N, P, D), tables (R, M) -> (R, M*P, D) contiguous history."""
     if pool.is_cuda:
         _no_grad_needed("paged_gather", pool)
-        return _pg.paged_gather_cuda(pool, tables)
-    return _ref.paged_gather_ref(pool, tables)
+        return _prof.dispatch("paged_gather",
+                              lambda: _pg.paged_gather_cuda(pool, tables))
+    return _prof.dispatch("paged_gather",
+                          lambda: _ref.paged_gather_ref(pool, tables))
 
 
 def paged_gather_dequant(pool: torch.Tensor, scales: torch.Tensor,
@@ -161,8 +177,12 @@ def paged_gather_dequant(pool: torch.Tensor, scales: torch.Tensor,
     (R, M*P, D) dequantized history in ``out_dtype``."""
     if pool.is_cuda:
         _no_grad_needed("paged_gather_dequant", pool, scales)
-        return _pg.paged_gather_dequant_cuda(pool, scales, tables, out_dtype)
-    return _ref.paged_gather_dequant_ref(pool, scales, tables, out_dtype)
+        return _prof.dispatch(
+            "paged_gather_dequant", lambda: _pg.paged_gather_dequant_cuda(
+                pool, scales, tables, out_dtype))
+    return _prof.dispatch("paged_gather_dequant",
+                          lambda: _ref.paged_gather_dequant_ref(
+                              pool, scales, tables, out_dtype))
 
 
 def paged_gather_dequant_kv(k_pool: torch.Tensor, k_scales: torch.Tensor,
@@ -174,12 +194,13 @@ def paged_gather_dequant_kv(k_pool: torch.Tensor, k_scales: torch.Tensor,
     if k_pool.is_cuda:
         _no_grad_needed("paged_gather_dequant_kv", k_pool, k_scales, v_pool,
                         v_scales)
-        return _pg.paged_gather_dequant_kv_cuda(k_pool, k_scales, v_pool,
-                                                v_scales, tables, out_dtype)
-    return (_ref.paged_gather_dequant_ref(k_pool, k_scales, tables,
-                                          out_dtype),
-            _ref.paged_gather_dequant_ref(v_pool, v_scales, tables,
-                                          out_dtype))
+        return _prof.dispatch(
+            "paged_gather_dequant_kv",
+            lambda: _pg.paged_gather_dequant_kv_cuda(
+                k_pool, k_scales, v_pool, v_scales, tables, out_dtype))
+    return _prof.dispatch("paged_gather_dequant_kv", lambda: (
+        _ref.paged_gather_dequant_ref(k_pool, k_scales, tables, out_dtype),
+        _ref.paged_gather_dequant_ref(v_pool, v_scales, tables, out_dtype)))
 
 
 def srf_decode(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,
@@ -190,8 +211,10 @@ def srf_decode(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,
     callers pass state they own and use the returned tensors."""
     if s.is_cuda:
         _no_grad_needed("srf_decode", s, z, phi_q, phi_k, v)
-        return _dec.srf_decode_cuda(s, z, phi_q, phi_k, v, eps)
-    return _ref.srf_decode_ref(s, z, phi_q, phi_k, v, eps)
+        return _prof.dispatch("srf_decode", lambda: _dec.srf_decode_cuda(
+            s, z, phi_q, phi_k, v, eps))
+    return _prof.dispatch("srf_decode", lambda: _ref.srf_decode_ref(
+        s, z, phi_q, phi_k, v, eps))
 
 
 def kernel_takes(kind: str, n: int, m: int, use_hd: bool) -> bool:
@@ -225,14 +248,16 @@ def spinner_project(kind: str, params: Dict[str, torch.Tensor],
         d0 = None if d0 is None else d0[None]
         d1 = None if d1 is None else d1[None]
     if x.is_cuda and kernel_takes(kind, n, m, d0 is not None):
-        y = _SpinnerKernel.apply(g, xf, d0, d1, kind, m, epilogue, y_scale,
-                                 out_scale)
+        y = _prof.dispatch("spinner_project", lambda: _SpinnerKernel.apply(
+            g, xf, d0, d1, kind, m, epilogue, y_scale, out_scale))
     else:
         if x.is_cuda:
             spinner_project.plain_calls += 1
-        y = _ref.spinner_project_ref(kind, g, xf, m, d0=d0, d1=d1, h=h,
-                                     epilogue=epilogue, y_scale=y_scale,
-                                     out_scale=out_scale)
+        y = _prof.dispatch("spinner_project",
+                           lambda: _ref.spinner_project_ref(
+                               kind, g, xf, m, d0=d0, d1=d1, h=h,
+                               epilogue=epilogue, y_scale=y_scale,
+                               out_scale=out_scale))
     return y.reshape(x.shape[:-1] + y.shape[-1:])
 
 
@@ -307,14 +332,18 @@ def spinner_project_seeded(kind: str, seeds: Union[int, torch.Tensor],
     sd = torch.as_tensor(seeds, dtype=torch.int64,
                          device=x.device).reshape(xf.shape[0])
     if x.is_cuda and kernel_takes(kind, n, m, use_hd):
-        y = _SeededSpinnerKernel.apply(sd, xf, kind, m, r, ldr_nnz, use_hd,
-                                       epilogue, y_scale, out_scale)
+        y = _prof.dispatch(
+            "spinner_project_seeded", lambda: _SeededSpinnerKernel.apply(
+                sd, xf, kind, m, r, ldr_nnz, use_hd, epilogue, y_scale,
+                out_scale))
     else:
         if x.is_cuda:
             spinner_project_seeded.plain_calls += 1
-        y = _ref.spinner_project_seeded_ref(
-            kind, sd, xf, m, r=r, ldr_nnz=ldr_nnz, use_hd=use_hd,
-            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        y = _prof.dispatch(
+            "spinner_project_seeded",
+            lambda: _ref.spinner_project_seeded_ref(
+                kind, sd, xf, m, r=r, ldr_nnz=ldr_nnz, use_hd=use_hd,
+                epilogue=epilogue, y_scale=y_scale, out_scale=out_scale))
     return y.reshape(x.shape[:-1] + y.shape[-1:])
 
 

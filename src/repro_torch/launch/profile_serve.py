@@ -72,6 +72,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="seeded SRF projections; the second half of the "
                          "requests get distinct embed seeds")
     args = ap.parse_args(argv)
+    if args.legacy or args.kernel_timing or args.metrics or \
+            args.metrics_out or args.trace_out:
+        ap.error("profile_serve profiles the paged engine untimed under "
+                 "torch.profiler: --legacy, --kernel-timing, --metrics, "
+                 "--metrics-out and --trace-out are the serve CLI's")
     if not torch.cuda.is_available() or args.device != "cuda":
         print("profile_serve: needs a CUDA device (--device cuda)",
               file=sys.stderr)

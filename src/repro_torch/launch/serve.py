@@ -1,4 +1,5 @@
-"""Serving launcher for the port: the paged engine.
+"""Serving launcher for the port: the paged engine, or the legacy
+per-slot engine (``--legacy``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         [--attn full|srf] [--quantize-kv] [--prefix-cache \
@@ -6,7 +7,9 @@
         [--requests 16 --slots 8 --prompt-len 16 --max-new 24 \
         --max-len 128 --seed 0] [--temperature 0 --top-k 0 --top-p 1] \
         [--policy fcfs|priority] [--deadline S] \
-        [--quality-every 64 --quality-tol 0.5] [--reduced] [--device cuda]
+        [--quality-every 64 --quality-tol 0.5] [--legacy] \
+        [--metrics --metrics-every 2 --metrics-out FILE] \
+        [--kernel-timing] [--trace-out FILE] [--reduced] [--device cuda]
 
 Full width is the default: ``--reduced`` opts into the tiny same-family
 config of ``configs.registry.reduced``. Without ``--attn`` the config's
@@ -21,10 +24,30 @@ request's drawn from 0-2 (after the prompts, from the same generator);
 ``--deadline S`` gives every request an S-second deadline, and a request
 still waiting past it finishes as ``timeout``. An SRF engine publishes
 the live quality probe (``srf_quality`` gauge) every ``--quality-every``
-decode steps, the first decode step included. The flags are the
-reference CLI's (``repro.launch.serve``) for what the port serves, plus
-``--device``. All output goes through ``obs.report.Reporter``: this
-module and ``serving/`` print nothing themselves.
+decode steps, the first decode step included.
+
+``--legacy`` serves through the per-slot lock-step engine
+(``serving/legacy.py``, the paged engine's test oracle) instead: one
+batch-1 prefill per request, then one batch-1 decode call per active
+slot and token; it records no spans and no periodic metrics, and takes
+the same ``--seed`` for its sampling keys.
+
+Telemetry: the engine records into one ``obs.MetricsRegistry``.
+``--metrics`` prints a one-line report every ``--metrics-every``
+seconds of engine stepping and a final latency-percentile dump;
+``--metrics-out FILE`` writes the Prometheus text exposition there (and
+the event stream to ``FILE.events.jsonl``) with the final dump.
+``--kernel-timing`` times every kernel dispatch into
+``kernel_dispatch_seconds{kernel=...}``, synced before and after (it
+serializes the card's queue; ``serving/README.md``). ``--trace-out
+FILE`` records the engine's span timeline and writes it as Chrome-trace
+JSON (Perfetto, chrome://tracing).
+
+The flags are the reference CLI's (``repro.launch.serve``) for what the
+port serves, plus ``--device``; the mesh and fault-tolerance flags
+(``--replicas``, ``--model-parallel``, ``--ft``, ``--chaos``) are not
+ported. All output goes through ``obs.report.Reporter``: this module
+and ``serving/`` print nothing themselves.
 """
 from __future__ import annotations
 
@@ -37,9 +60,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import registry
 from repro_torch.models import transformer as model_lib
+from repro_torch.obs import export as trace_export
 from repro_torch.obs import quality as quality_lib
+from repro_torch.obs import spans as spans_lib
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.report import Reporter
 from repro_torch.serving import Engine, PagedConfig, Request
@@ -86,6 +112,22 @@ def parser() -> argparse.ArgumentParser:
                     default=quality_lib.DRIFT_TOL,
                     help="row-moment drift tolerance; exceeding it "
                          "emits a quality_drift registry event")
+    ap.add_argument("--legacy", action="store_true",
+                    help="old per-slot engine (baseline, test oracle)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="periodic one-line metrics report + final "
+                         "latency-percentile dump from the registry")
+    ap.add_argument("--metrics-every", type=float, default=2.0,
+                    help="seconds between periodic metrics lines")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write Prometheus text exposition here "
+                         "(+ .events.jsonl) at exit")
+    ap.add_argument("--kernel-timing", action="store_true",
+                    help="record per-dispatch kernel wall times (a sync "
+                         "before and after every dispatch)")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="record the engine's span timeline and write it "
+                         "as Chrome-trace JSON here at exit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -133,20 +175,37 @@ def prefix_config(args) -> Optional[PrefixConfig]:
                         chunk=ChunkConfig(chunk_tokens=args.chunk_tokens))
 
 
-def engine(args, cfg, params) -> Engine:
+def engine(args, cfg, params, metrics=None, spans=None):
+    """The paged engine the arguments ask for (recording into
+    ``metrics`` and ``spans`` when given), or with ``args.legacy`` the
+    legacy per-slot engine (which records neither)."""
+    if args.legacy:
+        from repro_torch.serving import legacy
+        return legacy.Engine(cfg, params, batch_slots=args.slots,
+                             max_len=args.max_len, seed=args.seed,
+                             device=args.device)
     return Engine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
                   policy=args.policy, seed=args.seed, device=args.device,
                   paged=PagedConfig(quantize_kv=args.quantize_kv),
                   prefix=prefix_config(args),
                   quality_every=args.quality_every,
-                  quality_tol=args.quality_tol)
+                  quality_tol=args.quality_tol, metrics=metrics,
+                  spans=spans)
 
 
-def serve(args, cfg=None, params=None, eng: Optional[Engine] = None,
-          reqs: Optional[List[Request]] = None) -> Dict:
+def _ttft(r: Request) -> Optional[float]:
+    """Submit to first token (the legacy engine keeps no trace)."""
+    if r.trace is not None:
+        return r.trace.ttft
+    return r.t_first - r.t_submit if r.t_first else None
+
+
+def serve(args, cfg=None, params=None, eng=None,
+          reqs: Optional[List[Request]] = None, on_step=None) -> Dict:
     """Serve ``reqs`` (by default ``requests(args, cfg)``) on ``eng`` if
-    given, else on a new engine; returns the finished requests, the
-    engine and the measured wall time, tokens/s and TTFT."""
+    given, else on a new engine (``engine``); returns the finished
+    requests, the engine and the measured wall time, tokens/s and TTFT.
+    ``on_step`` goes to the paged engine's ``run``."""
     if eng is None:
         if cfg is None:
             cfg, params = build(args)
@@ -157,13 +216,13 @@ def serve(args, cfg=None, params=None, eng: Optional[Engine] = None,
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
-    done = eng.run()
+    done = eng.run() if on_step is None else eng.run(on_step=on_step)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     wall = time.perf_counter() - t0
     tokens = sum(len(r.out_tokens) for r in done)
-    ttft = obs_trace.percentiles([r.trace.ttft for r in done
-                                  if r.trace.ttft is not None], (50, 95))
+    ttft = obs_trace.percentiles([t for t in map(_ttft, done)
+                                  if t is not None], (50, 95))
     return {"cfg": cfg, "engine": eng, "done": done, "wall_s": wall,
             "tokens": tokens, "tok_s": tokens / wall, "ttft_s": ttft}
 
@@ -180,25 +239,54 @@ def warm(args, cfg, params) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     args = parser().parse_args(argv)
     rep = Reporter()
-    res = serve(args)
-    eng = res["engine"]
-    rep.line(f"arch={args.arch} attn={res['cfg'].attn_impl} "
+    metrics = obs.MetricsRegistry()
+    tracing = args.trace_out is not None and not args.legacy
+    recorders = [spans_lib.SpanRecorder(replica=0)] if tracing else []
+    if args.kernel_timing:
+        obs.enable_kernel_timing(metrics)
+    try:
+        cfg, params = build(args)
+        eng = engine(args, cfg, params, metrics=metrics,
+                     spans=recorders[0] if tracing else None)
+        on_step = (rep.periodic(metrics, every_s=args.metrics_every)
+                   if args.metrics and not args.legacy else None)
+        res = serve(args, eng=eng, on_step=on_step)
+    finally:
+        if args.kernel_timing:
+            obs.disable_kernel_timing()
+    done = res["done"]
+    rep.line(f"arch={args.arch} attn={cfg.attn_impl} "
+             f"engine={'legacy' if args.legacy else 'paged'} "
              f"reduced={args.reduced} device={eng.device} "
-             f"requests={len(res['done'])} tokens={res['tokens']} "
+             f"requests={len(done)} tokens={res['tokens']} "
              f"wall={res['wall_s']:.3f}s tok/s={res['tok_s']:.1f} "
              f"ttft_p50={res['ttft_s']['p50']:.4f}s")
-    rep.line(f"  sched: {dict(eng.sched.stats)}  "
-             f"report: {eng.cache_report()}")
-    if eng.prefix is not None:
-        v = eng.metrics.value_sum
-        rep.line(f"  prefix: hits={int(v('prefix_hits_total'))} "
-                 f"hit_tokens={int(v('prefix_hit_tokens_total'))} "
-                 f"cow_forks={int(v('prefix_cow_forks_total'))} "
-                 f"evictions={int(v('prefix_evictions_total'))} "
-                 f"cache_bytes={int(v('prefix_cache_bytes'))}")
-    for r in res["done"][:3]:
-        rep.line(f"  req{r.uid}: finish={r.finish_reason} "
+    if not args.legacy:
+        rep.line(f"  sched: {dict(eng.sched.stats)}  "
+                 f"report: {eng.cache_report()}")
+        if eng.prefix is not None:
+            v = metrics.value_sum
+            rep.line(f"  prefix: hits={int(v('prefix_hits_total'))} "
+                     f"hit_tokens={int(v('prefix_hit_tokens_total'))} "
+                     f"cow_forks={int(v('prefix_cow_forks_total'))} "
+                     f"evictions={int(v('prefix_evictions_total'))} "
+                     f"cache_bytes={int(v('prefix_cache_bytes'))}")
+    for r in done[:3]:
+        rep.line(f"  req{r.uid}: finish={r.finish_reason or 'done'} "
                  f"out={r.out_tokens[:8]}...")
+    if args.metrics or args.metrics_out:
+        rep.final(metrics, done, dump_path=args.metrics_out)
+    if tracing:
+        n = trace_export.dump_chrome_trace(args.trace_out, recorders)
+        spans = sum(len(r) for r in recorders)
+        dropped = sum(r.dropped for r in recorders)
+        rep.line(f"[trace] {args.trace_out}: {n} events from {spans} "
+                 f"spans across {len(recorders)} timelines"
+                 + (f" ({dropped} dropped)" if dropped else ""))
+    if args.kernel_timing and not metrics.snapshot()["histograms"].get(
+            "kernel_dispatch_seconds"):
+        rep.line("[metrics] kernel-timing: no kernel dispatches recorded "
+                 "(this run's path called none of kernels/ops.py)")
     return 0
 
 

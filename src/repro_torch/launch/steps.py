@@ -1,7 +1,14 @@
-"""Training step factories: port of the training half of
-``repro.launch.steps`` (``TrainHyper``, ``make_train_step``,
-``make_grad_step``). Each step is one eager function: forward and loss,
-``torch.autograd.grad`` over the float params, the schedule, AdamW."""
+"""Step factories: port of ``repro.launch.steps`` but the paged, encode
+and mesh factories (``TrainHyper``, ``make_train_step``,
+``make_grad_step``, ``make_prefill_step``, ``make_serve_step``). Each
+step is one eager function. A training step: forward and loss,
+``torch.autograd.grad`` over the float params, the schedule, AdamW. The
+serve steps drive the legacy engine's per-slot cache.
+
+The reference's ``_prewarm_srf_spinner`` has no counterpart: it pins
+the Pallas spinner's block-size plan at factory time, and the port's
+CUDA kernels have no plan cache (their block sizes are their own) and
+build at their first launch."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -62,3 +69,21 @@ def make_train_step(cfg, hyper: TrainHyper = TrainHyper()):
         return params, opt_state, {"loss": metrics["loss"], "lr": lr,
                                    **metrics, **stats}
     return train_step
+
+
+def make_prefill_step(cfg):
+    """(params, batch, cache) -> (logits of the last position (B, 1,
+    V_padded), cache): ``transformer.prefill``."""
+    def prefill_step(params, batch, cache):
+        return model.prefill(params, cfg, batch, cache)
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """One decode step: (params, cache, tokens (B, 1)) -> (greedy next
+    tokens (B, 1), logits (B, vocab) of the new position, cache)."""
+    def serve_step(params, cache, tokens):
+        logits, cache = model.decode_step(params, cfg, cache, tokens)
+        logits = logits[:, -1, : cfg.vocab]
+        return torch.argmax(logits, dim=-1)[:, None], logits, cache
+    return serve_step

@@ -1,8 +1,10 @@
 """GQA attention: the paged serving engine's step (full-KV pages or the
-paper's SRF state) and the training forward.
+paper's SRF state), the training forward, and the per-request cache of
+the legacy engine (prefill and decode).
 
-Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init`` and
-``attention`` in modes ``"paged"`` and ``"train"``.
+Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init``,
+``init_cache``, ``_quantize_kv``, ``_dequantize_kv`` and ``attention``
+in modes ``"paged"``, ``"train"``, ``"prefill"`` and ``"decode"``.
 
 * ``attn_impl="full"`` (the configs' default): the chunk's k/v rows are
   scattered into the request's KV pages (bf16/f32, or int8 with one f32
@@ -22,13 +24,31 @@ Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init`` and
   kernels under autograd, ``kernels.ops``) feed
   ``srf_attention.attention_causal``.
 
-Not ported yet (they raise NotImplementedError): MLA, cross attention,
-M-RoPE, mesh tensor parallelism (``tp_axis``) and the encoder, prefill
-and decode modes of the non-paged cache.
+* Prefill and decode (``init_cache``): one contiguous cache a request
+  batch. Full KV: {"k", "v": (B, Hkv, S, hd)} in the params' dtype, or
+  int8 with one f32 scale per token and head ({"k_scale", "v_scale":
+  (B, Hkv, S, 1)}) when ``cfg.kv_cache_dtype == "int8"``; prefill
+  attends causally over the prompt and writes the cache from position
+  0, decode writes one row at ``idx``, dequantizes the whole cache and
+  attends over ``arange(S) <= idx``. SRF: {"s": (B, Hq, m, dv), "z":
+  (B, Hq, m)} in the params' dtype; prefill runs
+  ``srf_attention.attention_causal`` and stores ``prefill_state`` cast
+  to v's dtype, decode runs ``srf_attention.decode_step`` in the
+  state's own dtype (the reference's rounding, not ``_paged_srf``'s f32
+  update). Plain PyTorch ops but the SRF feature maps (the spinner
+  kernels), as the reference's are jnp ops.
 
-Unlike the reference, which returns new pools, both paged paths write
-into the pool IN PLACE (the pool is the engine's preallocated buffer;
-nothing else holds a view of those rows).
+Not ported yet (they raise NotImplementedError): MLA, cross attention,
+M-RoPE, mesh tensor parallelism (``tp_axis``) and the encoder mode.
+
+Unlike the reference, which returns new pools and caches, every cached
+path writes IN PLACE and ``attention`` returns the output alone: the
+paged paths into the engine's preallocated pools (nothing else holds a
+view of those rows), prefill and decode into the buffers of
+``init_cache``. The cache's position ``cache["idx"]`` is a host int,
+advanced in the dict (prefill sets it to the prompt length, decode adds
+one), so a decode step builds its mask and write offset without a host
+sync; the reference keeps it as a 0-d int32 array.
 """
 from __future__ import annotations
 
@@ -45,7 +65,7 @@ from repro_torch.kernels import ops as kops
 
 from . import layers
 
-NOT_IN_SLICE = ("not ported yet: the PyTorch port serves the dense "
+NOT_IN_SLICE = ("not ported yet: the PyTorch port runs the dense "
                 "full-KV and SRF families only (ROADMAP.md, 'Port state')")
 
 
@@ -92,6 +112,42 @@ def attn_init(gen: torch.Generator, cfg, dtype, device=None,
     return p
 
 
+def init_cache(cfg, batch: int, max_len: int, dtype, device=None,
+               lead=()) -> Dict:
+    """The prefill / decode cache of ``batch`` requests (module
+    docstring), zero-filled on ``device``; ``lead`` stacks a leading
+    layer axis on every buffer. ``idx`` (a host int) starts at 0."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((*lead, *shape), dtype=dt, device=device)
+    if cfg.attn_impl == "srf":
+        m = srf_cfg(cfg).feat_dim
+        return {"s": zeros(batch, cfg.n_heads, m, cfg.head_dim),
+                "z": zeros(batch, cfg.n_heads, m), "idx": 0}
+    if cfg.is_mla:
+        raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
+    shp = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": zeros(*shp, dt=torch.int8),
+                "v": zeros(*shp, dt=torch.int8),
+                "k_scale": zeros(*shp[:-1], 1, dt=torch.float32),
+                "v_scale": zeros(*shp[:-1], 1, dt=torch.float32), "idx": 0}
+    return {"k": zeros(*shp), "v": zeros(*shp), "idx": 0}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, L, hd) -> (int8 values, (B, H, L, 1) f32 scales): one scale
+    per token and head, max|x| / 127 floored at 1e-8, values rounded half
+    to even and clipped to +-127."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * s).to(dtype)
+
+
 def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
     b, l, _ = x.shape
     return x.reshape(b, l, n_heads, hd).transpose(1, 2)
@@ -128,28 +184,32 @@ def _attn_block(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _softmax_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, causal: bool,
+                  kv_valid: Optional[torch.Tensor] = None,
                   q_chunk: int = ATTN_Q_CHUNK) -> torch.Tensor:
     """q: (B, Hq, L, hd), k, v: (B, Hkv, S, hd) -> (B, Hq, L, dv); GQA by
-    head grouping. A query axis longer than ``q_chunk`` (and a multiple
-    of it) runs in chunks, each recomputed in the backward
-    (``torch.utils.checkpoint``), so one (qc, S) probability block is the
-    only live attention buffer."""
+    head grouping. ``kv_valid`` (S,) bool masks cache columns out (with
+    the causal mask, where both are asked). A query axis longer than
+    ``q_chunk`` (and a multiple of it) runs in chunks, each recomputed in
+    the backward (``torch.utils.checkpoint``), so one (qc, S) probability
+    block is the only live attention buffer."""
     b, hq, l, hd = q.shape
     hkv, s, dv = k.shape[1], k.shape[2], v.shape[-1]
     qg = q.reshape(b, hkv, hq // hkv, l, hd)
     cols = torch.arange(s, device=q.device)[None, :]
+    base = None if kv_valid is None else kv_valid[None, :]     # (1, S)
+
+    def mask_of(rows):
+        if not causal:
+            return base
+        tri = rows + (s - l) >= cols
+        return tri if base is None else tri & base
     if l <= q_chunk or l % q_chunk:
-        mask = None
-        if causal:
-            mask = torch.arange(l, device=q.device)[:, None] + (s - l) >= cols
+        mask = mask_of(torch.arange(l, device=q.device)[:, None])
         out = _attn_block(qg, k, v, scale, mask)
         return out.reshape(b, hq, l, dv).to(q.dtype)
     outs = []
     for off in range(0, l, q_chunk):
-        mask = None
-        if causal:
-            rows = off + torch.arange(q_chunk, device=q.device)[:, None]
-            mask = rows + (s - l) >= cols
+        mask = mask_of(off + torch.arange(q_chunk, device=q.device)[:, None])
         outs.append(checkpoint(_attn_block, qg[:, :, :, off:off + q_chunk],
                                k, v, scale, mask, use_reentrant=False))
     return torch.cat(outs, dim=3).reshape(b, hq, l, dv).to(q.dtype)
@@ -306,6 +366,61 @@ def _paged_srf(pool: Dict[str, torch.Tensor], slots: torch.Tensor,
     return out.to(phi_q.dtype)
 
 
+def _write_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, start: int) -> None:
+    """Write k, v (B, Hkv, L, hd) into the cache at rows start.. (in
+    place; quantized first for an int8 cache). Like the reference's
+    ``dynamic_update_slice``, a start past the end is clamped so the L
+    rows fit."""
+    start = min(max(start, 0), cache["k"].shape[2] - k.shape[2])
+    rows = slice(start, start + k.shape[2])
+    for name, t in (("k", k), ("v", v)):
+        if f"{name}_scale" in cache:
+            t, sc = _quantize_kv(t)
+            cache[f"{name}_scale"][:, :, rows] = sc
+        cache[name][:, :, rows] = t.to(cache[name].dtype)
+
+
+def _full_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, mode: str, cache: Dict) -> torch.Tensor:
+    """Full-KV prefill (causal over the prompt, the cache written from
+    row 0) or decode (one row written at ``idx``, attention over rows
+    0..idx of the whole, dequantized cache)."""
+    if mode == "prefill":
+        _write_rows(cache, k, v, 0)
+        cache["idx"] = k.shape[2]
+        return _softmax_attn(q, k, v, scale, causal=True)
+    idx = cache["idx"]
+    _write_rows(cache, k, v, idx)
+    cache["idx"] = idx + 1
+    if "k_scale" in cache:
+        kf = _dequantize_kv(cache["k"], cache["k_scale"], q.dtype)
+        vf = _dequantize_kv(cache["v"], cache["v_scale"], q.dtype)
+    else:
+        kf, vf = cache["k"], cache["v"]
+    valid = torch.arange(kf.shape[2], device=q.device) <= idx
+    return _softmax_attn(q, kf, vf, scale, causal=False, kv_valid=valid)
+
+
+def _srf_cached(sc: SRFConfig, phi_q: torch.Tensor, phi_k: torch.Tensor,
+                v: torch.Tensor, mode: str, cache: Dict) -> torch.Tensor:
+    """SRF prefill (causal linear attention over the prompt; the state
+    ``prefill_state`` cast to v's dtype) or decode (``decode_step`` on
+    the state in its own dtype); the state is written in place."""
+    if mode == "prefill":
+        out = srf.attention_causal(sc, phi_q, phi_k, v)
+        s, z = srf.prefill_state(phi_k, v)
+        cache["s"].copy_(s.to(v.dtype))
+        cache["z"].copy_(z.to(v.dtype))
+        cache["idx"] = phi_k.shape[2]
+        return out
+    (s, z), out = srf.decode_step((cache["s"], cache["z"]), phi_q, phi_k, v)
+    cache["s"].copy_(s)
+    cache["z"].copy_(z)
+    cache["idx"] += 1
+    return out
+
+
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
               cache: Optional[Dict] = None) -> torch.Tensor:
     """GQA attention: (B, L, d) -> (B, L, d).
@@ -313,10 +428,15 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     ``mode="paged"``: one serving step; ``cache["pool"]`` is the layer's
     KV page pool (full) or slot pool (srf), updated in place.
     ``mode="train"``: causal attention over the whole sequence, no cache
-    (full softmax, or SRF's causal linear attention)."""
-    if mode not in ("paged", "train"):
+    (full softmax, or SRF's causal linear attention).
+    ``mode="prefill"`` / ``"decode"``: the prompt, or one new token, of
+    every request of a batch against ``cache`` (``init_cache``), which
+    is written in place and its ``idx`` advanced."""
+    if mode not in ("paged", "train", "prefill", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is "
                                   f"{NOT_IN_SLICE}")
+    if mode != "train" and cache is None:
+        raise ValueError(f"attention mode {mode!r} needs a cache")
     if cfg.is_mla:
         raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
     if cache is not None and cache.get("tp_axis"):
@@ -338,11 +458,13 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     if cfg.attn_impl != "srf":
+        scale = 1.0 / math.sqrt(cfg.head_dim)
         if mode == "train":
-            out = _softmax_attn(q, k, v, 1.0 / math.sqrt(cfg.head_dim),
-                                causal=True)
-        else:
+            out = _softmax_attn(q, k, v, scale, causal=True)
+        elif mode == "paged":
             out = _paged_full(cfg, q, k, v, positions, cache)
+        else:
+            out = _full_cached(q, k, v, scale, mode, cache)
         return _merge_heads(out) @ p["wo"]
 
     sc = srf_cfg(cfg)
@@ -358,9 +480,12 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
         phi_k = srf.feature_map_folded(sc, folded, k, is_query=False)
     phi_q = phi_q.reshape(b, hq, l, -1)
     phi_k = _repeat_kv(phi_k, g)
+    vr = _repeat_kv(v, g)
     if mode == "train":
-        out = srf.attention_causal(sc, phi_q, phi_k, _repeat_kv(v, g))
+        out = srf.attention_causal(sc, phi_q, phi_k, vr)
+    elif mode == "paged":
+        out = _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k, vr,
+                         cache["q_valid"])
     else:
-        out = _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k,
-                         _repeat_kv(v, g), cache["q_valid"])
+        out = _srf_cached(sc, phi_q, phi_k, vr, mode, cache)
     return _merge_heads(out) @ p["wo"]

@@ -1,11 +1,13 @@
-"""Dense decoder LM: the paged serving step and the training forward
-(full-KV or SRF attention).
+"""Dense decoder LM: the paged serving step, the legacy engine's prefill
+and decode, and the training forward (full-KV or SRF attention).
 
 Port of ``repro.models.transformer`` for the dense family: ``init``,
-``paged_step``, ``_paged_layer`` and ``_logits`` for serving, and
-``layer_apply``, ``run_segment`` (mode ``"train"``), ``embed_inputs``,
-``forward`` and ``loss_fn`` for training, as functions over a param
-dict. The param tree has the reference's layout,
+``paged_step``, ``_paged_layer`` and ``_logits`` for the paged engine,
+``init_serve_cache``, ``prefill``, ``decode_step`` and ``run_segment``
+in modes ``"prefill"`` and ``"decode"`` for the legacy per-slot engine,
+and ``layer_apply``, ``run_segment`` (mode ``"train"``),
+``embed_inputs``, ``forward`` and ``loss_fn`` for training, as functions
+over a param dict. The param tree has the reference's layout,
 so ``repro_torch.convert.params_from_jax`` maps one onto the other leaf
 for leaf:
 
@@ -16,7 +18,11 @@ for leaf:
      "head": (d, V)}                                  # absent when tied
 
 Layers run as a Python loop over the stacked layer axis (the reference
-scans). In training, each layer (or group of ``cfg.scan_group`` layers)
+scans). The serve cache of ``init_serve_cache`` is
+{"segments": [per-segment buffers with a leading layer axis, and the
+segment's position "idx"], "pos"}, as the reference's, but written in
+place by ``prefill`` and ``decode_step`` (which return it), with "idx"
+and "pos" host ints (``attention.init_cache``). In training, each layer (or group of ``cfg.scan_group`` layers)
 is recomputed in the backward as the config's ``remat`` says
 (``torch.utils.checkpoint``, see ``_remat``). Attention is full-KV
 (paged pools) or SRF (slot pools), as the config's ``attn_impl`` says.
@@ -99,13 +105,15 @@ def tree_index(tree, i: int):
 
 
 def layer_apply(p, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor,
-                mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder layer of the dense family -> (x, aux_loss)."""
+                mode: str = "train", cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer of the dense family -> (x, aux_loss); in modes
+    "prefill" and "decode" the layer's ``cache`` is written in place."""
     if kind != "dense":
         raise NotImplementedError(f"{kind} layers are "
                                   f"{attention.NOT_IN_SLICE}")
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attention.attention(p["attn"], cfg, h, positions, mode)
+    x = x + attention.attention(p["attn"], cfg, h, positions, mode, cache)
     x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -138,20 +146,33 @@ def _remat(cfg, fn):
 
 
 def run_segment(stacked, cfg, kind: str, x: torch.Tensor,
-                positions: torch.Tensor, mode: str = "train"
-                ) -> Tuple[torch.Tensor, None, torch.Tensor]:
-    """All layers of one segment in training -> (x, None, aux_sum).
+                positions: torch.Tensor, mode: str = "train",
+                caches: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """All layers of one segment -> (x, caches, aux_sum).
 
-    With ``cfg.scan_group`` g > 1 (dividing the layer count) the
+    Modes "prefill" and "decode" run the layers in order against the
+    segment's ``caches`` (``init_serve_cache``), each layer on its slice
+    of the stacked buffers, written in place; the returned caches are
+    the same object, its "idx" advanced. Mode "train" returns None for
+    the caches. In training, with ``cfg.scan_group`` g > 1 (dividing the layer count) the
     recompute nests as the reference's does: the outer checkpoint keeps
     the residual only every g layers, and the inner per-layer checkpoints
     recompute one layer's internals at a time. The reference's
     ``_barrier`` (an XLA scheduling device, the identity on values) has
     no counterpart: eager PyTorch runs the layers in program order."""
+    count = tree_lib.leaves(stacked)[0].shape[0]
+    if mode in ("prefill", "decode"):
+        for i in range(count):
+            lc = {k: v if k == "idx" else v[i] for k, v in caches.items()}
+            x, _ = layer_apply(tree_index(stacked, i), cfg, kind, x,
+                               positions, mode, lc)
+        caches["idx"] = lc["idx"]
+        return x, caches, torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
     if mode != "train":
         raise NotImplementedError(f"run_segment mode {mode!r} is "
                                   f"{attention.NOT_IN_SLICE}")
-    count = tree_lib.leaves(stacked)[0].shape[0]
     g = cfg.scan_group if (cfg.scan_group > 1
                            and count % cfg.scan_group == 0) else 1
 
@@ -215,6 +236,49 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     w = params["embed"]["tok"].T if cfg.tie_embeddings else params["head"]
     return hooks.constrain(x @ w, "logits")
+
+
+def init_serve_cache(cfg, batch_size: int, max_len: int,
+                     device="cuda") -> Dict:
+    """The legacy engine's cache for ``batch_size`` requests of up to
+    ``max_len`` tokens: per segment, ``attention.init_cache`` with a
+    leading layer axis, in the params' dtype, on ``device``."""
+    return {"segments": [attention.init_cache(cfg, batch_size, max_len,
+                                              dtype_of(cfg), device,
+                                              lead=(count,))
+                         for _, count in segments(cfg)],
+            "pos": 0}
+
+
+def prefill(params, cfg, batch: Dict, cache: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    """The prompt ``batch["tokens"]`` (B, L) through every layer, the
+    cache written in place -> (logits of the last position (B, 1,
+    V_padded), cache)."""
+    x, positions = embed_inputs(params, cfg, batch)
+    for seg_params, seg_cache, (kind, _) in zip(
+            params["segments"], cache["segments"], segments(cfg)):
+        x, _, _ = run_segment(seg_params, cfg, kind, x, positions,
+                              "prefill", seg_cache)
+    cache["pos"] = x.shape[1]
+    return _logits(params, cfg, x[:, -1:]), cache
+
+
+def decode_step(params, cfg, cache: Dict, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, 1) at position ``cache["pos"]`` -> (logits (B, 1,
+    V_padded), cache), the cache written in place."""
+    pos = cache["pos"]
+    positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int64,
+                           device=tokens.device)
+    x = hooks.constrain(layers.embed(params["embed"], tokens)
+                        .to(dtype_of(cfg)), "activation")
+    for seg_params, seg_cache, (kind, _) in zip(
+            params["segments"], cache["segments"], segments(cfg)):
+        x, _, _ = run_segment(seg_params, cfg, kind, x, positions,
+                              "decode", seg_cache)
+    cache["pos"] = pos + 1
+    return _logits(params, cfg, x), cache
 
 
 def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,

@@ -494,6 +494,142 @@ def test_spinner_grads_on_card_equal_plain(cuda_device, kind, epi, dtype):
                 (kind, epi, dtype, seeded, err)
 
 
+def _legacy_module():
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        from repro_torch.serving import legacy
+    return legacy
+
+
+LEGACY_CELLS = [("full", {}, False), ("int8", {"kv_cache_dtype": "int8"},
+                                       False),
+                ("srf", {"attn_impl": "srf"}, False),
+                ("seeded", {"attn_impl": "srf"}, True)]
+
+
+def _legacy_traffic(cfg, temperature):
+    """8 mixed-length requests (test_engine_parity's recipe)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(
+        rng.integers(2, 20))).astype(np.int32),
+        max_new=int(rng.integers(3, 7)), temperature=temperature)
+        for i in range(8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,over,seeded", LEGACY_CELLS,
+                         ids=[c[0] for c in LEGACY_CELLS])
+def test_legacy_on_card_equals_cpu_and_paged(cuda_device, cell, over,
+                                             seeded):
+    """Reduced qwen3-4b (f32, 2 layers): the legacy engine's tokens on the
+    card equal its tokens on the CPU, greedy and sampled; and on the card
+    the paged engine gives the legacy engine's tokens (int8: greedy)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, PagedConfig
+    legacy = _legacy_module()
+    cfg = registry.reduced("qwen3-4b", n_layers=2, **over)
+    if seeded:
+        cfg = dataclasses.replace(cfg, srf=dataclasses.replace(
+            cfg.srf, seeded=True))
+    cpu = T.init(cfg, seed=3, device="cpu")
+    card = _to(cpu, cuda_device)
+
+    def drive(eng, reqs):
+        for r in reqs:
+            eng.submit(r)
+        return {r.uid: r.out_tokens for r in eng.run()}
+    for t in (0.0, 0.8):
+        got = {}
+        for dev, params in (("cpu", cpu), ("cuda", card)):
+            got[dev] = drive(legacy.Engine(cfg, params, batch_slots=4,
+                                           max_len=64, seed=5, device=dev),
+                             _legacy_traffic(cfg, t))
+        assert len(got["cuda"]) == 8 and got["cuda"] == got["cpu"], (cell, t)
+        if cell == "int8" and t > 0:
+            continue
+        paged = drive(Engine(cfg, card, batch_slots=4, max_len=64, seed=5,
+                             device=cuda_device,
+                             paged=PagedConfig(quantize_kv=cell == "int8")),
+                      _legacy_traffic(cfg, t))
+        assert paged == got["cuda"], (cell, t)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn,quant", [("srf", False), ("full", False),
+                                        ("full", True)])
+def test_kernel_timing_counts_equal_launches_on_card(cuda_device, attn,
+                                                     quant):
+    """A reduced paged serve run on the card with kernel timing on: one
+    kernel_dispatch_seconds series per kernel the run launched, each
+    count equal to that kernel's launch counter; the tokens equal the
+    run's with timing off. Under CUDA-graph capture nothing is timed."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MetricsRegistry, profiling
+    from repro_torch.serving import Engine, PagedConfig
+    cfg = registry.reduced("qwen3-4b", n_layers=2, attn_impl=attn)
+    params = T.init(cfg, seed=1, device=cuda_device)
+    names = {"spinner": "spinner_project",
+             "spinner_seeded": "spinner_project_seeded",
+             "srf_decode": "srf_decode", "paged_gather": "paged_gather",
+             "paged_gather_dequant": "paged_gather_dequant",
+             "paged_gather_dequant_kv": "paged_gather_dequant_kv",
+             "fwht": "fwht", "circulant_project": "circulant_project"}
+
+    def run():
+        eng = Engine(cfg, params, batch_slots=4, max_len=64,
+                     device=cuda_device,
+                     paged=PagedConfig(quantize_kv=quant))
+        for r in _legacy_traffic(cfg, 0.0):
+            eng.submit(r)
+        return {r.uid: r.out_tokens for r in eng.run()}
+    ops.reset_counts()
+    off = run()
+    reg = MetricsRegistry()
+    ops.reset_counts()
+    try:
+        profiling.enable_kernel_timing(reg)
+        on = run()
+    finally:
+        profiling.disable_kernel_timing()
+    counts = ops.launch_counts()
+    assert on == off
+    hist = reg.snapshot()["histograms"]["kernel_dispatch_seconds"]
+    launched = {names[k]: n for k, n in counts.items() if k in names and n}
+    assert launched and set(hist) == {f'kernel="{k}"' for k in launched}
+    for k, n in launched.items():
+        assert hist[f'kernel="{k}"']["count"] == n, (k, n, hist)
+
+    x = torch.randn(64, 256, device=cuda_device)
+    ops.fwht(x)                                   # build and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        profiling.enable_kernel_timing(reg)
+        with torch.cuda.graph(graph):
+            y = ops.fwht(x)
+    finally:
+        profiling.disable_kernel_timing()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.allclose(y, ops.fwht(x), rtol=1e-5, atol=1e-5)
+    assert 'kernel="fwht"' not in reg.snapshot()["histograms"][
+        "kernel_dispatch_seconds"]
+
+
 def test_dispatchers_differentiate_on_cpu():
     """On the CPU the same calls take the plain versions, which keep
     their gradients (no card needed: this test runs everywhere)."""

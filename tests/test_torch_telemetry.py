@@ -185,10 +185,12 @@ def test_cli_prints_through_reporter(monkeypatch, capsys):
 
 def test_no_bare_print_in_serving():
     """The port's counterpart of ``tests/test_obs.py``'s pin: nothing in
-    ``repro_torch/serving`` or ``repro_torch/launch/serve.py`` prints;
-    output goes through ``obs.report.Reporter``."""
+    ``repro_torch/serving`` (the legacy engine included) or
+    ``repro_torch/launch/serve.py`` prints; output goes through
+    ``obs.report.Reporter``."""
     src = ROOT / "src" / "repro_torch"
     files = sorted((src / "serving").rglob("*.py"))
+    assert src / "serving" / "legacy.py" in files
     files.append(src / "launch" / "serve.py")
     pat = re.compile(r"(?<![\w.])print\(")
     offenders = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"

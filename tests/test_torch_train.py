@@ -229,13 +229,15 @@ def test_unported_modes_and_kinds_raise():
     lp = tree_lib.unbind(params["segments"][0], cfg.n_layers)[0]
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    for mode in ("prefill", "decode", "encoder"):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        A.attention(lp["attn"], cfg, x, pos, "encoder")
+    for mode in ("prefill", "decode"):          # ported: they need a cache
+        with pytest.raises(ValueError, match="needs a cache"):
             A.attention(lp["attn"], cfg, x, pos, mode)
     with pytest.raises(NotImplementedError):
         T.layer_apply(lp, cfg, "moe", x, pos)
     with pytest.raises(NotImplementedError):
-        T.run_segment(params["segments"][0], cfg, "dense", x, pos, "decode")
+        T.run_segment(params["segments"][0], cfg, "dense", x, pos, "encoder")
 
 
 def test_forward_counts_every_spinner_call_once_per_pass():
