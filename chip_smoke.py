@@ -4,9 +4,10 @@ kernel estimates through the port's library, serves full-width
 qwen3-4b through the port's engine with full-KV pages (bf16, int8,
 prefix cache), with SRF attention, and with seeded SRF attention
 (per-request embed seeds, greedy and sampled requests in one batch),
-through the legacy per-slot engine beside the paged one, and through
-the serve CLI with kernel timing and a Chrome trace, then trains
-full-width qwen3-4b with SRF and with full attention.
+through the legacy per-slot engine beside the paged one, through the
+request router with fault-tolerant serving and a chaos fault on one of
+two replicas, and through the serve CLI with kernel timing and a Chrome
+trace, then trains full-width qwen3-4b with SRF and with full attention.
 
     python3 chip_smoke.py
 
@@ -116,6 +117,41 @@ result line):
    ``FIRST_LOGIT_TOL`` of each row's largest |logit|, and each within
    ``F32_ANCHOR_TOL`` of an f32 copy's prefill; tok/s, TTFT p50 and the
    share of equal generated tokens printed.
+   The router and fault-tolerant serving (``serving/mesh/router.py``,
+   ``serving/ft.py``, the test-only ``serving/chaos.py``): reduced
+   qwen3-4b (f32, 2 layers), 8 greedy requests of 4-19 prompt tokens and
+   10 new, 2 replicas of 2 slots (max_len 64), ``RouterConfig(migrate=
+   False)``, ``FTConfig(grace_steps=2, stuck_rounds=3)``, replica 1
+   faulted at its step 4, on step clocks that advance 5 ms a read: full
+   KV, int8 pages and SRF under raise, hang, reject and oom, on the card
+   and on the CPU. Each cell: tokens equal to the undisturbed single
+   engine's on the card and to the CPU route's, router counters equal to
+   the CPU run's, every request done once, two more requests equal after
+   ``heal()`` and ``revive(1)``, no page or slot leaked, the path's
+   kernels launched and no plain route. A sampled cell (temperature 0.9,
+   top_k 50, top_p 0.95, both replicas at seed 0): rescued ==
+   undisturbed bit for bit; a preempted sequence migrated with its
+   snapshot between like replicas: tokens equal to the unmigrated run,
+   card == CPU. Then full width (the params shared by every engine), 16
+   greedy requests of 128 + 32 tokens (max_len 256): (a) one engine of
+   8 slots; (b) ``launch.serve.router`` over 2 replicas of 4 slots with
+   ``FTConfig()`` on wall clocks and no migration, no fault; (c) the
+   same with replica 1 faulted at its step 12 (full KV: raise, hang,
+   reject, oom; SRF: raise, oom). Each run: every request done once with
+   32 tokens and finite logit rows, kernels as the path needs summed
+   over the replicas' steps (full KV paged_gather exactly 72 a step; SRF
+   the spinner at least 72 a step and srf_decode exactly 36 a decode
+   step; nothing else, no plain route), no leak after ``heal()`` and
+   ``revive(1)``; (b) quarantines nothing; each (c) quarantines replica
+   1 once, fails nothing, rescues or replays a request, and every token
+   emitted before the quarantine equals (b)'s. tok/s, TTFT p50, the
+   counters, the rounds and seconds from the kill to the last moved
+   request's end, and the share of tokens equal to (a) and (b) printed.
+   Then ``launch.serve.main`` in process with ``--replicas 2 --ft
+   --chaos raise@12:1 --metrics-out F --trace-out T`` (16 requests, 4
+   slots): one quarantine and no failed request in F, the trace's B/E
+   events paired and monotone in 3 process rows (2 replicas and the
+   router).
    Kernel timing: ``launch.serve.main`` in process at full width with
    ``--attn srf`` and with ``--quantize-kv`` (4 requests, 8 new),
    without, with ``--kernel-timing --metrics-out F --trace-out T``
@@ -150,7 +186,10 @@ result line):
    plain backward calls, and the kernel at the training shapes), and
    the spinner, srf_decode and int8-gather records their dispatch
    fields (``dispatch_*``: p50, p99 and count from the timed serve
-   run), fwht and circulant_project one timed dispatch.
+   run), fwht and circulant_project one timed dispatch; the spinner,
+   srf_decode and paged_gather records carry their launches in the
+   full-width router run (b), the int8 gather's its launches in the
+   reduced int8 router cells (``router_*``).
    ``library_ms`` is ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
    for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
@@ -160,6 +199,7 @@ result line):
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import itertools
@@ -1317,9 +1357,7 @@ TRAFFIC = dict(requests=8, prompt_len=128, max_new=32, slots=8,
 
 def _check_serve(label, res, args, counts, expect):
     """Every request finished with max_new tokens, every logit row is
-    finite, and each kernel of ``expect`` launched exactly or at least
-    as often as it says ({name: (n, exact)}); every other gather and
-    the seeded spinner (kernel and plain route) 0."""
+    finite, and the launches are as ``_expect_launches`` says."""
     eng = res["engine"]
     bad = [r.uid for r in res["done"] if len(r.out_tokens) != args.max_new]
     if len(res["done"]) != args.requests or bad:
@@ -1328,6 +1366,14 @@ def _check_serve(label, res, args, counts, expect):
     if eng.nonfinite_rows:
         raise AssertionError(f"{label}: {eng.nonfinite_rows} logit rows "
                              f"not finite")
+    _expect_launches(label, counts, expect)
+
+
+def _expect_launches(label, counts, expect):
+    """Each kernel of ``expect`` launched exactly or at least as often as
+    it says ({name: (n, exact)}); every other gather, fwht,
+    circulant_project and the seeded spinner (kernel and plain route) 0,
+    and the spinner's plain route never."""
     for name in ("paged_gather", "paged_gather_dequant",
                  "paged_gather_dequant_kv", "spinner_seeded",
                  "spinner_seeded_plain_on_cuda", "fwht", "fwht_plain_on_cuda",
@@ -1830,6 +1876,480 @@ def _to_dtype(tree, dtype):
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (continued): the request router and fault-tolerant serving
+# ---------------------------------------------------------------------------
+
+KINDS = ("raise", "hang", "reject", "oom")
+# reduced router cells: (label, config overrides, int8 pages)
+ROUTER_REDUCED = [("full KV", {}, False), ("int8 pages", {}, True),
+                  ("SRF", {"attn_impl": "srf"}, False)]
+SAMPLED = dict(temperature=0.9, top_k=50, top_p=0.95)
+ROUTER_TRAFFIC = dict(requests=16, prompt_len=128, max_new=32, slots=4,
+                      max_len=256, seed=0, device="cuda")
+ROUTER_KINDS = {"full": KINDS, "srf": ("raise", "oom")}
+CHAOS_STEP = 12        # 4 prefill steps, then 8 decode steps into wave 1
+
+
+def _steady(engines):
+    """Step-time clocks that advance 5 ms a read, as
+    tests/test_torch_ft.py sets them: the reduced cells hold the card's
+    router counters to the CPU's, and on wall clocks the watchdog's slow
+    flag on a busy replica races the stuck count of a replica whose
+    steps turned into no-ops (oom, reject)."""
+    for e in engines:
+        ticks = itertools.count()
+        e.clock = lambda ticks=ticks: 0.005 * next(ticks)
+    return engines
+
+
+def _router_counters(reg):
+    return {k: int(reg.value_sum(f"router_{k}_total")) for k in (
+        "quarantined", "rescued", "replayed", "failed")}
+
+
+def _check_no_leaks(label, engines):
+    """No page and no slot held on any replica."""
+    for i, e in enumerate(engines):
+        sched = e.sched
+        slots = sched.slot_alloc.used_pages if sched.slot_alloc else 0
+        if sched.alloc.used_pages or slots:
+            raise AssertionError(f"{label}: replica {i} leaked "
+                                 f"{sched.alloc.used_pages} pages and "
+                                 f"{slots} slots")
+
+
+def _check_done_once(label, reg, reqs):
+    """Every request done exactly once (one ``done`` event a uid) and
+    served, not failed, shed or timed out."""
+    dones = {}
+    for ev in reg.events:
+        if ev["event"] == "done":
+            dones[ev["uid"]] = dones.get(ev["uid"], 0) + 1
+    bad = [r.uid for r in reqs if not r.done
+           or r.finish_reason not in ("eos", "length")]
+    if bad or dones != {r.uid: 1 for r in reqs}:
+        raise AssertionError(f"{label}: not done exactly once: {bad}, "
+                             f"done events {dones}")
+
+
+def _undisturbed(cfg, params, device, blue, quant, **samp):
+    """One engine of 2 slots (max_len 64, seed 0) on ``device`` serving
+    the blueprints with 10 new tokens: {uid: tokens}."""
+    from repro_torch.serving import Engine, PagedConfig, Request
+    eng = Engine(cfg, params, batch_slots=2, max_len=64, seed=0,
+                 device=device, paged=PagedConfig(quantize_kv=quant))
+    reqs = [Request(uid=i, prompt=p.copy(), max_new=10, **samp)
+            for i, p in enumerate(blue)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return {r.uid: r.out_tokens for r in reqs}
+
+
+def _check_path_launches(label, counts, path):
+    """Every kernel of ``path`` launched, no other kernel and no plain
+    route."""
+    other = {"paged_gather", "paged_gather_dequant",
+             "paged_gather_dequant_kv", "spinner", "srf_decode",
+             "spinner_seeded", "spinner_plain_on_cuda",
+             "spinner_seeded_plain_on_cuda"} - path
+    if not all(counts[k] for k in path) or any(counts[k] for k in other):
+        raise AssertionError(f"{label}: launches {counts}")
+
+
+def _reduced_chaos(label, cfg, params, device, blue, kind, quant,
+                   seeds=(0, 1), **samp):
+    """tests/test_torch_ft.py's scenario on ``device``: 2 replicas of 2
+    slots (max_len 64), replica 1 faulted at its 4th step,
+    ``RouterConfig(migrate=False)``, ``FTConfig(grace_steps=2,
+    stuck_rounds=3)``; then ``heal()``, ``revive(1)`` and two more
+    requests. Returns the tokens, the extra requests' tokens, the router
+    counters and the snapshot restores on the survivor."""
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import (Engine, FTConfig, PagedConfig,
+                                     Request, Router, RouterConfig)
+    from repro_torch.serving.chaos import ChaosEngine, ChaosPlan
+    reg = MetricsRegistry()
+    inner = _steady([Engine(cfg, params, batch_slots=2, max_len=64, seed=s,
+                            metrics=reg, device=device,
+                            paged=PagedConfig(quantize_kv=quant))
+                     for s in seeds])
+    engines = [inner[0], ChaosEngine(inner[1], ChaosPlan(kind, at_step=4))]
+    router = Router(engines, cfg=RouterConfig(migrate=False), metrics=reg,
+                    ft=FTConfig(grace_steps=2, stuck_rounds=3))
+    reqs = [Request(uid=i, prompt=p.copy(), max_new=10, **samp)
+            for i, p in enumerate(blue)]
+    for r in reqs:
+        router.submit(r)
+    router.run()
+    _check_done_once(label, reg, reqs)
+    counters = _router_counters(reg)
+    if counters["quarantined"] != 1 or router.dead != {1} or \
+            counters["failed"] or not (counters["rescued"]
+                                       + counters["replayed"]):
+        raise AssertionError(f"{label}: router counters {counters}, dead "
+                             f"{router.dead}")
+    engines[1].heal()
+    if not router.revive(1):
+        raise AssertionError(f"{label}: revive(1) failed after heal()")
+    extra = [Request(uid=100 + i, prompt=blue[i].copy(), max_new=10, **samp)
+             for i in range(2)]
+    for r in extra:
+        router.submit(r)
+    router.run()
+    _check_no_leaks(label, inner)
+    restored = sum(ev["event"] == "restored"
+                   and ev["engine"] == inner[0].engine_id
+                   for ev in reg.events)
+    return {"tokens": {r.uid: r.out_tokens for r in reqs},
+            "extra": {r.uid - 100: r.out_tokens for r in extra},
+            "counters": counters, "restored": restored}
+
+
+def _preempt_migrate(cfg, params, device):
+    """tests/test_torch_router.py's preempt-then-migrate scenario: replica
+    0's pool (9 pages of 4) preempts mid-decode, replica 1 (33 pages, one
+    geometry) adopts the evicted, snapshot-carrying sequences through
+    migration. Returns (migrated tokens, unmigrated tokens, preemptions,
+    migrations, snapshot restores on replica 1)."""
+    from repro_torch.serving import (Engine, Request, Router, RouterConfig,
+                                     SchedConfig)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 3).astype(np.int32)
+               for _ in range(4)]
+    geo = dict(max_batch=4, prefill_batch=2, prefill_chunk=4, page_size=4,
+               table_width=4)
+
+    def mk():
+        return [Request(uid=i, prompt=p.copy(), max_new=10)
+                for i, p in enumerate(prompts)]
+    solo = Engine(cfg, params, sched=SchedConfig(num_pages=33, **geo),
+                  device=device)
+    want = mk()
+    for r in want:
+        solo.submit(r)
+    solo.run()
+    e0 = Engine(cfg, params, sched=SchedConfig(num_pages=9, **geo),
+                device=device)
+    e1 = Engine(cfg, params, sched=SchedConfig(num_pages=33, **geo),
+                device=device)
+    router = Router([e0, e1], RouterConfig(migrate=True))
+    reqs = mk()
+    for r in reqs:
+        e0.submit(r)
+        router.home[r.uid] = 0
+    router.run()
+    _check_no_leaks("preempt-then-migrate", [e0, e1])
+    restored = sum(ev["event"] == "restored" for ev in e1.metrics.events)
+    return ({r.uid: r.out_tokens for r in reqs},
+            {r.uid: r.out_tokens for r in want},
+            int(e0.stats["preemptions"]), int(router.stats["migrations"]),
+            restored)
+
+
+def phase_reduced_router():
+    """Reduced qwen3-4b (f32, 2 layers) through the router with a chaos
+    fault on replica 1, on the card and on the CPU: full KV, int8 pages
+    and SRF under raise, hang, reject and oom (12 cells). In every cell
+    the card's tokens equal the undisturbed single engine's on the card
+    and the CPU route's, the router counters equal the CPU run's, every
+    request is done once, the two requests served after ``heal()`` and
+    ``revive(1)`` equal the undisturbed ones, and no page or slot leaks;
+    the card run launches its path's kernels and no plain route. Then a
+    sampled cell (temperature 0.9, top_k 50, top_p 0.95, both replicas
+    at seed 0): rescued == undisturbed bit for bit, on the card and on
+    the CPU; and a preempted sequence migrated with its snapshot between
+    like replicas: tokens equal to the unmigrated run, card == CPU.
+    Returns the int8 cells' paged_gather_dequant_kv launches."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as model_lib
+    rng = np.random.default_rng(0)
+    blue = [rng.integers(1, 512, int(rng.integers(4, 20))).astype(np.int32)
+            for _ in range(8)]
+    dequant_kv = 0
+    for label, over, quant in ROUTER_REDUCED:
+        cfg = registry.reduced("qwen3-4b", n_layers=2, **over)
+        cpu = model_lib.init(cfg, seed=3, device="cpu")
+        card = _to(cpu, "cuda")
+        want = _undisturbed(cfg, card, "cuda", blue, quant)
+        if want != _undisturbed(cfg, cpu, "cpu", blue, quant):
+            raise AssertionError(f"reduced router {label}: undisturbed "
+                                 f"tokens differ between card and CPU")
+        for kind in KINDS:
+            name = f"reduced router {label} {kind}"
+            c = _reduced_chaos(name, cfg, cpu, "cpu", blue, kind, quant)
+            ops.reset_counts()
+            g = _reduced_chaos(name, cfg, card, "cuda", blue, kind, quant)
+            counts = ops.launch_counts()
+            first = {i: want[i] for i in range(2)}
+            if not (g["tokens"] == want == c["tokens"]
+                    and g["extra"] == first == c["extra"]):
+                raise AssertionError(f"{name}: tokens differ: card "
+                                     f"{g['tokens']}, CPU {c['tokens']}, "
+                                     f"undisturbed {want}")
+            if g["counters"] != c["counters"] or \
+                    g["restored"] != c["restored"]:
+                raise AssertionError(f"{name}: card counters {g} != CPU "
+                                     f"{c}")
+            path = ({"spinner", "srf_decode"} if "attn_impl" in over else
+                    {"paged_gather_dequant_kv"} if quant else
+                    {"paged_gather"})
+            _check_path_launches(name, counts, path)
+            dequant_kv += counts["paged_gather_dequant_kv"]
+            log(f"  {name}: card tokens == CPU tokens == undisturbed "
+                f"({sum(map(len, want.values()))} tokens), counters "
+                f"{g['counters']} == CPU's, snapshot restores on the "
+                f"survivor {g['restored']}; revived, 2 more requests "
+                f"equal, no leaks; launches "
+                f"{ {k: counts[k] for k in sorted(path)} }")
+    cfg = registry.reduced("qwen3-4b", n_layers=2)
+    cpu = model_lib.init(cfg, seed=3, device="cpu")
+    card = _to(cpu, "cuda")
+    greedy = _undisturbed(cfg, card, "cuda", blue, False)
+    want = _undisturbed(cfg, card, "cuda", blue, False, **SAMPLED)
+    if want == greedy:
+        raise AssertionError("sampled cell: sampling gave the greedy "
+                             "streams; the cell is vacuous")
+    devices = (("card", "cuda", card), ("CPU", "cpu", cpu))
+    got = {lab: _reduced_chaos("reduced router sampled raise", cfg, p, dev,
+                               blue, "raise", False, (0, 0), **SAMPLED)
+           for lab, dev, p in devices}
+    if not got["card"]["tokens"] == want == got["CPU"]["tokens"]:
+        raise AssertionError("reduced router sampled raise: rescued "
+                             "tokens != undisturbed")
+    log(f"  reduced router sampled raise (temperature 0.9, top_k 50, "
+        f"top_p 0.95): rescued == undisturbed bit for bit on the card and "
+        f"on the CPU, counters {got['card']['counters']}")
+    runs = {lab: _preempt_migrate(cfg, p, dev) for lab, dev, p in devices}
+    moved, solo, pre, mig, restored = runs["card"]
+    if moved != solo or runs["card"] != runs["CPU"] or not (pre and mig
+                                                             and restored):
+        raise AssertionError(f"reduced preempt-then-migrate: card "
+                             f"{runs['card']} CPU {runs['CPU']}")
+    log(f"  reduced preempt-then-migrate: {pre} preemptions, {mig} "
+        f"migrations, {restored} snapshots restored on replica 1; tokens "
+        f"== unmigrated, card == CPU")
+    return dequant_kv
+
+
+def _share(a, b):
+    """Share of generated tokens equal position by position."""
+    same = sum(x == y for u in a for x, y in zip(a[u], b[u]))
+    return same / sum(map(len, a.values()))
+
+
+def _router_run(label, args, cfg, params, chaos=None):
+    """``args``' requests through ``launch.serve.router`` (2 replicas of
+    ``args.slots`` slots, ``FTConfig()`` on wall clocks, one registry),
+    with ``chaos`` (``KIND@STEP:REPLICA``) if given, and without pressure
+    migration, as tests/test_ft_serving.py's matrix runs (with it, an oom
+    replica's evicted sequences migrate off and the stuck detector never
+    fires: a recovery, but not the quarantine path); the launch counts
+    reset just before and read just after. Records the tokens at the
+    quarantine and the round and time at which the last rescued or
+    replayed request finished. Then ``heal()``, ``revive(1)`` and the
+    leak check."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import RouterConfig
+    a = copy.copy(args)
+    a.replicas, a.ft, a.chaos = 2, True, chaos
+    reg = MetricsRegistry()
+    router = serve.router(a, cfg, params, metrics=reg)
+    router.cfg = RouterConfig(migrate=False)
+    reqs = serve.requests(a, cfg)
+    by_uid = {r.uid: r for r in reqs}
+    kill, back = {}, {}
+    quarantine = router.quarantine
+
+    def watched(idx, reason):
+        if not kill:
+            kill.update(replica=idx, reason=reason, t=time.perf_counter(),
+                        round=int(router.stats["steps"]) + 1,
+                        tokens={r.uid: list(r.out_tokens) for r in reqs})
+        quarantine(idx, reason)
+    router.quarantine = watched
+
+    def on_step(rt):
+        if not kill or back:
+            return
+        moved = {ev["uid"] for ev in reg.events
+                 if ev["event"] in ("rescued", "replayed")}
+        if moved and all(by_uid[u].done for u in moved):
+            back.update(round=int(rt.stats["steps"]), t=max(
+                by_uid[u].t_done for u in moved), moved=len(moved))
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    res = serve.serve(a, eng=router, reqs=reqs, on_step=on_step)
+    counts = ops.launch_counts()
+    res["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res.update(counts=counts, counters=_router_counters(reg), kill=kill,
+               back=back, reg=reg, reqs=reqs)
+    _check_done_once(label, reg, reqs)
+    short = [r.uid for r in reqs if len(r.out_tokens) != a.max_new
+             or r.finish_reason != "length"]
+    bad_rows = sum(e.nonfinite_rows for e in router.engines)
+    if short or bad_rows:
+        raise AssertionError(f"{label}: requests short of {a.max_new} "
+                             f"tokens {short}, {bad_rows} non-finite rows")
+    engines = router.engines
+    res["steps"] = sum(int(e.stats["prefill_steps"] + e.stats["decode_steps"])
+                       for e in engines)
+    res["dsteps"] = sum(int(e.stats["decode_steps"]) for e in engines)
+    if chaos:
+        engines[1].heal()
+        if not router.revive(1):
+            raise AssertionError(f"{label}: revive(1) failed after heal()")
+    _check_no_leaks(label, [getattr(e, "_eng", e) for e in engines])
+    res["tokens"] = {r.uid: r.out_tokens for r in reqs}
+    res.pop("engine")
+    return res
+
+
+def _check_launches(label, cfg, res):
+    """Kernel launches summed over the replicas' steps: full KV
+    paged_gather exactly 72 a step; SRF the spinner at least 72 a step
+    and srf_decode exactly 36 a decode step; every other kernel and the
+    plain routes never."""
+    steps, dsteps = res["steps"], res["dsteps"]
+    n = cfg.n_layers
+    if cfg.attn_impl == "srf":
+        want = {"spinner": (2 * n * steps, False),
+                "srf_decode": (n * dsteps, True)}
+    else:
+        want = {"paged_gather": (2 * n * steps, True), "spinner": (0, True),
+                "srf_decode": (0, True)}
+    _expect_launches(f"{label} ({steps} steps, {dsteps} decode)",
+                     res["counts"], want)
+
+
+def phase_serve_router(out_dir):
+    """Full-width qwen3-4b (36 layers, bf16, one set of params shared by
+    every engine), 16 greedy requests of 128 + 32 tokens: (a) one engine
+    of 8 slots; (b) an FT router over 2 replicas of 4 slots
+    (``launch.serve.router``, ``FTConfig()``) with no fault; (c) the same
+    router with replica 1 faulted at its step 12 (4 prefill steps, then 8
+    decode steps into its first wave): full KV under raise, hang, reject
+    and oom, SRF under raise and oom. Each run: every request done once
+    with 32 tokens (``length``) and finite logit rows, no leak after
+    ``heal()`` and ``revive(1)``, the launches of ``_check_launches``;
+    (b) quarantines nothing; each (c) quarantines replica 1 once, fails
+    nothing, rescues or replays at least one request, and every token
+    emitted before the quarantine equals (b)'s at its position. Prints
+    tok/s, TTFT p50, the router counters, the rounds and seconds from
+    the kill to the last rescued request's end, and the share of tokens
+    equal to (a) and to (b). Then ``launch.serve.main`` in process with
+    ``--replicas 2 --ft --chaos raise@12:1`` and ``--metrics-out`` /
+    ``--trace-out``. Returns {attn: {run: result}}."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    out = {}
+    for attn, kinds in ROUTER_KINDS.items():
+        args = serve_args(attn, **ROUTER_TRAFFIC)
+        t0 = time.perf_counter()
+        cfg, params = serve.build(args)
+        torch.cuda.synchronize()
+        _describe(cfg, params, t0)
+        single = copy.copy(args)
+        single.slots = 2 * args.slots
+        serve.warm(single, cfg, params)
+        runs = {}
+        gc.collect()
+        ops.reset_counts()
+        a = serve.serve(single, cfg, params)
+        a["counts"], eng = ops.launch_counts(), a.pop("engine")
+        a["steps"] = _steps(eng)
+        a["dsteps"] = int(eng.stats["decode_steps"])
+        if eng.nonfinite_rows or any(len(r.out_tokens) != args.max_new
+                                     for r in a["done"]) or \
+                len(a["done"]) != args.requests:
+            raise AssertionError(f"{attn} single engine: unfinished "
+                                 f"requests or non-finite rows")
+        _check_launches(f"{attn} single engine", cfg, a)
+        a["tokens"] = {r.uid: r.out_tokens for r in a["done"]}
+        del eng
+        runs["a"] = a
+        log(f"  {attn} (a) one engine, 8 slots: {a['tok_s']:.2f} tok/s, "
+            f"TTFT p50 {a['ttft_s']['p50']:.4f} s, {a['steps']} steps")
+        b = _router_run(f"{attn} (b)", args, cfg, params)
+        if b["kill"] or b["counters"]["quarantined"]:
+            raise AssertionError(f"{attn} (b): a replica was quarantined "
+                                 f"without a fault: {b['kill'].get('reason')}")
+        _check_launches(f"{attn} (b)", cfg, b)
+        runs["b"] = b
+        log(f"  {attn} (b) router, 2 replicas x 4 slots, no fault: "
+            f"{b['tok_s']:.2f} tok/s, TTFT p50 {b['ttft_s']['p50']:.4f} s, "
+            f"{b['steps']} steps, counters {b['counters']}, peak "
+            f"{b['peak']:.2f} GiB; tokens equal to (a) "
+            f"{_share(b['tokens'], a['tokens']):.3f}")
+        for kind in kinds:
+            label = f"{attn} (c) {kind}@{CHAOS_STEP}:1"
+            c = _router_run(label, args, cfg, params,
+                            chaos=f"{kind}@{CHAOS_STEP}:1")
+            k, cnt = c["kill"], c["counters"]
+            if k.get("replica") != 1 or cnt["quarantined"] != 1 or \
+                    cnt["failed"] or not (cnt["rescued"] + cnt["replayed"]):
+                raise AssertionError(f"{label}: kill {k.get('replica')} "
+                                     f"({k.get('reason')}), counters {cnt}")
+            early = [u for u, t in k["tokens"].items()
+                     if t != b["tokens"][u][:len(t)]]
+            if early:
+                raise AssertionError(f"{label}: tokens before the "
+                                     f"quarantine differ from (b)'s for "
+                                     f"uids {early}")
+            _check_launches(label, cfg, c)
+            back = c["back"]
+            c["recover_rounds"] = back["round"] - k["round"] + 1
+            c["recover_s"] = back["t"] - k["t"]
+            runs[kind] = c
+            log(f"  {label}: {c['tok_s']:.2f} tok/s, TTFT p50 "
+                f"{c['ttft_s']['p50']:.4f} s, counters {cnt}; quarantined "
+                f"in round {k['round']} ({k['reason']}), "
+                f"{sum(map(len, k['tokens'].values()))} tokens emitted "
+                f"before it, all equal to (b)'s; last of {back['moved']} "
+                f"rescued/replayed requests done {c['recover_rounds']} "
+                f"rounds, {c['recover_s']:.3f} s after the kill; tokens "
+                f"equal to (a) {_share(c['tokens'], a['tokens']):.3f}, to "
+                f"(b) {_share(c['tokens'], b['tokens']):.3f}; revived, no "
+                f"leaks")
+        for r in runs.values():
+            for key in ("reg", "reqs", "done"):
+                r.pop(key, None)
+        out[attn] = runs
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    prom = out_dir / "metrics_router.prom"
+    trace = out_dir / "trace_router.json"
+    text, _ = _cli(["--arch", "qwen3-4b", "--replicas", "2", "--ft",
+                    "--chaos", f"raise@{CHAOS_STEP}:1", "--requests", "16",
+                    "--slots", "4", "--prompt-len", "128", "--max-new", "32",
+                    "--max-len", "256", "--metrics-out", str(prom),
+                    "--trace-out", str(trace)])
+    import re
+    series = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(router_\w+_total) (\S+)$", prom.read_text(), re.M)}
+    if series.get("router_quarantined_total") != 1 or \
+            series.get("router_failed_total", 0) != 0:
+        raise AssertionError(f"serve --replicas 2 --ft --chaos: {series}")
+    events = _check_trace(trace)
+    pids = {e["pid"] for e in json.loads(trace.read_text())["traceEvents"]
+            if e["ph"] in "BE"}
+    if pids != {0, 1, 2}:
+        raise AssertionError(f"{trace}: B/E events in process rows {pids}, "
+                             f"expected 2 replicas and the router")
+    log(f"    CLI --replicas 2 --ft --chaos raise@{CHAOS_STEP}:1: "
+        f"{_tok_s(text):.1f} tok/s, {series}; trace {trace.name}: {events} "
+        f"B/E events in 3 process rows, paired and monotone")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4 (continued): kernel timing and the Chrome trace, through the CLI
 # ---------------------------------------------------------------------------
 
@@ -2216,7 +2736,7 @@ def _leaves(tree):
 
 def _record(name, source, replaces, launches, rec, shape):
     extra = {k: v for k, v in rec.items() if k.startswith((
-        "one_pool_", "two_single_", "train_", "dispatch_"))}
+        "one_pool_", "two_single_", "train_", "dispatch_", "router_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -2274,6 +2794,8 @@ def main() -> int:
     phase_serve_legacy()
     out_dir = ROOT / "chiprun_out" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
+    router_int8 = phase_reduced_router()
+    router = phase_serve_router(out_dir)
     timing = phase_kernel_timing(out_dir)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2319,6 +2841,13 @@ def main() -> int:
                 "dispatch_count": v["count"],
                 "dispatch_of": f"serve --kernel-timing, {run}, 4 requests "
                                f"x 8 new tokens"}
+    def routed(attn, key):
+        """Launches of the full-width router run (b): 2 replicas, no
+        fault."""
+        return {"router_launches": router[attn]["b"]["counts"][key],
+                "router_launches_of": f"full-width {attn} router run (b), "
+                                      f"2 replicas x 4 slots, 16 requests "
+                                      f"x (128 + 32) tokens, no fault"}
     kernels = [
         _record("spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:111", srf["spinner"],
@@ -2326,21 +2855,28 @@ def main() -> int:
                  **train_extra("spinner", train["srf"]["counts"], "spinner",
                                f"full-width SRF training, {TRAIN_STEPS} "
                                f"steps"),
-                 **dispatch("srf", "spinner_project")},
+                 **dispatch("srf", "spinner_project"),
+                 **routed("srf", "spinner")},
                 "decode query: G=8, B=32, n=128, m=256, bf16, identity"),
         _record("srf_decode", src + "srf_decode.cu",
                 "src/repro/kernels/srf_decode.py:26", srf["srf_decode"],
-                {**dec, **dispatch("srf", "srf_decode")},
+                {**dec, **dispatch("srf", "srf_decode"),
+                 **routed("srf", "srf_decode")},
                 "B=8, H=32, m=256, dv=128, f32"),
         _record("paged_gather", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:28",
                 kv["bf16 pages"]["paged_gather"],
-                gather["decode"]["paged_gather"], decode + ", bf16"),
+                {**gather["decode"]["paged_gather"],
+                 **routed("full", "paged_gather")}, decode + ", bf16"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
                 kv["int8 pages"]["paged_gather_dequant_kv"],
                 {**gather["decode"]["paged_gather_dequant"],
-                 **dispatch("int8 pages", "paged_gather_dequant_kv")},
+                 **dispatch("int8 pages", "paged_gather_dequant_kv"),
+                 "router_launches": router_int8,
+                 "router_launches_of": "reduced int8-page router cells on "
+                                       "the card (raise, hang, reject, "
+                                       "oom)"},
                 decode + ", int8 -> bf16, a layer's K and V in one launch "
                 "(paged_gather_dequant_kv, as the int8 serve run launches "
                 "it); plain_ms: two plain calls; one_pool_*: the "

@@ -1,5 +1,6 @@
-"""Serving launcher for the port: the paged engine, or the legacy
-per-slot engine (``--legacy``).
+"""Serving launcher for the port: the paged engine, the request router
+over engine replicas (``--replicas``), or the legacy per-slot engine
+(``--legacy``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         [--attn full|srf] [--quantize-kv] [--prefix-cache \
@@ -8,6 +9,7 @@ per-slot engine (``--legacy``).
         --max-len 128 --seed 0] [--temperature 0 --top-k 0 --top-p 1] \
         [--policy fcfs|priority] [--deadline S] \
         [--quality-every 64 --quality-tol 0.5] [--legacy] \
+        [--replicas 1 --ft --chaos KIND@STEP[:REPLICA]] \
         [--metrics --metrics-every 2 --metrics-out FILE] \
         [--kernel-timing] [--trace-out FILE] [--reduced] [--device cuda]
 
@@ -32,7 +34,18 @@ batch-1 prefill per request, then one batch-1 decode call per active
 slot and token; it records no spans and no periodic metrics, and takes
 the same ``--seed`` for its sampling keys.
 
-Telemetry: the engine records into one ``obs.MetricsRegistry``.
+``--replicas N`` (N > 1) serves through ``serving.mesh.Router`` over N
+paged engines on ``--device`` (all on the one card), engine i with seed
+``--seed`` + i; they share one set of params and one metrics registry.
+``--ft`` arms the fault-tolerant router (replica watchdog, quarantine,
+rescue and replay of the quarantined replica's requests,
+``serving/ft.py``), and ``--chaos KIND@STEP[:REPLICA]`` injects one
+scripted fault (``raise``, ``hang``, ``reject`` or ``oom``; replica
+default: the last) through the test-only harness ``serving/chaos.py``.
+``--model-parallel`` above 1 is a usage error until the mesh slice.
+
+Telemetry: the engine (every replica, and the router) records into one
+``obs.MetricsRegistry``.
 ``--metrics`` prints a one-line report every ``--metrics-every``
 seconds of engine stepping and a final latency-percentile dump;
 ``--metrics-out FILE`` writes the Prometheus text exposition there (and
@@ -40,14 +53,13 @@ the event stream to ``FILE.events.jsonl``) with the final dump.
 ``--kernel-timing`` times every kernel dispatch into
 ``kernel_dispatch_seconds{kernel=...}``, synced before and after (it
 serializes the card's queue; ``serving/README.md``). ``--trace-out
-FILE`` records the engine's span timeline and writes it as Chrome-trace
-JSON (Perfetto, chrome://tracing).
+FILE`` records the span timeline of the engine (of every replica, and
+one more of the router) and writes it as Chrome-trace JSON (Perfetto,
+chrome://tracing).
 
-The flags are the reference CLI's (``repro.launch.serve``) for what the
-port serves, plus ``--device``; the mesh and fault-tolerance flags
-(``--replicas``, ``--model-parallel``, ``--ft``, ``--chaos``) are not
-ported. All output goes through ``obs.report.Reporter``: this module
-and ``serving/`` print nothing themselves.
+The flags are the reference CLI's (``repro.launch.serve``) plus
+``--device``. All output goes through ``obs.report.Reporter``: this
+module and ``serving/`` print nothing themselves.
 """
 from __future__ import annotations
 
@@ -68,7 +80,8 @@ from repro_torch.obs import quality as quality_lib
 from repro_torch.obs import spans as spans_lib
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.report import Reporter
-from repro_torch.serving import Engine, PagedConfig, Request
+from repro_torch.serving import (Engine, FTConfig, PagedConfig, Request,
+                                 Router)
 from repro_torch.serving.prefix import ChunkConfig, PrefixConfig
 
 
@@ -114,6 +127,19 @@ def parser() -> argparse.ArgumentParser:
                          "emits a quality_drift registry event")
     ap.add_argument("--legacy", action="store_true",
                     help="old per-slot engine (baseline, test oracle)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="router-managed engine replicas (all on "
+                         "--device)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis TP width per replica (above 1: not "
+                         "ported yet, a usage error)")
+    ap.add_argument("--ft", action="store_true",
+                    help="fault-tolerant router: replica health watchdog "
+                         "+ failover with request rescue (multi-replica)")
+    ap.add_argument("--chaos", default=None, metavar="KIND@STEP[:REPLICA]",
+                    help="test-only fault injection (kinds: raise|hang|"
+                         "reject|oom), e.g. raise@6:1; needs --ft and "
+                         "--replicas >= 2 to demonstrate recovery")
     ap.add_argument("--metrics", action="store_true",
                     help="periodic one-line metrics report + final "
                          "latency-percentile dump from the registry")
@@ -193,6 +219,43 @@ def engine(args, cfg, params, metrics=None, spans=None):
                   spans=spans)
 
 
+def router(args, cfg, params, metrics=None, recorders=None, rep=None):
+    """``args.replicas`` paged engines (engine i seeded ``args.seed`` + i,
+    recording into ``recorders[i]`` when given) behind a ``Router`` that
+    records into ``metrics`` and, past the replicas' recorders, into one
+    recorder of its own; with ``args.ft`` fault-tolerant, and with
+    ``args.chaos`` one replica wrapped in the test-only fault injector
+    (announced on ``rep``)."""
+    engines = []
+    for i in range(args.replicas):
+        a = copy.copy(args)
+        a.seed = args.seed + i
+        engines.append(engine(a, cfg, params, metrics=metrics,
+                              spans=recorders[i] if recorders else None))
+    if args.chaos:
+        from repro_torch.serving.chaos import ChaosEngine, ChaosPlan
+        spec, _, rep_s = args.chaos.partition(":")
+        kind, _, step_s = spec.partition("@")
+        rep_i = int(rep_s or (len(engines) - 1))
+        engines[rep_i] = ChaosEngine(
+            engines[rep_i], ChaosPlan(kind, at_step=int(step_s or 5)))
+        if rep is not None:
+            rep.line(f"[chaos] replica {rep_i}: {kind}@{step_s or 5} "
+                     "(test-only fault injection)")
+    if recorders:
+        # the router's own spans (scoring, quarantine, rescue, replay)
+        # merge as one more timeline row past the replicas' rows
+        recorders.append(spans_lib.SpanRecorder(replica=len(engines)))
+    return Router(engines, metrics=metrics,
+                  ft=FTConfig() if args.ft else None,
+                  spans=recorders[-1] if recorders else None)
+
+
+def _replica0(eng):
+    """The engine itself, or a router's first replica."""
+    return eng.engines[0] if isinstance(eng, Router) else eng
+
+
 def _ttft(r: Request) -> Optional[float]:
     """Submit to first token (the legacy engine keeps no trace)."""
     if r.trace is not None:
@@ -202,23 +265,24 @@ def _ttft(r: Request) -> Optional[float]:
 
 def serve(args, cfg=None, params=None, eng=None,
           reqs: Optional[List[Request]] = None, on_step=None) -> Dict:
-    """Serve ``reqs`` (by default ``requests(args, cfg)``) on ``eng`` if
-    given, else on a new engine (``engine``); returns the finished
-    requests, the engine and the measured wall time, tokens/s and TTFT.
-    ``on_step`` goes to the paged engine's ``run``."""
+    """Serve ``reqs`` (by default ``requests(args, cfg)``) on ``eng`` (an
+    engine or a ``Router``) if given, else on a new engine (``engine``);
+    returns the finished requests, the engine and the measured wall
+    time, tokens/s and TTFT. ``on_step`` goes to the paged engine's or
+    the router's ``run``."""
     if eng is None:
         if cfg is None:
             cfg, params = build(args)
         eng = engine(args, cfg, params)
-    cfg = eng.cfg
+    cfg, device = _replica0(eng).cfg, _replica0(eng).device
     if reqs is None:
         reqs = requests(args, cfg)
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     done = eng.run() if on_step is None else eng.run(on_step=on_step)
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     tokens = sum(len(r.out_tokens) for r in done)
     ttft = obs_trace.percentiles([t for t in map(_ttft, done)
@@ -237,17 +301,28 @@ def warm(args, cfg, params) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.model_parallel > 1:
+        ap.error("--model-parallel above 1 needs a mesh, which is not "
+                 "ported yet")
+    routed = args.replicas > 1 and not args.legacy
     rep = Reporter()
     metrics = obs.MetricsRegistry()
     tracing = args.trace_out is not None and not args.legacy
-    recorders = [spans_lib.SpanRecorder(replica=0)] if tracing else []
+    recorders = ([spans_lib.SpanRecorder(replica=i)
+                  for i in range(max(args.replicas, 1) if routed else 1)]
+                 if tracing else [])
     if args.kernel_timing:
         obs.enable_kernel_timing(metrics)
     try:
         cfg, params = build(args)
-        eng = engine(args, cfg, params, metrics=metrics,
-                     spans=recorders[0] if tracing else None)
+        if routed:
+            eng = router(args, cfg, params, metrics=metrics,
+                         recorders=recorders, rep=rep)
+        else:
+            eng = engine(args, cfg, params, metrics=metrics,
+                         spans=recorders[0] if tracing else None)
         on_step = (rep.periodic(metrics, every_s=args.metrics_every)
                    if args.metrics and not args.legacy else None)
         res = serve(args, eng=eng, on_step=on_step)
@@ -255,22 +330,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.kernel_timing:
             obs.disable_kernel_timing()
     done = res["done"]
-    rep.line(f"arch={args.arch} attn={cfg.attn_impl} "
-             f"engine={'legacy' if args.legacy else 'paged'} "
-             f"reduced={args.reduced} device={eng.device} "
+    kind = "legacy" if args.legacy else "router" if routed else "paged"
+    rep.line(f"arch={args.arch} attn={cfg.attn_impl} engine={kind} "
+             f"reduced={args.reduced} device={_replica0(eng).device} "
              f"requests={len(done)} tokens={res['tokens']} "
              f"wall={res['wall_s']:.3f}s tok/s={res['tok_s']:.1f} "
              f"ttft_p50={res['ttft_s']['p50']:.4f}s")
-    if not args.legacy:
+    if routed:
+        rep.line(f"  router: {eng.describe()}")
+        rep.line(f"  replica0 report: {eng.engines[0].cache_report()}")
+    elif not args.legacy:
         rep.line(f"  sched: {dict(eng.sched.stats)}  "
                  f"report: {eng.cache_report()}")
-        if eng.prefix is not None:
-            v = metrics.value_sum
-            rep.line(f"  prefix: hits={int(v('prefix_hits_total'))} "
-                     f"hit_tokens={int(v('prefix_hit_tokens_total'))} "
-                     f"cow_forks={int(v('prefix_cow_forks_total'))} "
-                     f"evictions={int(v('prefix_evictions_total'))} "
-                     f"cache_bytes={int(v('prefix_cache_bytes'))}")
+    if not args.legacy and _replica0(eng).prefix is not None:
+        v = metrics.value_sum
+        rep.line(f"  prefix: hits={int(v('prefix_hits_total'))} "
+                 f"hit_tokens={int(v('prefix_hit_tokens_total'))} "
+                 f"cow_forks={int(v('prefix_cow_forks_total'))} "
+                 f"evictions={int(v('prefix_evictions_total'))} "
+                 f"cache_bytes={int(v('prefix_cache_bytes'))}")
     for r in done[:3]:
         rep.line(f"  req{r.uid}: finish={r.finish_reason or 'done'} "
                  f"out={r.out_tokens[:8]}...")

@@ -76,10 +76,12 @@ class Request:
     enc_emb: Optional[np.ndarray] = None  # enc-dec input (not ported)
     deadline: Optional[float] = None # seconds after submit; overdue WAITING
     #                                  requests finish as 'timeout'
+    max_retries: int = 2             # replica-failure rescue budget
     namespace: str = ""              # tenant id
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
-    finish_reason: str = ""          # eos | length | timeout
+    finish_reason: str = ""          # eos | length | timeout | shed | failed
+    retries: int = 0                 # rescues consumed (ft router)
     deadline_at: Optional[float] = None
     t_submit: float = 0.0            # perf_counter stamps
     t_first: float = 0.0
@@ -749,6 +751,18 @@ class Engine:
     def usable_slots(self) -> int:
         """Slot-domain slots available to requests (slot 0 is null)."""
         return max(self.sched.num_slots - 1, 1)
+
+    @property
+    def free_fraction(self) -> float:
+        """Fraction of the binding pool currently free (the router's
+        pressure signal): the minimum over the domains the plan
+        allocates from."""
+        fr = []
+        if self.plan.has_paged:
+            fr.append(self.free_pages / self.usable_pages)
+        if self.sched.slot_alloc is not None:
+            fr.append(self.free_slots / self.usable_slots)
+        return min(fr) if fr else 1.0
 
     def cache_report(self, max_len: Optional[int] = None) -> Dict:
         ml = max_len or (self.sched_cfg.table_width * self.sched_cfg.page_size)
