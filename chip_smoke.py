@@ -7,7 +7,9 @@ prefix cache), with SRF attention, and with seeded SRF attention
 through the legacy per-slot engine beside the paged one, through the
 request router with fault-tolerant serving and a chaos fault on one of
 two replicas, and through the serve CLI with kernel timing and a Chrome
-trace, then trains full-width qwen3-4b with SRF and with full attention.
+trace, serves full-width mamba2-2.7b (SSD) and hymba-1.5b (hybrid) and
+the three other dense configs, then trains full-width qwen3-4b with SRF
+and with full attention.
 
     python3 chip_smoke.py
 
@@ -26,7 +28,10 @@ result line):
      kernels run on the tensor cores (``csrc/window_mma.cuh``, shared
      with circulant_project); srf_decode at (B=8, H=32,
      m=256, dv=128) and two ragged shapes. Tolerance: max|kernel - plain|
-     <= 1e-4 * max|plain| in f32, 2e-2 * max|plain| in bf16.
+     <= 1e-4 * max|plain| in f32, 2e-2 * max|plain| in bf16; the serving
+     shapes' ``exp`` outputs (the keys' features, spanning decades)
+     element by element: |kernel - plain| <= rtol (|plain| +
+     mean|plain|), rtol 1e-4 in f32, 2e-2 in bf16 (``check_exp``).
    * paged_gather (bf16, f32, int8 pools) and paged_gather_dequant (int8
      -> bf16, f32; one pool, and a layer's K and V in one launch through
      paged_gather_dequant_kv) at the full-width decode shape (R=8, M=16,
@@ -65,8 +70,15 @@ result line):
      512 with ``exp``): against the plain version, timed beside it and
      its bound, and the plain backward that training runs after each
      forward (the VJP with respect to g, x, d0, d1; seeded: x) timed.
-     The key's ``exp`` features span decades, so they are held element
-     by element (``check_rel``), not against their largest value.
+     The key's ``exp`` features are held element by element
+     (``check_exp``), not against their largest value.
+   * kernels 1, 2, 4 and 5 at hymba-1.5b's shapes
+     (``phase_hymba_kernels``): the spinner at n=64, m=256, G=5 kv heads
+     (decode query B=40, key B=8; bf16), srf_decode at (B=8, H=25,
+     m=256, dv=64), paged_gather on bf16 rows of D=5*64=320 and
+     paged_gather_dequant_kv on int8 rows of 320 (R=8, M=16, P=16,
+     N=257, 32 layer pools cycled; bit-equal), timed beside their plain
+     versions and bounds.
    Times: CUDA events over back-to-back launches queued behind a device
    sleep, median of 5 repeats (3 for the circulant); the gathers cycle
    through 36 layer pools, as a decode step does, so pages come from HBM.
@@ -162,6 +174,32 @@ result line):
    per kernel and tok/s of the three runs printed; one timed dispatch
    each of ``ops.fwht`` and ``ops.circulant_project`` at the library
    shapes.
+   The SSD and hybrid families (``phase_reduced_families``): reduced
+   mamba2-2.7b and hymba-1.5b (f32, 2 layers; hymba with full KV, int8
+   pages and SRF), 8 mixed-length requests greedy and sampled through
+   the paged and the legacy engine: card tokens == CPU tokens, paged ==
+   legacy (int8: card == CPU only), the cell's kernels launched (mamba2
+   none); hymba's prefix scenarios (hit, partial, miss, evict, cow):
+   tokens equal cold and CPU, counters equal the CPU's; hymba's chaos
+   cells (raise, hang, reject, oom): tokens equal the undisturbed
+   engine's and the CPU's, counters the CPU's. Then full width, 8
+   greedy requests of 128 + 32 tokens, 8 slots, max_len 256:
+   mamba2-2.7b (64 layers, 80 SSD heads of 64, state 128) through the
+   paged and the legacy engine, no kernel launched
+   (``phase_serve_ssd``); hymba-1.5b (32 layers, 25
+   q / 5 kv heads of 64 beside 50 SSD heads, state 16;
+   ``phase_serve_hybrid``) with full KV (paged_gather exactly 64 a
+   step), int8 pages (paged_gather_dequant_kv exactly 32 a step), SRF
+   (the spinner at least 64 a step, srf_decode exactly 32 a decode
+   step), the legacy engine with full KV, and the prefix cache (a donor
+   of the 96 shared tokens, then the 8 requests: 768 hit tokens). Each
+   run prints tok/s, TTFT p50, peak memory and the slot- and
+   paged-domain pool bytes; the first-token logits of the two engines
+   agree within ``FAMILY_LOGIT_TOL``, each engine's with an f32 copy's
+   prefill too. Then qwen2.5-14b, mistral-nemo-12b and internlm2-20b at
+   full width, one after another (``phase_serve_dense_configs``): full
+   KV, 4 greedy requests of 128 + 16 tokens, paged_gather exactly 2 a
+   layer a step; tok/s, TTFT p50, peak memory.
 5. Train (after freeing the serving memory). Full-width, full-depth
    qwen3-4b (bf16, remat full, B = 8, seq = 64, the training launcher's
    defaults), random weights, 5 steps of ``launch.steps.make_train_step``
@@ -189,7 +227,10 @@ result line):
    run), fwht and circulant_project one timed dispatch; the spinner,
    srf_decode and paged_gather records carry their launches in the
    full-width router run (b), the int8 gather's its launches in the
-   reduced int8 router cells (``router_*``).
+   reduced int8 router cells (``router_*``); the spinner, srf_decode and
+   both gathers their time at hymba-1.5b's shapes and their launches in
+   its serve runs (``hymba_*``), paged_gather its launches in the dense
+   configs' runs (``dense_*``).
    ``library_ms`` is ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
    for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
@@ -294,6 +335,17 @@ def check_rel(name: str, k: torch.Tensor, p: torch.Tensor,
     return diff.max().item()
 
 
+def check_exp(name: str, k: torch.Tensor, p: torch.Tensor, dtype,
+              epilogue: str) -> float:
+    """A spinner output against its plain version: the exp epilogue's
+    features span decades (a typical one far below the largest), so they
+    are checked element by element (``check_rel`` at the dtype's
+    tolerance); the others against their largest value (``check``)."""
+    if epilogue == "exp":
+        return check_rel(name, k, p, TOL[dtype])
+    return check(name, k, p, dtype)
+
+
 def exact(name: str, k: torch.Tensor, p: torch.Tensor) -> None:
     """Bit equality (same shape, dtype and bits)."""
     if k.shape != p.shape or k.dtype != p.dtype or not torch.equal(k, p):
@@ -387,7 +439,7 @@ def phase_spinner(gen):
             k = kspin.spinner_project_cuda(*args, **kw)
             pl = ref.spinner_project_ref(*args, **kw)
             name = f"spinner {label} {str(dtype)[6:]} (G={gsz}, B={bsz})"
-            err = check(name, k, pl, dtype)
+            err = check_exp(name, k, pl, dtype, epi)
             k_ms = device_ms(lambda: kspin.spinner_project_cuda(*args, **kw))
             p_ms = device_ms(lambda: ref.spinner_project_ref(*args, **kw),
                              launches=10, repeats=3)
@@ -513,7 +565,7 @@ def phase_seeded_spinner(gen):
                                                 **kw)
             name = (f"seeded spinner {label} {str(dtype)[6:]} "
                     f"(G={gsz}, B={bsz})")
-            err = check(name, k, pl, dtype)
+            err = check_exp(name, k, pl, dtype, epi)
             twin = _materialized_twin("circulant", seeds, x, m, epi, 1.0,
                                       m ** -0.5)
             equal += _against_twin(name, k, twin, dtype)
@@ -656,11 +708,8 @@ def phase_spinner_train(gen):
                     "circulant", seeds, x, m, **kw),
                  seeded_bwd, seeded_bound("circulant", gsz, bsz, n, m,
                                           x.element_size(), m))):
-            # exp features span decades (mean ~0.06, max ~1e4): checked
-            # element by element; the identity's against its largest value
             what = f"{name} {label} bf16 (G={gsz}, B={bsz})"
-            err = (check_rel(what, kernel(), plain()) if epi == "exp"
-                   else check(what, kernel(), plain(), dtype))
+            err = check_exp(what, kernel(), plain(), dtype, epi)
             k_ms = device_ms(kernel)
             p_ms = device_ms(plain, launches=10, repeats=3)
             b_ms = device_ms(backward, launches=10, repeats=3)
@@ -1246,11 +1295,11 @@ def phase_estimators(gen):
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def serve_args(attn=None, **kw):
-    """The serve CLI's arguments: qwen3-4b, ``--attn`` only if given (the
+def serve_args(attn=None, arch="qwen3-4b", **kw):
+    """The serve CLI's arguments: ``arch``, ``--attn`` only if given (the
     config's own ``full`` otherwise), then ``kw`` as flags."""
     from repro_torch.launch import serve
-    argv = ["--arch", "qwen3-4b"] + (["--attn", attn] if attn else [])
+    argv = ["--arch", arch] + (["--attn", attn] if attn else [])
     for k, v in kw.items():
         if v is False:
             continue
@@ -1404,10 +1453,14 @@ def _steps(eng):
 
 def _describe(cfg, params, t0):
     n_params = sum(t.numel() for t in _leaves(params))
+    attn = "" if cfg.family == "ssm" else (
+        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, "
+        f"attention {cfg.attn_impl}, ")
+    ssd = (f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+           f"{cfg.ssm_state}, " if cfg.family in ("ssm", "hybrid") else "")
     log(f"  full-width {cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
-        f"{cfg.head_dim}, {cfg.dtype}, {n_params / 1e9:.3f} B params, "
-        f"attention {cfg.attn_impl}; init {time.perf_counter() - t0:.1f} s")
+        f"{cfg.d_model}, {attn}{ssd}{cfg.dtype}, {n_params / 1e9:.3f} B "
+        f"params; init {time.perf_counter() - t0:.1f} s")
 
 
 def phase_serve_kv():
@@ -1645,6 +1698,13 @@ def _mixed_requests(cfg, temperature):
         for i in range(8)]
 
 
+def _drive(eng, reqs):
+    """Submit ``reqs`` and run ``eng`` dry: {uid: tokens}."""
+    for r in reqs:
+        eng.submit(r)
+    return {r.uid: r.out_tokens for r in eng.run()}
+
+
 def phase_reduced_legacy():
     """Reduced qwen3-4b (f32, 2 layers) through the legacy engine, with
     full KV, an int8 KV cache, SRF and seeded SRF, greedy and sampled
@@ -1659,11 +1719,6 @@ def phase_reduced_legacy():
     from repro_torch.models import transformer as model_lib
     from repro_torch.serving import Engine, PagedConfig
     legacy = _legacy_module()
-
-    def drive(eng, reqs):
-        for r in reqs:
-            eng.submit(r)
-        return {r.uid: r.out_tokens for r in eng.run()}
     for label, over, seeded in LEGACY_REDUCED:
         cfg = registry.reduced("qwen3-4b", n_layers=2, **over)
         if seeded:
@@ -1672,13 +1727,13 @@ def phase_reduced_legacy():
         card = _to(cpu, "cuda")
         for t in (0.0, 0.8):
             kind = "sampled" if t else "greedy"
-            want = drive(legacy.Engine(cfg, cpu, batch_slots=4, max_len=64,
-                                       seed=5, device="cpu"),
-                         _mixed_requests(cfg, t))
+            want = _drive(legacy.Engine(cfg, cpu, batch_slots=4,
+                                        max_len=64, seed=5, device="cpu"),
+                          _mixed_requests(cfg, t))
             ops.reset_counts()
-            got = drive(legacy.Engine(cfg, card, batch_slots=4, max_len=64,
-                                      seed=5, device="cuda"),
-                        _mixed_requests(cfg, t))
+            got = _drive(legacy.Engine(cfg, card, batch_slots=4,
+                                       max_len=64, seed=5, device="cuda"),
+                         _mixed_requests(cfg, t))
             counts = ops.launch_counts()
             if got != want or len(got) != 8:
                 raise AssertionError(f"reduced legacy {label} {kind}: card "
@@ -1696,9 +1751,9 @@ def phase_reduced_legacy():
                     "per-head quantization)")
                 continue
             quant = PagedConfig(quantize_kv="kv_cache_dtype" in over)
-            paged = drive(Engine(cfg, card, batch_slots=4, max_len=64,
-                                 seed=5, device="cuda", paged=quant),
-                          _mixed_requests(cfg, t))
+            paged = _drive(Engine(cfg, card, batch_slots=4, max_len=64,
+                                  seed=5, device="cuda", paged=quant),
+                           _mixed_requests(cfg, t))
             if paged != got:
                 diverge = {u: next((i for i, (a, b) in enumerate(zip(
                     paged[u], got[u])) if a != b), None) for u in got
@@ -1856,7 +1911,8 @@ def _f32_first_logits(cfg, params, args):
     p32 = _to_dtype(params, torch.float32)
     out = {}
     for r in serve.requests(args, cfg):
-        cache = model_lib.init_serve_cache(cfg32, 1, args.max_len)
+        cache = model_lib.init_serve_cache(cfg32, 1, args.max_len,
+                                           device="cuda")
         tokens = torch.as_tensor(r.prompt[None], device="cuda")
         logits, _ = model_lib.prefill(p32, cfg32, {"tokens": tokens}, cache)
         out[r.uid] = logits[0, -1, :cfg.vocab].float().cpu()
@@ -2495,6 +2551,533 @@ def phase_kernel_timing(out_dir):
 
 
 # ---------------------------------------------------------------------------
+# the SSD and hybrid families, and the other dense configs
+# ---------------------------------------------------------------------------
+
+# hymba-1.5b's serving shapes: 8 requests, 5 kv heads of 64 (25 q heads,
+# a group of 5), SRF m = 256; KV rows of 5 x 64 = 320; 257 pages of 16
+HYMBA = dict(rows=8, kv_heads=5, q_heads=25, hd=64, m=256, layers=32,
+             pages=257, page=16, width=16)
+
+
+def phase_hymba_kernels(gen):
+    """Kernels 1, 2, 4 and 5 at the shapes hymba-1.5b's serving path gives
+    them: the spinner (circulant n = 64, m = 256, G = 5 kv heads; decode
+    query B = 8 requests x a group of 5 = 40 rows, identity; decode key
+    B = 8, exp; bf16), srf_decode (B = 8, H = 25, m = 256, dv = 64, f32),
+    paged_gather (bf16 rows of D = 320, R = 8, M = 16, P = 16, N = 257,
+    32 layer pools cycled) and paged_gather_dequant_kv (int8 -> bf16, a
+    layer's K and V in one launch): against their plain versions (the
+    tolerance of phase 2; the gathers bit-equal), timed beside them and
+    their bounds. Returns {kernel: record}."""
+    from repro_torch.kernels import paged_gather as kpg, ref
+    from repro_torch.kernels import spinner as kspin, srf_decode as kdec
+    h = HYMBA
+    dev = "cuda"
+    out = {}
+    n, m, gsz = h["hd"], h["m"], h["kv_heads"]
+    group = h["q_heads"] // gsz
+    for label, bsz, epi in (("decode query", h["rows"] * group, "identity"),
+                            ("decode key", h["rows"], "exp")):
+        x, p = spinner_inputs("circulant", gsz, bsz, n, m, torch.bfloat16,
+                              gen)
+        args = ("circulant", p["g"], x, m)
+        kw = dict(d0=p["d0"], d1=p["d1"], epilogue=epi, out_scale=m ** -0.5)
+        err = check_exp(f"hymba spinner {label} bf16 (G={gsz}, B={bsz}, "
+                        f"n={n}, m={m})", kspin.spinner_project_cuda(*args,
+                                                                     **kw),
+                        ref.spinner_project_ref(*args, **kw), torch.bfloat16,
+                        epi)
+        k_ms = device_ms(lambda: kspin.spinner_project_cuda(*args, **kw))
+        p_ms = device_ms(lambda: ref.spinner_project_ref(*args, **kw),
+                         launches=10, repeats=3)
+        b_ms, b_by = spinner_bound("circulant", gsz, bsz, n, m, 2,
+                                   p["g"][0].numel(), m)
+        log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        out[f"spinner {label}"] = dict(err=err, ms=k_ms, plain_ms=p_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+    b, hq, dv = h["rows"], h["q_heads"], h["hd"]
+    phi = lambda: torch.rand((b, hq, m), generator=gen, device=dev) / 16  # noqa
+    s = torch.randn((b, hq, m, dv), generator=gen, device=dev) * 4
+    z = phi() * 128
+    pq, pk = phi(), phi()
+    v = torch.randn((b, hq, dv), generator=gen, device=dev)
+    want = ref.srf_decode_ref(s, z, pq, pk, v)
+    got = kdec.srf_decode_cuda(s.clone(), z.clone(), pq, pk, v)
+    err = max(check(f"hymba srf_decode {part} (B={b}, H={hq}, m={m}, "
+                    f"dv={dv})", k, p_, torch.float32)
+              for part, k, p_ in zip(("S'", "z'", "out"), got, want))
+    s2, z2 = s.clone(), z.clone()
+    k_ms = device_ms(lambda: kdec.srf_decode_cuda(s2, z2, pq, pk, v))
+    p_ms = device_ms(lambda: ref.srf_decode_ref(s, z, pq, pk, v),
+                     launches=20, repeats=3)
+    byts = 4 * (2 * b * hq * m * dv + 2 * b * hq * m + 2 * b * hq * m
+                + 2 * b * hq * dv)
+    b_ms, b_by = bound(byts, 4.0 * b * hq * m * dv + 4.0 * b * hq * m)
+    log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound {b_ms:.5f} "
+        f"ms ({b_by})")
+    out["srf_decode"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+    nl, npg, pg, d = h["layers"], h["pages"], h["page"], h["kv_heads"] * dv
+    r, w = h["rows"], h["width"]
+    tables = torch.randint(1, npg, (r, w), generator=gen, device=dev)
+    pools = _layer_pools(nl, npg, pg, d, torch.bfloat16, gen)
+    exact(f"hymba paged_gather bf16 (N={npg}, P={pg}, D={d}, R={r}, M={w})",
+          kpg.paged_gather_cuda(pools[0], tables),
+          ref.paged_gather_ref(pools[0], tables))
+    rows = r * w * pg
+    g_ms = device_ms(_cycle(lambda a: kpg.paged_gather_cuda(a, tables),
+                            pools))
+    g_plain = device_ms(_cycle(lambda a: ref.paged_gather_ref(a, tables),
+                               pools))
+    g_lib = device_ms(_cycle(lambda a: a[tables], pools))
+    g_b, g_by = bound(2 * rows * d * 2, 0)
+    log(f"    kernel {g_ms:.5f} ms  plain {g_plain:.5f} ms  pool[tables] "
+        f"{g_lib:.5f} ms  bound {g_b:.5f} ms ({g_by})")
+    out["paged_gather"] = dict(err=0.0, ms=g_ms, plain_ms=g_plain,
+                               library_ms=g_lib, bound_ms=g_b, bound_by=g_by)
+    del pools
+    q = _layer_pools(2 * nl, npg, pg, d, torch.int8, gen)
+    sc = [torch.rand((npg, pg, 1), generator=gen, device=dev) / 127
+          for _ in range(2 * nl)]
+    layers = [((q[2 * i], sc[2 * i]), (q[2 * i + 1], sc[2 * i + 1]))
+              for i in range(nl)]
+    _dequant_exact(f"hymba (N={npg}, P={pg}, D={d}, R={r}, M={w})",
+                   q[0], sc[0], q[1], sc[1], tables)
+    bf = torch.bfloat16
+    kv_ms = device_ms(_cycle(lambda a: kpg.paged_gather_dequant_kv_cuda(
+        a[0][0], a[0][1], a[1][0], a[1][1], tables, bf), layers))
+    kv_plain = device_ms(_cycle(lambda a: [
+        ref.paged_gather_dequant_ref(qq, ss, tables, bf) for qq, ss in a],
+        layers))
+    kv_b, kv_by = bound(2 * (rows * d + 4 * rows + 2 * rows * d),
+                        2 * rows * d)
+    log(f"    paged_gather_dequant_kv int8->bf16: kernel {kv_ms:.5f} ms "
+        f"({100 * kv_b / kv_ms:.0f}% of bound)  plain {kv_plain:.5f} ms  "
+        f"bound {kv_b:.5f} ms ({kv_by})")
+    out["paged_gather_dequant"] = dict(err=0.0, ms=kv_ms, plain_ms=kv_plain,
+                                       library_ms=None, bound_ms=kv_b,
+                                       bound_by=kv_by)
+    del q, sc, layers
+    torch.cuda.empty_cache()
+    return out
+
+
+# reduced family cells: (label, arch, config overrides, int8 pages)
+FAMILIES_REDUCED = [("mamba2 ssd", "mamba2-2.7b", {}, False),
+                    ("hymba full KV", "hymba-1.5b", {}, False),
+                    ("hymba int8 pages", "hymba-1.5b", {}, True),
+                    ("hymba SRF", "hymba-1.5b", {"attn_impl": "srf"}, False)]
+# the kernels each reduced cell's card run must launch (and no other)
+FAMILY_PATHS = {"mamba2 ssd": set(), "hymba full KV": {"paged_gather"},
+                "hymba int8 pages": {"paged_gather_dequant_kv"},
+                "hymba SRF": {"spinner", "srf_decode"}}
+PREFIX_SCENARIOS = ("hit", "partial", "miss", "evict", "cow")
+PREFIX_COUNTERS = ("prefix_lookups_total", "prefix_hits_total",
+                   "prefix_hit_tokens_total", "prefix_cow_forks_total",
+                   "prefix_evictions_total", "prefix_inserted_pages_total",
+                   "engine_prefill_tokens_total")
+
+
+def _prefix_waves(cfg, scenario):
+    """tests/test_prefix_serving.py's waves: a donor of 36 tokens, then 5
+    requests that extend it (hit, evict, cow), diverge inside it
+    (partial) or share nothing (miss)."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, cfg.vocab, 36).astype(np.int32)
+    tails = [rng.integers(1, cfg.vocab, 3 + i).astype(np.int32)
+             for i in range(5)]
+    donors = [Request(uid=100, prompt=shared.copy(), max_new=2)]
+    if scenario == "partial":
+        wave = [Request(uid=i, prompt=np.concatenate([shared[:20], t, t]),
+                        max_new=6) for i, t in enumerate(tails)]
+    elif scenario == "miss":
+        wave = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, 20 + i)
+                        .astype(np.int32), max_new=6) for i in range(5)]
+    else:
+        wave = [Request(uid=i, prompt=np.concatenate([shared, t]), max_new=6)
+                for i, t in enumerate(tails)]
+    return donors, wave
+
+
+def _prefix_run(cfg, params, device, scenario, prefix):
+    """The donor wave, then the measured wave, through one engine:
+    (tokens, prefix counters, engine)."""
+    from repro_torch.serving import (ChunkConfig, Engine, PrefixConfig,
+                                     SchedConfig)
+    kw = dict(batch_slots=4, max_len=64)
+    if scenario == "evict":
+        kw["sched"] = SchedConfig(max_batch=2, prefill_batch=2,
+                                  prefill_chunk=16, page_size=8,
+                                  num_pages=12, table_width=7)
+    eng = Engine(cfg, params, device=device, **kw, prefix=PrefixConfig(
+        chunk=ChunkConfig(chunk_tokens=16)) if prefix else None)
+    donors, wave = _prefix_waves(cfg, scenario)
+    _drive(eng, donors)
+    toks = _drive(eng, wave)
+    v = eng.metrics.value_sum
+    return toks, {c: int(v(c)) for c in PREFIX_COUNTERS}, eng
+
+
+def phase_reduced_families():
+    """Reduced mamba2-2.7b and hymba-1.5b (f32, 2 layers; hymba with full
+    KV, int8 pages and SRF) on the card and on the CPU. (1) 8
+    mixed-length requests through the paged engine and through the
+    legacy engine, greedy and sampled (temperature 0.8, engine seed 5):
+    card tokens equal CPU tokens, and on the card paged == legacy (int8
+    pages: the legacy int8 cache held card == CPU only, as the reference's
+    two engines part on hymba); the card's paged runs launch the cell's
+    kernels (mamba2: none) and no plain route. (2) hymba's prefix-cache
+    scenarios (hit, partial, miss, evict, cow): warm card tokens equal
+    the cold engine's and the CPU's, the prefix counters equal the CPU
+    run's, hit tokens only where a donor's state point lies inside the
+    prompt, no page or slot left after ``drop_all``. (3) hymba's chaos
+    cells (raise, hang, reject, oom at replica 1's 4th step; 2 replicas
+    of 2 slots): tokens equal to the undisturbed engine's on the card and
+    to the CPU route's, router counters equal the CPU run's."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serving import Engine, PagedConfig
+    legacy = _legacy_module()
+    for label, arch, over, quant in FAMILIES_REDUCED:
+        cfg = registry.reduced(arch, n_layers=2, **over)
+        cpu = model_lib.init(cfg, seed=3, device="cpu")
+        card = _to(cpu, "cuda")
+        lcfg = dataclasses.replace(cfg, kv_cache_dtype="int8") if quant \
+            else cfg
+        for t in ((0.0,) if quant else (0.0, 0.8)):
+            kind = "sampled" if t else "greedy"
+            got = {}
+            for where, device, params in (("CPU", "cpu", cpu),
+                                          ("card", "cuda", card)):
+                ops.reset_counts()
+                got[where] = _drive(Engine(
+                    cfg, params, batch_slots=4, max_len=64, seed=5,
+                    device=device, paged=PagedConfig(quantize_kv=quant)),
+                    _mixed_requests(cfg, t))
+                counts = ops.launch_counts()
+                got[where + " legacy"] = _drive(legacy.Engine(
+                    lcfg, params, batch_slots=4, max_len=64, seed=5,
+                    device=device), _mixed_requests(cfg, t))
+            _check_path_launches(f"reduced {label} {kind}", counts,
+                                 FAMILY_PATHS[label])
+            if got["card"] != got["CPU"] or len(got["card"]) != 8 or \
+                    got["card legacy"] != got["CPU legacy"]:
+                raise AssertionError(f"reduced {label} {kind}: card tokens "
+                                     f"differ from the CPU's: {got}")
+            if not quant and got["card"] != got["card legacy"]:
+                raise AssertionError(f"reduced {label} {kind}: paged != "
+                                     f"legacy on the card: {got}")
+            log(f"  reduced {label} {kind}: paged and legacy card tokens == "
+                f"CPU tokens ({sum(map(len, got['card'].values()))} tokens)"
+                + ("" if quant else "; paged == legacy on the card"))
+
+    cfg = registry.reduced("hymba-1.5b", n_layers=2)
+    cpu = model_lib.init(cfg, seed=3, device="cpu")
+    card = _to(cpu, "cuda")
+    for scenario in PREFIX_SCENARIOS:
+        cold, _, _ = _prefix_run(cfg, card, "cuda", scenario, False)
+        want, want_c, _ = _prefix_run(cfg, cpu, "cpu", scenario, True)
+        got, got_c, eng = _prefix_run(cfg, card, "cuda", scenario, True)
+        hit = got_c["prefix_hit_tokens_total"]
+        if got != want or got != cold or got_c != want_c or \
+                (hit > 0) != (scenario in ("hit", "evict", "cow")):
+            raise AssertionError(f"reduced hymba prefix {scenario}: card "
+                                 f"{got} {got_c}, cold {cold}, CPU {want} "
+                                 f"{want_c}")
+        eng.prefix.drop_all()
+        if eng.sched.alloc.used_pages or eng.sched.slot_alloc.used_pages:
+            raise AssertionError(f"reduced hymba prefix {scenario}: leak")
+        log(f"  reduced hymba prefix {scenario}: card tokens == cold == CPU, "
+            f"counters == CPU's: {got_c}")
+
+    rng = np.random.default_rng(0)
+    blue = [rng.integers(1, cfg.vocab, int(rng.integers(4, 20)))
+            .astype(np.int32) for _ in range(8)]
+    base = _undisturbed(cfg, card, "cuda", blue, False)
+    for kind in KINDS:
+        ops.reset_counts()
+        res = _reduced_chaos(f"reduced hymba chaos {kind}", cfg, card,
+                             "cuda", blue, kind, False)
+        counts = ops.launch_counts()
+        ref = _reduced_chaos(f"reduced hymba chaos {kind} (CPU)", cfg, cpu,
+                             "cpu", blue, kind, False)
+        _check_path_launches(f"reduced hymba chaos {kind}", counts,
+                             {"paged_gather"})
+        if res["tokens"] != base or res["tokens"] != ref["tokens"] or \
+                res["counters"] != ref["counters"] or \
+                res["extra"] != {i: base[i] for i in range(2)}:
+            raise AssertionError(f"reduced hymba chaos {kind}: card {res}, "
+                                 f"CPU {ref}, undisturbed {base}")
+        log(f"  reduced hymba chaos {kind}: rescued == undisturbed == CPU, "
+            f"counters {res['counters']} == CPU's")
+
+
+def _pool_bytes(eng):
+    """(slot-domain bytes, paged-domain bytes) of an engine's pools."""
+    def total(part):
+        return sum(t.numel() * t.element_size()
+                   for seg in eng.pools[part] if seg is not None
+                   for t in _leaves(seg))
+    return total("slot"), total("paged")
+
+
+FAMILY_TRAFFIC = dict(requests=8, prompt_len=128, max_new=32, slots=8,
+                      max_len=256, seed=0, device="cuda")
+
+
+def _agreement(a, b):
+    """Share of generated positions with equal tokens (by uid)."""
+    ta = {r.uid: r.out_tokens for r in a["done"]}
+    tb = {r.uid: r.out_tokens for r in b["done"]}
+    same = sum(x == y for u in ta for x, y in zip(ta[u], tb[u]))
+    return same / sum(map(len, ta.values()))
+
+
+def _family_run(label, a, cfg, params, expect=None, eng=None, reqs=None):
+    """One counted serve run of ``a`` (counts set to 0 just before, read
+    just after; ``reqs`` on ``eng`` when given): every request finished
+    with ``a.max_new`` tokens, every logit row finite, the launches as
+    ``expect`` says (``_expect_launches``) when given. Prints tok/s,
+    TTFT, peak memory and the pools' bytes; returns the result with its
+    counts and peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    res = serve.serve(a, cfg, params, eng=eng, reqs=reqs)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eng = res["engine"]
+    n_req = a.requests if reqs is None else len(reqs)
+    bad = [r.uid for r in res["done"] if len(r.out_tokens) != a.max_new]
+    if len(res["done"]) != n_req or bad or eng.nonfinite_rows:
+        raise AssertionError(f"{label}: requests not finished with "
+                             f"{a.max_new} tokens {bad}, or "
+                             f"{eng.nonfinite_rows} non-finite rows")
+    if expect is not None:
+        _expect_launches(label, counts, dict(expect))
+    out = {k: res[k] for k in ("done", "tokens", "wall_s", "tok_s",
+                                "ttft_s")}
+    out.update(counts=counts, peak_gib=peak)
+    if a.legacy:
+        log(f"  {label}: {len(res['done'])} requests, {res['tokens']} "
+            f"tokens in {res['wall_s']:.3f} s: {res['tok_s']:.2f} tok/s, "
+            f"TTFT p50 {res['ttft_s']['p50']:.4f} s, peak {peak:.2f} GiB")
+    else:
+        slot_b, page_b = _pool_bytes(eng)
+        _serve_line(label, res, _steps(eng), peak)
+        log(f"    pools: slot domain {slot_b} B ({eng.sched.num_slots} "
+            f"slots), paged domain {page_b} B; cache_report "
+            f"{eng.cache_report()}")
+        out.update(steps=_steps(eng),
+                   decode_steps=int(eng.stats["decode_steps"]),
+                   slot_bytes=slot_b, page_bytes=page_b)
+    log(f"    launches: {counts}")
+    return out
+
+
+# first-token logits as a share of the row's largest |logit|: (the two
+# bf16 engines against each other, each against an f32 copy's prefill).
+# A first card run measured mamba2-2.7b 0.073 and 0.076-0.085 (64 SSD
+# layers; the paged engine's chunks of 16 against one legacy chunk of
+# 128), hymba-1.5b 0.031 and 0.034-0.035; the limits bound a broken
+# engine (an O(1) error), at about twice those.
+FAMILY_LOGIT_TOL = {"ssm": (0.15, 0.2), "hybrid": (0.075, 0.1)}
+
+
+def _first_logit_gap(label, paged, legacy, f32, family):
+    """Worst, over requests, of max|a - b| over the row's largest |a| of
+    the first-token logits of the two bf16 engines (``first_logits``
+    records) against each other and against an f32 copy's prefill
+    (``_f32_first_logits``): {pair: worst share}."""
+    pairs = {"legacy-paged": (legacy.rows, paged.rows),
+             "f32-legacy": (f32, legacy.rows), "f32-paged": (f32, paged.rows)}
+    gaps = {k: max(float((a[u] - b[u]).abs().max() / a[u].abs().max())
+                   for u in a) for k, (a, b) in pairs.items()}
+    engines, anchor = FAMILY_LOGIT_TOL[family]
+    limits = {"legacy-paged": engines, "f32-legacy": anchor,
+              "f32-paged": anchor}
+    log(f"    {label}: first-token logits, worst share of the row's largest "
+        f"|logit|: " + ", ".join(f"{k} {v:.3e} (limit {limits[k]})"
+                                 for k, v in gaps.items()))
+    bad = {k: v for k, v in gaps.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"{label}: first-token logits apart: {bad}")
+    return gaps
+
+
+def phase_serve_ssd():
+    """Full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads of
+    64, state 128, bf16), 8 greedy requests of 128 + 32 tokens, 8 slots:
+    the paged engine, then the legacy engine on the same params. Every
+    request finishes with 32 tokens, no non-finite row, no kernel
+    launched (the family has no attention and runs no TPU kernel), no
+    page allocated; tok/s, TTFT p50, peak memory, the slot pool's bytes
+    and the paged/legacy token agreement printed. Returns the results."""
+    from repro_torch.launch import serve
+    a = serve_args(arch="mamba2-2.7b", **FAMILY_TRAFFIC)
+    t0 = time.perf_counter()
+    cfg, params = serve.build(a)
+    torch.cuda.synchronize()
+    _describe(cfg, params, t0)
+    none = {"paged_gather": (0, True), "spinner": (0, True),
+            "srf_decode": (0, True)}
+    la = serve_args(arch="mamba2-2.7b", legacy=True, **FAMILY_TRAFFIC)
+    res, firsts = {}, {}
+    for label, args in (("paged", a), ("legacy", la)):
+        serve.warm(args, cfg, params)
+        eng = serve.engine(args, cfg, params)
+        firsts[label] = first_logits(eng)
+        res[label] = _family_run(f"mamba2-2.7b {label}", args, cfg, params,
+                                 none, eng=eng)
+        del eng
+    paged, leg = res["paged"], res["legacy"]
+    paged["agreement"] = _agreement(paged, leg)
+    paged["first_logit_gap"] = _first_logit_gap(
+        "mamba2-2.7b", firsts["paged"], firsts["legacy"],
+        _f32_first_logits(cfg, params, la), "ssm")
+    log(f"    paged/legacy: generated tokens equal position by position "
+        f"{paged['agreement']:.3f}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged": paged, "legacy": leg}
+
+
+def phase_serve_hybrid():
+    """Full-width hymba-1.5b (32 layers, d_model 1600, 25 q / 5 kv heads
+    of 64 beside 50 SSD heads of 64 with state 16, bf16), 8 greedy
+    requests of 128 + 32 tokens, 8 slots: full KV on bf16 pages
+    (paged_gather exactly 64 a step), int8 pages (paged_gather_dequant_kv
+    exactly 32 a step), SRF (the spinner at least 64 a step, srf_decode
+    exactly 32 a decode step), each beside nothing else; with full KV
+    also the legacy engine (no kernel) and the prefix cache: a donor of
+    the 96 shared tokens, then the 8 requests, each of which resumes at
+    the donor's state point (96 hit tokens a request). Returns the
+    results."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request
+    out = {}
+    none = {"paged_gather": (0, True), "spinner": (0, True),
+            "srf_decode": (0, True)}
+    for attn, runs in (("full", (("full KV", {}),
+                                 ("int8 pages", {"quantize_kv": True}))),
+                       ("srf", (("SRF", {}),))):
+        a = serve_args(attn, arch="hymba-1.5b", **FAMILY_TRAFFIC)
+        t0 = time.perf_counter()
+        cfg, params = serve.build(a)
+        torch.cuda.synchronize()
+        _describe(cfg, params, t0)
+        n = cfg.n_layers
+        for label, flags in runs:
+            ra = serve_args(attn, arch="hymba-1.5b", **FAMILY_TRAFFIC,
+                            **flags)
+            serve.warm(ra, cfg, params)
+            eng = serve.engine(ra, cfg, params)
+            rec = first_logits(eng)
+            if label == "full KV":
+                first_rec = rec
+            res = _family_run(f"hymba-1.5b {label}", ra, cfg, params,
+                              eng=eng)
+            del eng
+            steps, dec = res["steps"], res["decode_steps"]
+            want = {"full KV": {"paged_gather": (2 * n * steps, True)},
+                    "int8 pages": {"paged_gather_dequant_kv":
+                                   (n * steps, True)},
+                    "SRF": {"spinner": (2 * n * steps, False),
+                            "srf_decode": (n * dec, True)}}[label]
+            _expect_launches(f"hymba-1.5b {label}", res["counts"],
+                             {**none, **want})
+            out[label] = res
+        if attn == "full":
+            la = serve_args(arch="hymba-1.5b", legacy=True,
+                            **FAMILY_TRAFFIC)
+            serve.warm(la, cfg, params)
+            leng = serve.engine(la, cfg, params)
+            lrec = first_logits(leng)
+            out["legacy"] = _family_run("hymba-1.5b legacy full KV", la,
+                                        cfg, params, none, eng=leng)
+            del leng
+            out["full KV"]["first_logit_gap"] = _first_logit_gap(
+                "hymba-1.5b full KV", first_rec, lrec,
+                _f32_first_logits(cfg, params, la), "hybrid")
+            out["full KV"]["agreement"] = _agreement(out["full KV"],
+                                                     out["legacy"])
+            log(f"    paged/legacy full KV: generated tokens equal position "
+                f"by position {out['full KV']['agreement']:.3f}")
+            pa = serve_args(arch="hymba-1.5b", prefix_cache=True,
+                            shared_prefix=SHARED, **FAMILY_TRAFFIC)
+            serve.warm(pa, cfg, params)
+            eng = serve.engine(pa, cfg, params)
+            reqs = serve.requests(pa, cfg)
+            serve.serve(pa, eng=eng, reqs=[Request(
+                uid=100, prompt=reqs[0].prompt[:SHARED].copy(), max_new=2)])
+            steps0 = _steps(eng)
+            res = _family_run("hymba-1.5b prefix cache (a donor of the 96 "
+                              "shared tokens, then the 8 requests)", pa, cfg,
+                              params, eng=eng, reqs=reqs)
+            _expect_launches("hymba-1.5b prefix cache", res["counts"], {
+                **none, "paged_gather": (2 * n * (_steps(eng) - steps0),
+                                         True)})
+            v = eng.metrics.value_sum
+            stats = {c: int(v(c)) for c in PREFIX_COUNTERS}
+            log(f"    prefix counters: {stats}; the same 8 requests cold: "
+                f"TTFT p50 {out['full KV']['ttft_s']['p50']:.4f} s")
+            if stats["prefix_hit_tokens_total"] != SHARED * len(reqs):
+                raise AssertionError(f"hymba prefix cache: expected "
+                                     f"{SHARED * len(reqs)} hit tokens: "
+                                     f"{stats}")
+            eng.prefix.drop_all()
+            if eng.sched.alloc.used_pages or \
+                    eng.sched.slot_alloc.used_pages:
+                raise AssertionError("hymba prefix cache: pages or slots "
+                                     "left after drop_all")
+            res["prefix"] = stats
+            out["prefix cache"] = res
+            del eng
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+DENSE_CONFIGS = ("qwen2.5-14b", "mistral-nemo-12b", "internlm2-20b")
+DENSE_TRAFFIC = dict(requests=4, prompt_len=128, max_new=16, slots=4,
+                     max_len=256, seed=0, device="cuda")
+
+
+def phase_serve_dense_configs():
+    """qwen2.5-14b, mistral-nemo-12b and internlm2-20b at full width
+    (bf16, random weights), one after another, the params and pools of
+    each freed before the next: full KV on bf16 pages, 4 greedy requests
+    of 128 + 16 tokens, 4 slots. paged_gather exactly 2 a layer a step,
+    nothing else; tok/s, TTFT p50 and peak memory printed."""
+    from repro_torch.launch import serve
+    out = {}
+    for arch in DENSE_CONFIGS:
+        a = serve_args(arch=arch, **DENSE_TRAFFIC)
+        t0 = time.perf_counter()
+        cfg, params = serve.build(a)
+        torch.cuda.synchronize()
+        _describe(cfg, params, t0)
+        serve.warm(a, cfg, params)
+        res = _family_run(f"{arch} full KV", a, cfg, params)
+        _expect_launches(arch, res["counts"], {
+            "paged_gather": (2 * cfg.n_layers * res["steps"], True),
+            "spinner": (0, True), "srf_decode": (0, True)})
+        out[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train
 # ---------------------------------------------------------------------------
 
@@ -2736,7 +3319,8 @@ def _leaves(tree):
 
 def _record(name, source, replaces, launches, rec, shape):
     extra = {k: v for k, v in rec.items() if k.startswith((
-        "one_pool_", "two_single_", "train_", "dispatch_", "router_"))}
+        "one_pool_", "two_single_", "train_", "dispatch_", "router_",
+        "hymba_", "dense_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -2772,6 +3356,7 @@ def main() -> int:
     fwht = phase_fwht(gen)
     circ = phase_circulant(gen)
     phase_sampler(gen)
+    hymba_k = phase_hymba_kernels(gen)
 
     log("phase 3: the kernel-estimation library")
     phase_estimators(gen)
@@ -2797,6 +3382,12 @@ def main() -> int:
     router_int8 = phase_reduced_router()
     router = phase_serve_router(out_dir)
     timing = phase_kernel_timing(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_reduced_families()
+    phase_serve_ssd()
+    hybrid = phase_serve_hybrid()
+    dense = phase_serve_dense_configs()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2848,6 +3439,20 @@ def main() -> int:
                 "router_launches_of": f"full-width {attn} router run (b), "
                                       f"2 replicas x 4 slots, 16 requests "
                                       f"x (128 + 32) tokens, no fault"}
+    def hymba(name, run, key, shape):
+        """The kernel at hymba-1.5b's shapes (``phase_hymba_kernels``) and
+        its launches in that serve run."""
+        rec = hymba_k[name]
+        out = {f"hymba_{k}": rec[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+        out["hymba_max_abs_err"] = rec["err"]
+        out["hymba_library_ms"] = rec.get("library_ms")
+        out["hymba_launches"] = hybrid[run]["counts"][key]
+        out["hymba_launches_of"] = f"full-width hymba-1.5b {run}, 8 " \
+                                   f"requests x (128 + 32) tokens"
+        out["hymba_shape"] = shape
+        return out
+    hg = "R=8, M=16, P=16, D=5*64, N=257, 32 layer pools cycled"
     kernels = [
         _record("spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:111", srf["spinner"],
@@ -2856,18 +3461,30 @@ def main() -> int:
                                f"full-width SRF training, {TRAIN_STEPS} "
                                f"steps"),
                  **dispatch("srf", "spinner_project"),
-                 **routed("srf", "spinner")},
+                 **routed("srf", "spinner"),
+                 **hymba("spinner decode query", "SRF", "spinner",
+                         "decode query: G=5, B=40, n=64, m=256, bf16, "
+                         "identity")},
                 "decode query: G=8, B=32, n=128, m=256, bf16, identity"),
         _record("srf_decode", src + "srf_decode.cu",
                 "src/repro/kernels/srf_decode.py:26", srf["srf_decode"],
                 {**dec, **dispatch("srf", "srf_decode"),
-                 **routed("srf", "srf_decode")},
+                 **routed("srf", "srf_decode"),
+                 **hymba("srf_decode", "SRF", "srf_decode",
+                         "B=8, H=25, m=256, dv=64, f32")},
                 "B=8, H=32, m=256, dv=128, f32"),
         _record("paged_gather", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:28",
                 kv["bf16 pages"]["paged_gather"],
                 {**gather["decode"]["paged_gather"],
-                 **routed("full", "paged_gather")}, decode + ", bf16"),
+                 **routed("full", "paged_gather"),
+                 **hymba("paged_gather", "full KV", "paged_gather",
+                         hg + ", bf16"),
+                 "dense_launches": {a: dense[a]["counts"]["paged_gather"]
+                                    for a in DENSE_CONFIGS},
+                 "dense_launches_of": "full width, 4 requests x (128 + "
+                                      "16) tokens each"},
+                decode + ", bf16"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
                 kv["int8 pages"]["paged_gather_dequant_kv"],
@@ -2876,7 +3493,10 @@ def main() -> int:
                  "router_launches": router_int8,
                  "router_launches_of": "reduced int8-page router cells on "
                                        "the card (raise, hang, reject, "
-                                       "oom)"},
+                                       "oom)",
+                 **hymba("paged_gather_dequant", "int8 pages",
+                         "paged_gather_dequant_kv",
+                         hg + ", int8 -> bf16, K and V in one launch")},
                 decode + ", int8 -> bf16, a layer's K and V in one launch "
                 "(paged_gather_dequant_kv, as the int8 serve run launches "
                 "it); plain_ms: two plain calls; one_pool_*: the "

@@ -14,8 +14,10 @@ over engine replicas (``--replicas``), or the legacy per-slot engine
         [--kernel-timing] [--trace-out FILE] [--reduced] [--device cuda]
 
 Full width is the default: ``--reduced`` opts into the tiny same-family
-config of ``configs.registry.reduced``. Without ``--attn`` the config's
-own attention serves (``full``: paged KV). Weights are random, drawn
+config of ``configs.registry.reduced``. ``--arch`` takes the dense
+configs, ``mamba2-2.7b`` (SSD state in slots) and ``hymba-1.5b``
+(attention beside SSD state in every layer). Without ``--attn`` the
+config's own attention serves (``full``: paged KV). Weights are random, drawn
 from a ``torch.Generator`` seeded with ``--seed`` on the device; prompts
 are random tokens from ``numpy.random.default_rng(--seed)``, the first
 ``--shared-prefix`` of them common to every request. ``--temperature``

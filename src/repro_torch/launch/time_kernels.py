@@ -11,7 +11,17 @@ wrappers' public signatures, so it can time another checkout of the port
 (unpacked with ``git archive`` into a directory that .gitignore lists):
 run it on both in turns (A, B, B, A) on one card, one run after the
 other, and compare only numbers taken that way. ``--kernels`` picks the
-groups timed (default: all three).
+groups timed (default: the three kernel groups).
+
+``--kernels ssd_scan`` times the SSD layer's two scan forms instead, at
+mamba2-2.7b's full-width serving step (8 rows; a prefill chunk of 16
+tokens and a decode token; bf16 activations, f32 state): the chunked
+scan that ``ssm.paged_ssm_step`` runs (``ssm._chunk_scan``) against the
+reference's token loop (``ssm._token_scan``), each as host ms a call
+(synced) and device ms a call (the kernels' time under
+``torch.profiler``: the scan's host time exceeds its device time, so
+events around queued calls would time the host). It reads private
+functions, so it times only checkouts that have them.
 
 The int8 gather (``paged_gather_dequant``, int8 -> bf16) is timed at the
 full-width decode shape (R = 8, M = 16, P = 16, D = 1024, N = 257) and a
@@ -47,7 +57,9 @@ LIBRARY = (1, 8192, 1024, 4096)        # G, B, n, m: one estimate's call
 CIRCULANT = (4, 1024, 8192, 4096)      # nb, n, B, m (chip_smoke.CIRC_REAL)
 GATHER = [("decode", 257, 8, 16), ("prefill", 2049, 32, 64)]   # N, R, M
 GATHER_P, GATHER_D, LAYERS = 16, 1024, 36
-GROUPS = ("spinner", "circulant", "gather")
+SSD_SCAN = [("prefill C=16", 16), ("decode C=1", 1)]     # 8 rows a step
+GROUPS = ("spinner", "circulant", "gather", "ssd_scan")
+DEFAULT_GROUPS = ("spinner", "circulant", "gather")
 
 
 def device_ms(torch, fn, launches, repeats):
@@ -68,11 +80,40 @@ def device_ms(torch, fn, launches, repeats):
     return statistics.median(out)
 
 
+def profiled_ms(torch, fn, calls=10):
+    """Device ms of one call of ``fn``: its kernels' and copies' time
+    under ``torch.profiler`` over ``calls`` calls."""
+    from repro_torch.launch.profile_serve import _device_us
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(_device_us(e) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda) / 1e3 / calls
+
+
+def host_ms(torch, fn, calls=20):
+    """Host ms of one call of ``fn``, synced after the calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="this checkout")
-    ap.add_argument("--kernels", default=",".join(GROUPS))
+    ap.add_argument("--kernels", default=",".join(DEFAULT_GROUPS))
     args = ap.parse_args()
     groups = set(args.kernels.split(","))
     if not groups <= set(GROUPS):
@@ -86,7 +127,8 @@ def main() -> int:
     from repro_torch.kernels import paged_gather as kpg
     from repro_torch.kernels import spinner as kspin
     t0 = time.perf_counter()
-    build.build([{"gather": "paged_gather"}.get(g, g) for g in sorted(groups)])
+    build.build([{"gather": "paged_gather"}.get(g, g)
+                 for g in sorted(groups - {"ssd_scan"})])
     built = time.perf_counter() - t0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -166,6 +208,26 @@ def main() -> int:
                 torch, lambda: kcirc.circulant_project_cuda(g, x, m), 10, 3)
             del x, g
         torch.cuda.empty_cache()
+    if "ssd_scan" in groups:
+        from repro_torch.configs import registry
+        from repro_torch.models import ssm
+        cfg = registry.get("mamba2-2.7b")
+        nh, ns, hd = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        a = -torch.linspace(1.0, 16.0, nh, device=dev)   # -exp(the init's)
+        for label, c in SSD_SCAN:
+            bf = lambda *shape: (torch.randn(  # noqa: E731
+                shape, generator=gen, device=dev) * .5).to(torch.bfloat16)
+            xs, bs, cs = bf(8, c, nh, hd), bf(8, c, ns), bf(8, c, ns)
+            dt = torch.rand((8, c, nh), generator=gen, device=dev) * .1
+            s0 = torch.randn((8, nh, ns, hd), generator=gen, device=dev)
+            for form, fn in (
+                    ("chunk", lambda: ssm._chunk_scan(xs, bs, cs, dt, a, s0,
+                                                      c)),
+                    ("token", lambda: ssm._token_scan(xs, bs, cs, dt, a,
+                                                      s0))):
+                res[f"ssd_scan {label} {form} host"] = host_ms(torch, fn)
+                res[f"ssd_scan {label} {form} device"] = profiled_ms(torch,
+                                                                     fn)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

@@ -65,8 +65,9 @@ from repro_torch.kernels import ops as kops
 
 from . import layers
 
-NOT_IN_SLICE = ("not ported yet: the PyTorch port runs the dense "
-                "full-KV and SRF families only (ROADMAP.md, 'Port state')")
+NOT_IN_SLICE = ("not ported yet: the PyTorch port runs the dense, SSD "
+                "and hybrid families with full-KV or SRF attention "
+                "(ROADMAP.md, 'Port state')")
 
 
 def srf_cfg(cfg) -> SRFConfig:

@@ -1,7 +1,9 @@
-"""Dense decoder LM: the paged serving step, the legacy engine's prefill
-and decode, and the training forward (full-KV or SRF attention).
+"""Decoder LM of the dense, SSD and hybrid families: the paged serving
+step, the legacy engine's prefill and decode, and the training forward
+(full-KV or SRF attention; SSD blocks in ``models.ssm``).
 
-Port of ``repro.models.transformer`` for the dense family: ``init``,
+Port of ``repro.models.transformer`` for the dense, ssm and hybrid
+families: ``init``,
 ``paged_step``, ``_paged_layer`` and ``_logits`` for the paged engine,
 ``init_serve_cache``, ``prefill``, ``decode_step`` and ``run_segment``
 in modes ``"prefill"`` and ``"decode"`` for the legacy per-slot engine,
@@ -17,17 +19,23 @@ for leaf:
      "final_norm": {"w": (d,)},
      "head": (d, V)}                                  # absent when tied
 
+An ssm layer is {"ln1", "ssm"}; a hybrid layer is a dense layer with an
+"ssm" block beside its attention and the two fusion norms "fuse_na" and
+"fuse_ns" (``layer_apply``: 0.5 (rmsnorm(attn) + rmsnorm(ssm))).
+
 Layers run as a Python loop over the stacked layer axis (the reference
 scans). The serve cache of ``init_serve_cache`` is
 {"segments": [per-segment buffers with a leading layer axis, and the
-segment's position "idx"], "pos"}, as the reference's, but written in
-place by ``prefill`` and ``decode_step`` (which return it), with "idx"
-and "pos" host ints (``attention.init_cache``). In training, each layer (or group of ``cfg.scan_group`` layers)
+segment's position "idx"; a hybrid segment's is {"attn": ..., "ssm":
+...}, each with its own "idx"], "pos"}, as the reference's, but written
+in place by ``prefill`` and ``decode_step`` (which return it), with
+"idx" and "pos" host ints (``attention.init_cache``,
+``ssm.init_ssm_cache``). In training, each layer (or group of ``cfg.scan_group`` layers)
 is recomputed in the backward as the config's ``remat`` says
 (``torch.utils.checkpoint``, see ``_remat``). Attention is full-KV
-(paged pools) or SRF (slot pools), as the config's ``attn_impl`` says.
-Other families (MoE, MLA, SSM, hybrid, enc-dec, vision) are not ported
-yet and raise NotImplementedError.
+(paged pools) or SRF (slot pools), as the config's ``attn_impl`` says;
+SSD state lives in slot pools. The MoE, MLA, enc-dec and vision
+families are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import tree as tree_lib
 from repro_torch.core import srf_attention as srf
 
-from . import attention, hooks, layers
+from . import attention, hooks, layers, ssm
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -48,7 +56,11 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 def segments(cfg) -> List[Tuple[str, int]]:
-    """[(layer_kind, count)] for the decoder stack (dense only)."""
+    """[(layer_kind, count)] for the decoder stack."""
+    if cfg.family == "ssm":
+        return [("ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        return [("hybrid", cfg.n_layers)]
     if (cfg.family != "dense" or cfg.is_moe or cfg.is_mla
             or cfg.is_encdec or cfg.frontend != "none"):
         raise NotImplementedError(
@@ -56,9 +68,15 @@ def segments(cfg) -> List[Tuple[str, int]]:
     return [("dense", cfg.n_layers)]
 
 
-def _layer_plan(cfg):
-    """Serving-state plan: per segment ``(kind, count, components)``."""
-    return [(kind, count, ("attn",)) for kind, count in segments(cfg)]
+def _layer_plan(cfg) -> List[Tuple[str, int, Tuple[str, ...]]]:
+    """Serving-state plan: per segment ``(kind, count, components)``;
+    ``components`` names the decode-state objects every layer of the
+    segment owns: "attn" (kv pages or the srf state, resolved by
+    ``serving.paged_cache.attn_family_for``) and/or "ssm" (the ssd
+    constant state). Hybrid layers own both."""
+    comps = {"ssm": ("ssm",), "hybrid": ("attn", "ssm")}
+    return [(kind, count, comps.get(kind, ("attn",)))
+            for kind, count in segments(cfg)]
 
 
 def init(cfg, seed: int = 0, device="cuda") -> Dict:
@@ -71,19 +89,31 @@ def init(cfg, seed: int = 0, device="cuda") -> Dict:
     d = cfg.d_model
     params: Dict = {"embed": layers.embed_init(gen, cfg.padded_vocab, d, dt,
                                                device)}
-    params["segments"] = []
-    for _, count in segments(cfg):
-        lead = (count,)
-        params["segments"].append({
-            "ln1": layers.rmsnorm_init(d, dt, device, lead),
-            "attn": attention.attn_init(gen, cfg, dt, device, lead),
-            "ln2": layers.rmsnorm_init(d, dt, device, lead),
-            "mlp": layers.mlp_init(gen, d, cfg.d_ff, dt, device, lead)})
+    params["segments"] = [layer_init(gen, cfg, kind, dt, device, (count,))
+                          for kind, count in segments(cfg)]
     params["final_norm"] = layers.rmsnorm_init(d, dt, device)
     if not cfg.tie_embeddings:
         params["head"] = layers.dense_init(gen, d, cfg.padded_vocab, dt,
                                            device)
     return params
+
+
+def layer_init(gen: torch.Generator, cfg, kind: str, dtype, device=None,
+               lead=()) -> Dict:
+    """One layer's params of ``kind``; ``lead`` stacks a layer axis."""
+    d = cfg.d_model
+    p: Dict = {"ln1": layers.rmsnorm_init(d, dtype, device, lead)}
+    if kind == "ssm":
+        p["ssm"] = ssm.ssm_init(gen, cfg, dtype, device, lead)
+        return p
+    p["attn"] = attention.attn_init(gen, cfg, dtype, device, lead)
+    if kind == "hybrid":
+        p["ssm"] = ssm.ssm_init(gen, cfg, dtype, device, lead)
+        p["fuse_na"] = layers.rmsnorm_init(d, dtype, device, lead)
+        p["fuse_ns"] = layers.rmsnorm_init(d, dtype, device, lead)
+    p["ln2"] = layers.rmsnorm_init(d, dtype, device, lead)
+    p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dtype, device, lead)
+    return p
 
 
 def requires_grad(params) -> Dict:
@@ -107,15 +137,49 @@ def tree_index(tree, i: int):
 def layer_apply(p, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor,
                 mode: str = "train", cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder layer of the dense family -> (x, aux_loss); in modes
-    "prefill" and "decode" the layer's ``cache`` is written in place."""
-    if kind != "dense":
+    """One decoder layer (dense, ssm or hybrid) -> (x, aux_loss); in
+    modes "prefill" and "decode" the layer's ``cache`` is written in
+    place. A hybrid layer's attention and SSD halves share the pre-norm
+    and are fused as 0.5 (rmsnorm(a) + rmsnorm(s))."""
+    if kind not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"{kind} layers are "
                                   f"{attention.NOT_IN_SLICE}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attention.attention(p["attn"], cfg, h, positions, mode, cache)
+    if kind == "ssm":
+        return x + ssm.ssm_apply(p["ssm"], cfg, h, mode, cache), aux
+    if kind == "hybrid":
+        a = attention.attention(p["attn"], cfg, h, positions, mode,
+                                None if cache is None else cache["attn"])
+        s = ssm.ssm_apply(p["ssm"], cfg, h, mode,
+                          None if cache is None else cache["ssm"])
+        x = x + _fuse(p, cfg, a, s)
+    else:
+        x = x + attention.attention(p["attn"], cfg, h, positions, mode,
+                                    cache)
     x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def _fuse(p, cfg, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """A hybrid layer's fusion of its attention and SSD outputs."""
+    return 0.5 * (layers.rmsnorm(p["fuse_na"], a, cfg.norm_eps)
+                  + layers.rmsnorm(p["fuse_ns"], s, cfg.norm_eps))
+
+
+def _cache_at(caches: Dict, i: int) -> Dict:
+    """Layer i's view of a segment's stacked cache ("idx" is shared)."""
+    return {k: _cache_at(v, i) if isinstance(v, dict)
+            else v if k == "idx" else v[i] for k, v in caches.items()}
+
+
+def _take_idx(caches: Dict, layer: Dict) -> None:
+    """Carry a layer's advanced "idx" entries back to the segment's."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _take_idx(caches[k], v)
+        elif k == "idx":
+            caches[k] = v
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -164,10 +228,10 @@ def run_segment(stacked, cfg, kind: str, x: torch.Tensor,
     count = tree_lib.leaves(stacked)[0].shape[0]
     if mode in ("prefill", "decode"):
         for i in range(count):
-            lc = {k: v if k == "idx" else v[i] for k, v in caches.items()}
+            lc = _cache_at(caches, i)
             x, _ = layer_apply(tree_index(stacked, i), cfg, kind, x,
                                positions, mode, lc)
-        caches["idx"] = lc["idx"]
+        _take_idx(caches, lc)
         return x, caches, torch.zeros((), dtype=torch.float32,
                                       device=x.device)
     if mode != "train":
@@ -241,12 +305,21 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
 def init_serve_cache(cfg, batch_size: int, max_len: int,
                      device="cuda") -> Dict:
     """The legacy engine's cache for ``batch_size`` requests of up to
-    ``max_len`` tokens: per segment, ``attention.init_cache`` with a
-    leading layer axis, in the params' dtype, on ``device``."""
-    return {"segments": [attention.init_cache(cfg, batch_size, max_len,
-                                              dtype_of(cfg), device,
-                                              lead=(count,))
-                         for _, count in segments(cfg)],
+    ``max_len`` tokens: per segment, ``attention.init_cache`` (dense),
+    ``ssm.init_ssm_cache`` (ssm) or both (hybrid: {"attn", "ssm"}) with
+    a leading layer axis, in the params' dtype, on ``device``."""
+    dt = dtype_of(cfg)
+
+    def seg(kind, count):
+        lead = (count,)
+        c = {"attn": lambda: attention.init_cache(cfg, batch_size, max_len,
+                                                  dt, device, lead=lead),
+             "ssm": lambda: ssm.init_ssm_cache(cfg, batch_size, dt, device,
+                                               lead=lead)}
+        if kind == "hybrid":
+            return {name: make() for name, make in c.items()}
+        return c["ssm" if kind == "ssm" else "attn"]()
+    return {"segments": [seg(kind, count) for kind, count in segments(cfg)],
             "pos": 0}
 
 
@@ -294,9 +367,12 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
     (full-KV attention; 0 = null page); slots: (B,) slot ids into the
     slot-domain pools (SRF attention; 0 = null slot for padded rows).
     ``pools`` is the container from ``serving.paged_cache.init_pools``
-    ({"paged", "slot"} per-segment lists); the layer's paged pool (kv
-    plan) or slot pool (srf plan) is updated IN PLACE and the same
-    container is returned. Returns (logits (B, C, V_padded), pools).
+    ({"paged", "slot"} per-segment lists); each layer's pools are
+    updated IN PLACE (full-KV pages in the paged domain; the SRF and
+    SSD states in the slot domain: a hybrid layer carries a kv sub-pool
+    and an ssd sub-pool side by side, or two slot sub-pools with SRF)
+    and the same container is returned. Returns (logits (B, C,
+    V_padded), pools).
 
     ``embed_seeds``: optional (B,) per-request projection seeds for
     seeded-SRF configs (0 = base projection; ignored by full attention).
@@ -311,7 +387,8 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
             params["segments"], pools["paged"], pools["slot"],
             segments(cfg)):
         folded = None
-        if embed_seeds is not None and cfg.attn_impl == "srf":
+        if embed_seeds is not None and cfg.attn_impl == "srf" \
+                and "attn" in seg_params:
             if not cfg.srf.seeded:
                 raise ValueError("embed_seeds requires SRFConfig.seeded="
                                  "True")
@@ -330,16 +407,26 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
 def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
                  lpaged, lslot, tables, slots,
                  srf_folded=None) -> torch.Tensor:
-    """Single-layer paged step; the attention pool (``lslot["attn"]`` for
-    SRF, ``lpaged["attn"]`` for full KV) is updated in place.
+    """Single-layer paged step (``layer_apply`` for serving); the
+    attention pool (``lslot["attn"]`` for SRF, ``lpaged["attn"]`` for
+    full KV) and the SSD pool (``lslot["ssm"]``) are updated in place.
     ``srf_folded``: the layer's seeds folded with the step's embed
     seeds (seeded SRF)."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        return x + ssm.paged_ssm_step(p["ssm"], cfg, h, q_valid,
+                                      lslot["ssm"], slots)
     attn_pools = lslot if cfg.attn_impl == "srf" else lpaged
     ctx = {"pool": attn_pools["attn"], "tables": tables, "slots": slots,
            "q_valid": q_valid}
     if srf_folded is not None:
         ctx["srf_folded"] = srf_folded
-    x = x + attention.attention(p["attn"], cfg, h, positions, "paged", ctx)
+    a = attention.attention(p["attn"], cfg, h, positions, "paged", ctx)
+    if kind == "hybrid":
+        s = ssm.paged_ssm_step(p["ssm"], cfg, h, q_valid, lslot["ssm"],
+                               slots)
+        x = x + _fuse(p, cfg, a, s)
+    else:
+        x = x + a
     return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
                                                     cfg.norm_eps))

@@ -1,8 +1,10 @@
-"""Paged continuous-batching serving engine (full-KV and SRF families).
+"""Paged continuous-batching serving engine (dense, SSD and hybrid
+families; full-KV or SRF attention).
 
 Port of ``repro.serving.engine``: requests share pooled, pre-allocated
 caches (``paged_cache``): full-KV pages indexed through per-request
-block tables (``blocks``), or one constant-size SRF slot per request.
+block tables (``blocks``), and one constant-size slot per request for
+the SRF and SSD states; a hybrid request holds both.
 The scheduler (a copy of the reference's) handles admission, chunked
 prefill and preemption; prefill and decode both run as batched
 ``transformer.paged_step`` calls with fixed shapes (prefill_batch x
@@ -16,7 +18,9 @@ projection), passed into every step.
 ``paged=PagedConfig(quantize_kv=True)`` stores KV pages as int8 with one
 f32 scale per token; ``prefix=PrefixConfig(...)`` shares the KV pages of
 cached prompt prefixes across requests (radix trie, copy-on-write forks,
-chunked prefill; ``serving/prefix``). Preempted requests' pages and
+chunked prefill; ``serving/prefix``); a slot-bearing plan with pages
+(hybrid) also caches the donor's slot state at the prompt's end and
+restores it into a hit's slot. Preempted requests' pages and
 slots are snapshotted to pinned host memory and restored at
 re-admission. An SRF engine samples the live quality probe
 (``obs/quality``) at its first decode step and every ``quality_every``
@@ -138,7 +142,7 @@ class Engine:
     ``sched=SchedConfig(...)`` to size the pools explicitly (e.g. tight
     pools to exercise preemption). ``paged`` and ``prefix`` as in the
     module docstring; ``prefix`` is silently off for a plan with no
-    paged domain (SRF), which has no pages to share. ``seed`` keys the
+    paged domain (SRF, SSD), which has no pages to share. ``seed`` keys the
     sampling noise (the key of ``jax.random.PRNGKey(seed)`` in the
     reference); it never advances. ``quality_every`` (SRF configs only;
     0 = off) and ``quality_tol`` drive the live quality probe.
@@ -395,6 +399,15 @@ class Engine:
         if fresh:
             paged_cache.zero_slot_rows(self.pools, [s.slot for s in fresh])
         self._apply_forks(admitted)
+        for seq in admitted:
+            if seq.state_payload is not None:
+                # the donor's constant state at the matched token count:
+                # what makes the shared KV pages resumable for a plan
+                # with slots
+                paged_cache.restore_page_rows(self.pools, [],
+                                              self._slot_ids(seq),
+                                              seq.state_payload)
+                seq.state_payload = None
         work = self.sched.prefill_work()
         sc = self.sched_cfg
         if work and self._chunk is not None \
@@ -585,15 +598,23 @@ class Engine:
         self.spans.end(stok)
 
     def _prefix_insert(self, seq: Sequence) -> None:
-        """Donate a fully prefilled prompt to the prefix cache. An
-        unaligned prompt's tail page would become shared the moment it is
-        cached, and the donor's next decode write would have to fork it;
-        so the CACHE takes a private copy of the tail page (batched into
-        this prefill step) and the donor keeps its own. If no page is
-        free for the copy, the tail is shared as is and the scheduler's
-        decode-fork site covers the donor's next write. (Slot-bearing
-        plans, whose donors also attach a state snapshot, are not
-        ported.)"""
+        """Donate a fully prefilled prompt to the prefix cache. A plan
+        with slots attaches the donor's constant-state snapshot, taken
+        now (before a decode step moves the slot on), so a later hit
+        resumes the SSM exactly at the prompt's end.
+
+        An unaligned prompt's tail page would become shared the moment
+        it is cached, and the donor's next decode write would have to
+        fork it; so the CACHE takes a private copy of the tail page
+        (batched into this prefill step) and the donor keeps its own. If
+        no page is free for the copy, the tail is shared as is and the
+        scheduler's decode-fork site covers the donor's next write."""
+        payload, ptoks = None, 0
+        if self.plan.slot_families and seq.slot is not None:
+            payload = paged_cache.snapshot_page_rows_async(
+                self.pools, [], [seq.slot])
+            self._pending_snaps.append(payload)
+            ptoks = seq.prompt_len
         pages = list(seq.table.pages)
         tail_src, cp = None, None
         if seq.prompt_len % self.sched_cfg.page_size:
@@ -601,8 +622,8 @@ class Engine:
             if got is not None:
                 tail_src, cp = pages[-1], got[0]
                 pages[-1] = cp
-        newly = self.prefix.insert(seq.ns, seq.req.prompt, pages, None,
-                                   payload_tokens=0)
+        newly = self.prefix.insert(seq.ns, seq.req.prompt, pages, payload,
+                                   payload_tokens=ptoks)
         if cp is not None:
             if cp in newly:
                 # the alloc ref on cp is held until the flush, so the page

@@ -10,12 +10,17 @@ family     page contents (per layer)                       state growth
            with ``PagedConfig(quantize_kv=True)``)
 ``srf``    feature S   (num_slots, Hq, m, dv)
            + norm z    (num_slots, Hq, m)                  O(m d) constant
+``ssd``    conv tail   (num_slots, k-1, d_inner + 2 ns)
+           + state     (num_slots, nh, ns, hd) f32         O(1) constant
 =========  ==============================================  ===============
 
 ``kv`` grows one page per ``page_size`` tokens in the *paged* index
-domain (page ids from the scheduler's allocator); ``srf`` is the paper's
-constant-size state, one slot per request in the *slot* domain. The MLA
-and SSD families are not ported (``plan_for`` raises for them).
+domain (page ids from the scheduler's allocator); ``srf`` (the paper's
+constant-size state) and ``ssd`` (the SSM state) hold one slot per
+request in the *slot* domain. A hybrid layer owns an attention
+component and an ssd component: a kv sub-pool in the paged domain and
+an ssd sub-pool in the slot domain (or, with SRF attention, two slot
+sub-pools). The MLA family is not ported (``plan_for`` raises for it).
 
 The pool container keeps the reference's layout::
 
@@ -38,6 +43,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as model_lib
 
 
@@ -104,11 +110,30 @@ class SRFFamily:
         return cfg.n_heads * m * (cfg.head_dim + 1) * item / max_len
 
 
-FAMILIES = {f.name: f for f in (KVFamily(), SRFFamily())}
+class SSDFamily:
+    name = "ssd"
+    constant_state = True
+
+    def layer_pool(self, cfg, num_slots: int, page_size: int,
+                   paged: Optional[PagedConfig] = None, device="cuda",
+                   lead=()) -> Dict:
+        cache = ssm_lib.init_ssm_cache(cfg, num_slots,
+                                       model_lib.dtype_of(cfg), device, lead)
+        return {k: v for k, v in cache.items() if k != "idx"}
+
+    def bytes_per_token(self, cfg, max_len: int,
+                        paged: Optional[PagedConfig] = None) -> float:
+        total = ((cfg.ssm_conv - 1) * ssm_lib.conv_dim(cfg)
+                 * _itemsize(model_lib.dtype_of(cfg))
+                 + cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4)
+        return total / max_len
+
+
+FAMILIES = {f.name: f for f in (KVFamily(), SRFFamily(), SSDFamily())}
 
 
 def attn_family_for(cfg):
-    """The cache family of the attention component."""
+    """The cache family of the (self-)attention component."""
     if cfg.attn_impl == "srf":
         return FAMILIES["srf"]
     if cfg.is_mla:
@@ -152,15 +177,30 @@ class PoolPlan:
 
 
 def plan_for(cfg) -> PoolPlan:
-    """The pool plan of a config: ``kv`` (full attention) or ``srf``."""
-    fam = attn_family_for(cfg)
-    segs = tuple((kind, count, (("attn", fam.name),))
-                 for kind, count, _ in model_lib._layer_plan(cfg))
-    paged = None if fam.constant_state else fam.name
-    return PoolPlan(name=fam.name, segments=segs, paged_family=paged,
-                    attn_family=fam.name,
-                    slot_families=(fam.name,) if fam.constant_state else (),
-                    has_memory=False)
+    """The pool plan of a config, resolved from its layers' components:
+    "attn" is ``kv`` or ``srf`` (``attn_family_for``), "ssm" is ``ssd``.
+    The name joins the paged family and then the slot families in the
+    order the layers name them ("kv+ssd", "srf+ssd", "ssd")."""
+    segs = []
+    paged_fam = attn_fam = None
+    slot_fams: List[str] = []
+    for kind, count, comps in model_lib._layer_plan(cfg):
+        resolved = []
+        for comp in comps:
+            fam = attn_family_for(cfg) if comp == "attn" \
+                else FAMILIES["ssd"]
+            resolved.append((comp, fam.name))
+            if comp == "attn":
+                attn_fam = fam.name
+            if not fam.constant_state:
+                paged_fam = fam.name
+            elif fam.name not in slot_fams:
+                slot_fams.append(fam.name)
+        segs.append((kind, count, tuple(resolved)))
+    parts = ([paged_fam] if paged_fam else []) + slot_fams
+    return PoolPlan(name="+".join(parts), segments=tuple(segs),
+                    paged_family=paged_fam, attn_family=attn_fam,
+                    slot_families=tuple(slot_fams), has_memory=False)
 
 
 def init_pools(cfg, num_pages: int, page_size: int, num_slots: int = 0,
@@ -281,8 +321,9 @@ def pool_page_rows(pools: Dict, page_ids: List[int],
 
 def zero_slot_rows(pools: Dict, slot_ids: List[int]) -> Dict:
     """Reset the given slots of every constant-state pool to zero, in
-    place: SRF states are running accumulators, so a re-issued slot must
-    not carry the previous request's state."""
+    place: SRF and SSD states are running accumulators (and the SSD conv
+    tail a window of past inputs), so a re-issued slot must not carry
+    the previous request's state."""
     for a in _leaves(pools["slot"]):
         a[:, _index(slot_ids, a)] = 0
     return pools

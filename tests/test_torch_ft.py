@@ -1,9 +1,11 @@
 """The port's fault-tolerant serving (``serving/ft.py``, ``serving/chaos.py``,
 ``serving/mesh/router.py`` with ``ft``) against the reference's on the CPU.
 
-The chaos matrix of ``tests/test_ft_serving.py`` for the dense cells the
-port serves: reduced qwen3-4b (2 layers, f32) with full-KV pages, int8
-pages and SRF state, replica 1 killed at its 4th step by each fault kind
+The chaos matrix of ``tests/test_ft_serving.py`` for the cells the port
+serves: reduced qwen3-4b (2 layers, f32) with full-KV pages, int8 pages
+and SRF state, and reduced hymba-1.5b (the hybrid cell: kv pages and ssd
+slots, so the router's headroom and the oom fault's hostages span both
+domains), replica 1 killed at its 4th step by each fault kind
 (``raise``, ``hang``, ``reject``, ``oom``). The params are the
 reference's, carried over with ``convert.params_from_jax``. In every
 cell the port's greedy tokens equal the reference's undisturbed single
@@ -39,14 +41,27 @@ from repro_torch.serving import ft as ft_lib
 from repro_torch.serving.chaos import ChaosEngine, ChaosError, ChaosPlan
 
 KINDS = ["raise", "hang", "reject", "oom"]
-# cell -> (config overrides, int8 pages)
-CELLS = {"full KV": ({}, False), "int8 pages": ({}, True),
-         "SRF": ({"attn_impl": "srf"}, False)}
+# cell -> (arch, config overrides, int8 pages); "hybrid" is the
+# reference matrix's hymba-1.5b cell: a plan with pages and slots
+CELLS = {"full KV": ("qwen3-4b", {}, False),
+         "int8 pages": ("qwen3-4b", {}, True),
+         "SRF": ("qwen3-4b", {"attn_impl": "srf"}, False),
+         "hybrid": ("hymba-1.5b", {}, False)}
 N_REQ = 8
 MAX_NEW = 10
 COUNTERS = ("quarantined", "rescued", "replayed", "failed", "submitted")
 
 _cache = {}
+_ref_steps = {}
+
+
+def _share_step(eng):
+    """Reference engines of one (config, page layout) share the first
+    one's jitted step (``make_paged_step(cfg, paged=...)``): the reference
+    wraps its step in a new ``jax.jit`` per engine, so each would compile
+    it anew."""
+    eng._step = _ref_steps.setdefault((eng.cfg, eng.paged), eng._step)
+    return eng
 
 
 class _Pkg:
@@ -80,9 +95,9 @@ def _setup(cell):
     undisturbed single-engine tokens (cached across cells)."""
     if cell in _cache:
         return _cache[cell]
-    over, quant = CELLS[cell]
-    jcfg = jregistry.reduced("qwen3-4b", n_layers=2, **over)
-    cfg = registry.reduced("qwen3-4b", n_layers=2, **over)
+    arch, over, quant = CELLS[cell]
+    jcfg = jregistry.reduced(arch, n_layers=2, **over)
+    cfg = registry.reduced(arch, n_layers=2, **over)
     jparams = jT.init(jax.random.PRNGKey(0), jcfg)
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                      device="cpu")
@@ -90,8 +105,9 @@ def _setup(cell):
     blue = [rng.integers(1, cfg.vocab, int(rng.integers(4, 20)))
             .astype(np.int32) for _ in range(N_REQ)]
     ref = _requests(REF, blue)
-    eng = REF.Engine(jcfg, jparams, batch_slots=2, max_len=64, seed=0,
-                     paged=REF.PagedConfig(quantize_kv=quant))
+    eng = _share_step(REF.Engine(jcfg, jparams, batch_slots=2, max_len=64,
+                                 seed=0,
+                                 paged=REF.PagedConfig(quantize_kv=quant)))
     for r in ref:
         eng.submit(r)
     eng.run()
@@ -178,6 +194,8 @@ def _chaos_router(pkg, s, kind, seeds=(0, 1), **req_kw):
                           metrics=reg,
                           paged=pkg.PagedConfig(quantize_kv=s["quant"]),
                           **pkg.kw) for i in seeds]
+    if not port:
+        engines = [_share_step(e) for e in engines]
     _steady(engines)
     engines[1] = pkg.ChaosEngine(engines[1], pkg.ChaosPlan(kind, at_step=4))
     router = pkg.Router(engines, cfg=pkg.RouterConfig(migrate=False),
@@ -270,8 +288,8 @@ def test_chaos_sampled_decode_bitmatch():
     s = _setup("full KV")
     samp = dict(temperature=0.9, top_k=50, top_p=0.95)
     ref = _requests(REF, s["blue"], **samp)
-    eng = REF.Engine(s["jcfg"], s["jparams"], batch_slots=2, max_len=64,
-                     seed=0)
+    eng = _share_step(REF.Engine(s["jcfg"], s["jparams"], batch_slots=2,
+                                 max_len=64, seed=0))
     for r in ref:
         eng.submit(r)
     eng.run()
@@ -493,9 +511,11 @@ def _flood(pkg, s):
     cfg, params = (s["cfg"], s["params"]) if port else (s["jcfg"],
                                                          s["jparams"])
     reg = pkg.Registry()
-    engines = _steady([pkg.Engine(cfg, params, batch_slots=2, max_len=32,
-                                  seed=i, metrics=reg, **pkg.kw)
-                       for i in range(2)])
+    engines = [pkg.Engine(cfg, params, batch_slots=2, max_len=32, seed=i,
+                          metrics=reg, **pkg.kw) for i in range(2)]
+    if not port:
+        engines = [_share_step(e) for e in engines]
+    engines = _steady(engines)
     router = pkg.Router(engines, metrics=reg,
                         ft=pkg.FTConfig(degraded_rounds=2))
     flood = [pkg.Request(uid=100 + i, prompt=s["blue"][i % N_REQ][:12].copy(),

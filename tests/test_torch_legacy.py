@@ -270,15 +270,22 @@ def test_sample_matches_reference_on_a_grid():
 # the legacy engine against the reference's
 # ---------------------------------------------------------------------------
 
+_ref_jits = {}
+
+
 @pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy",
                                                           "sampled"])
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_legacy_tokens_match_reference(cell, temperature):
     jlegacy, legacy = _legacy_modules()
     jcfg, jparams, cfg, params = _models(cell)
-    want = _drive(jlegacy.Engine(jcfg, jparams, batch_slots=4, max_len=64,
-                                 seed=5),
-                  _requests(JRequest, jcfg, temperature=temperature))
+    jeng = jlegacy.Engine(jcfg, jparams, batch_slots=4, max_len=64, seed=5)
+    # the reference wraps its prefill and decode in a new jax.jit per
+    # engine (a compile per prompt length): a cell's greedy and sampled
+    # engines share the first one's
+    jeng._prefill, jeng._step = _ref_jits.setdefault(
+        jcfg, (jeng._prefill, jeng._step))
+    want = _drive(jeng, _requests(JRequest, jcfg, temperature=temperature))
     eng = legacy.Engine(cfg, params, batch_slots=4, max_len=64, seed=5,
                         device="cpu")
     got = _drive(eng, _requests(Request, cfg, temperature=temperature))
@@ -376,13 +383,19 @@ def test_eos_on_first_token_finishes_at_prefill():
             assert eng.metrics.value_sum("engine_decode_steps_total") == 0
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mistral-nemo-12b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mistral-nemo-12b",
+                                  "qwen2.5-14b", "internlm2-20b"])
 def test_prefill_decode_consistency(arch):
     """test_models_smoke.py's check on the port's dense archs: prefill and
     decode logits equal the training forward's within 2e-4 of its
-    largest logit."""
+    largest logit (qwen2.5-14b with nonzero q/k/v biases)."""
     cfg = registry.reduced(arch)
     params = T.init(cfg, seed=0, device="cpu")
+    if cfg.qkv_bias:     # init makes them zeros: perturb, as a trained
+        gen = torch.Generator().manual_seed(7)    # model's are not
+        attn = params["segments"][0]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = torch.randn(attn[name].shape, generator=gen) * 0.1
     b, p, n = 2, 16, 3
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (b, p + n)))

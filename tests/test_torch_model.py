@@ -31,10 +31,16 @@ from repro_torch.serving import paged_cache
 TOL = dict(rtol=1e-3, atol=1e-4)
 
 
-def _models(attn):
-    jcfg = jregistry.reduced("qwen3-4b", attn_impl=attn)
-    cfg = registry.reduced("qwen3-4b", attn_impl=attn)
+def _models(attn, arch="qwen3-4b"):
+    jcfg = jregistry.reduced(arch, attn_impl=attn)
+    cfg = registry.reduced(arch, attn_impl=attn)
     jparams = jT.init(jax.random.PRNGKey(0), jcfg)
+    if jcfg.qkv_bias:    # the reference inits q/k/v biases to zeros
+        rng = np.random.default_rng(7)
+        attn_p = jparams["segments"][0]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn_p[name] = jnp.asarray(
+                rng.standard_normal(attn_p[name].shape) * 0.1, jnp.float32)
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                      device="cpu")
     return jcfg, jparams, cfg, params
@@ -227,12 +233,18 @@ def test_paged_srf_bf16_matches_reference_kernels(monkeypatch, c):
 
 
 def test_other_families_raise_not_implemented():
-    for arch, over in (("hymba-1.5b", {}), ("deepseek-v2-lite-16b",
-                                           {"attn_impl": "srf"}),
-                       ("deepseek-v2-lite-16b", {}), ("mamba2-2.7b", {})):
+    """The families still to port raise; the SSD and hybrid families
+    (ported) resolve to the reference's plans."""
+    for arch, over in (("deepseek-v2-lite-16b", {"attn_impl": "srf"}),
+                       ("deepseek-v2-lite-16b", {}),
+                       ("moonshot-v1-16b-a3b", {}),
+                       ("seamless-m4t-large-v2", {}), ("qwen2-vl-2b", {})):
         cfg = registry.reduced(arch, **over)
         with pytest.raises(NotImplementedError):
             paged_cache.plan_for(cfg)
+    for arch, name in (("hymba-1.5b", "kv+ssd"), ("mamba2-2.7b", "ssd")):
+        assert paged_cache.plan_for(registry.reduced(arch)).name == name \
+            == jcache.plan_for(jregistry.reduced(arch)).name
 
 
 def _kv_pages(pools, key):
@@ -243,13 +255,22 @@ def _kv_pages(pools, key):
             else np.asarray(a.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("quantize_kv", [False, True])
-def test_paged_step_kv_logits_match_reference(kv_models, quantize_kv):
+DENSE_CONFIGS = ["qwen2.5-14b", "mistral-nemo-12b", "internlm2-20b"]
+KV_CASES = [pytest.param("qwen3-4b", q, id=str(q)) for q in (False, True)] \
+    + [pytest.param(a, q, id=f"{a}-{q}") for a in DENSE_CONFIGS
+       for q in (False, True)]
+
+
+@pytest.mark.parametrize("arch,quantize_kv", KV_CASES)
+def test_paged_step_kv_logits_match_reference(kv_models, arch, quantize_kv):
     """Full-KV pages (f32, or int8 with f32 row scales) across four pages
     a row: logits within rtol=1e-3; pages equal at the same tolerance
     (f32) or exactly (int8 values and scales; one k or v value that
-    lands on the other side of a rounding boundary would show here)."""
-    jcfg, jparams, cfg, params = kv_models
+    lands on the other side of a rounding boundary would show here).
+    qwen3-4b and the other dense configs (qwen2.5-14b with nonzero
+    q/k/v biases)."""
+    jcfg, jparams, cfg, params = kv_models if arch == "qwen3-4b" \
+        else _models("full", arch)
     steps = _steps(cfg.vocab)
     want, jpools = _run_jax(jparams, jcfg, steps, quantize_kv)
     got, pools = _run_port(params, cfg, steps, quantize_kv)

@@ -45,6 +45,9 @@ def _pair(**over):
     return _models[key]
 
 
+_ref_steps = {}
+
+
 class _Side:
     """One package's names and its (cfg, params), so one scenario runs on
     either."""
@@ -71,7 +74,13 @@ class _Side:
             self.ChaosPlan = jchaos.ChaosPlan
 
     def engine(self, **kw):
-        return self.Engine(self.cfg, self.params, **kw, **self.kw)
+        eng = self.Engine(self.cfg, self.params, **kw, **self.kw)
+        if self.Engine is jserving.Engine:
+            # the reference wraps its step in a new jax.jit per engine:
+            # engines of one (config, page layout) share the first one's
+            eng._step = _ref_steps.setdefault((eng.cfg, eng.paged),
+                                              eng._step)
+        return eng
 
 
 def _both(**over):

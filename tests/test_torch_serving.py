@@ -539,7 +539,8 @@ def test_cli_without_attn_serves_full_kv(capsys, flags, family):
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.launch.train, repro_torch.launch.profile_train, "
-            "repro_torch.serving.chaos, repro_torch.serving.mesh; "
+            "repro_torch.serving.chaos, repro_torch.serving.mesh, "
+            "repro_torch.models.ssm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

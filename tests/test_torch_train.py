@@ -52,10 +52,26 @@ GRAD_RTOL = 1e-4
 GRAD_ATOL_SHARE = 1e-5
 
 
-def _models(attn, **over):
-    jcfg = jregistry.reduced("qwen3-4b", attn_impl=attn, **over)
-    cfg = registry.reduced("qwen3-4b", attn_impl=attn, **over)
-    jparams = jT.init(jax.random.PRNGKey(0), jcfg)
+# the other dense configs, held at one remat setting
+DENSE_CONFIGS = ["qwen2.5-14b", "mistral-nemo-12b", "internlm2-20b"]
+
+
+def _with_qkv_bias(jcfg, jparams):
+    """Nonzero q/k/v biases for a ``qkv_bias`` config (the reference
+    inits them to zeros, which would leave the bias path untested)."""
+    if jcfg.qkv_bias:
+        rng = np.random.default_rng(7)
+        attn = jparams["segments"][0]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jnp.asarray(
+                rng.standard_normal(attn[name].shape) * 0.1, attn[name].dtype)
+    return jparams
+
+
+def _models(attn, arch="qwen3-4b", **over):
+    jcfg = jregistry.reduced(arch, attn_impl=attn, **over)
+    cfg = registry.reduced(arch, attn_impl=attn, **over)
+    jparams = _with_qkv_bias(jcfg, jT.init(jax.random.PRNGKey(0), jcfg))
     params = T.requires_grad(convert.params_from_jax(
         jax.tree.map(np.asarray, jparams), cfg, device="cpu"))
     return jcfg, jparams, cfg, params
@@ -150,11 +166,23 @@ def _loss_and_grads(jcfg, jparams, cfg, params, jb, tb):
     return (float(jl), jg), (loss.item(), grads, metrics)
 
 
-@pytest.mark.parametrize("remat", ["none", "full", "dots"])
-def test_loss_and_every_grad_match_reference(models, remat):
+GRAD_CASES = [pytest.param("qwen3-4b", r, id=r)
+              for r in ("none", "full", "dots")] + \
+    [pytest.param(a, "full", id=a) for a in DENSE_CONFIGS]
+
+
+@pytest.mark.parametrize("arch,remat", GRAD_CASES)
+def test_loss_and_every_grad_match_reference(models, arch, remat):
     """loss_fn (rtol 1e-5) and every gradient leaf; for SRF that includes
-    the projection's g, d0 and d1 of every layer and kv head."""
-    jcfg, jparams, cfg, params = models
+    the projection's g, d0 and d1 of every layer and kv head. qwen3-4b
+    under every remat setting, the other dense configs under one
+    (qwen2.5-14b with nonzero q/k/v biases)."""
+    if arch == "qwen3-4b":
+        jcfg, jparams, cfg, params = models
+    else:
+        jcfg, jparams, cfg, params = _models(models[2].attn_impl, arch)
+        assert not cfg.qkv_bias or float(jnp.abs(
+            jparams["segments"][0]["attn"]["bq"]).min()) > 0
     cfg = dataclasses.replace(cfg, remat=remat)
     jb, tb = _batch(cfg)
     (jl, jg), (loss, grads, metrics) = _loss_and_grads(
