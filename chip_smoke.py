@@ -7,9 +7,10 @@ prefix cache), with SRF attention, and with seeded SRF attention
 through the legacy per-slot engine beside the paged one, through the
 request router with fault-tolerant serving and a chaos fault on one of
 two replicas, and through the serve CLI with kernel timing and a Chrome
-trace, serves full-width mamba2-2.7b (SSD) and hymba-1.5b (hybrid) and
-the three other dense configs, then trains full-width qwen3-4b with SRF
-and with full attention.
+trace, serves full-width mamba2-2.7b (SSD) and hymba-1.5b (hybrid),
+the three other dense configs, moonshot-v1-16b-a3b (MoE) and
+deepseek-v2-lite-16b (MLA with MoE), then trains full-width qwen3-4b
+with SRF and with full attention.
 
     python3 chip_smoke.py
 
@@ -79,6 +80,17 @@ result line):
      paged_gather_dequant_kv on int8 rows of 320 (R=8, M=16, P=16,
      N=257, 32 layer pools cycled; bit-equal), timed beside their plain
      versions and bounds.
+   * kernels 1, 2, 4 and 5 at the MoE and MLA configs' shapes
+     (``phase_moe_mla_kernels``): the spinner at deepseek's MLA-SRF
+     shape (n=192 without HD, m=256, G=16 query heads; decode query and
+     key B=8, prefill query and key B=128; bf16 and f32; the route
+     ``ops.kernel_takes`` picks must be the kernel) and moonshot's (n=128,
+     HD, G=16, B=8, bf16); srf_decode at (B=8, H=16, m=256, dv=128);
+     paged_gather on bf16 rows of D=512 and D=64 (deepseek's latents c
+     and kpe, 27 layer pools) and D=2048 (moonshot, 48 pools), bit-equal
+     to the plain version and to ``pool[tables]``, also on pool views 2
+     and 8 bytes off 16-byte alignment; paged_gather_dequant_kv on int8
+     rows of 2048; timed beside their plain versions and bounds.
    Times: CUDA events over back-to-back launches queued behind a device
    sleep, median of 5 repeats (3 for the circulant); the gathers cycle
    through 36 layer pools, as a decode step does, so pages come from HBM.
@@ -200,6 +212,24 @@ result line):
    full width, one after another (``phase_serve_dense_configs``): full
    KV, 4 greedy requests of 128 + 16 tokens, paged_gather exactly 2 a
    layer a step; tok/s, TTFT p50, peak memory.
+   The MoE and MLA families: reduced moonshot-v1-16b-a3b (full KV, int8
+   pages, SRF) and deepseek-v2-lite-16b (MLA latent pages, MLA + SRF),
+   f32, 2 layers, capacity factor 8 (no routing slot drops, so paged ==
+   legacy holds), in ``phase_reduced_families``'s part (1). Then full
+   width, random weights, each model freed before the next:
+   moonshot-v1-16b-a3b (48 layers, 64 experts top-6 + 2 shared, 28.4 B
+   params; ``phase_serve_moe``) with full KV at 8 requests of 128 + 32
+   tokens, 8 slots (paged_gather exactly 2 a layer a step), int8 pages
+   and SRF at 4 x (128 + 16), 4 slots (paged_gather_dequant_kv exactly 1
+   a layer a step; the spinner exactly 2 a layer a step plus the quality
+   probe's, srf_decode exactly 1 a layer a decode step);
+   deepseek-v2-lite-16b (27 layers, MLA kv_lora 512, 15.7 B params;
+   ``phase_serve_mla``) with MLA latent pages at 8 x (128 + 32)
+   (paged_gather exactly 2 a layer a step: c and kpe), the legacy engine
+   on the first 4 requests at 128 + 16 (no kernel; first-token logits
+   within ``FAMILY_LOGIT_TOL["mla"]`` of the paged engine's), and MLA +
+   SRF at 4 x (128 + 16). Each run prints tok/s, TTFT p50, peak memory
+   and the pools' bytes; no plain spinner on the card.
 5. Train (after freeing the serving memory). Full-width, full-depth
    qwen3-4b (bf16, remat full, B = 8, seq = 64, the training launcher's
    defaults), random weights, 5 steps of ``launch.steps.make_train_step``
@@ -230,7 +260,9 @@ result line):
    reduced int8 router cells (``router_*``); the spinner, srf_decode and
    both gathers their time at hymba-1.5b's shapes and their launches in
    its serve runs (``hymba_*``), paged_gather its launches in the dense
-   configs' runs (``dense_*``).
+   configs' runs (``dense_*``); the same four their time at the MoE and
+   MLA shapes and their launches in those serve runs (``moonshot_*``,
+   ``deepseek_*``; paged_gather's kpe shape ``deepseek_kpe_*``).
    ``library_ms`` is ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
    for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
@@ -381,16 +413,19 @@ def bound(byts: float, ops: float):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def spinner_bound(kind, gsz, bsz, n, m, itemsize, gen_elems, width):
+def spinner_bound(kind, gsz, bsz, n, m, itemsize, gen_elems, width,
+                  use_hd=True):
     """x read once, generator and diagonals read once, output written
     once. Operations: what the function needs, not what the kernel does
     (it regenerates A and takes B*m*n multiply-adds): per row, the fast
     structured matvec's count (``structured.flops_fast``, an FFT product)
-    plus the HD butterfly's n*log2(n) adds."""
+    plus the HD butterfly's n*log2(n) adds (none without HD, nor the two
+    diagonals)."""
     from repro_torch.core import structured
-    byts = itemsize * gsz * (bsz * n + gen_elems + 2 * n + bsz * width)
+    hd = 2 * n if use_hd else 0
+    byts = itemsize * gsz * (bsz * n + gen_elems + hd + bsz * width)
     ops = gsz * bsz * (structured.flops_fast(kind, m, n)
-                       + n * math.log2(n))
+                       + (n * math.log2(n) if use_hd else 0))
     return bound(byts, ops)
 
 
@@ -1551,15 +1586,20 @@ def phase_serve_kv():
 
 class count_probes:
     """Counts the live quality probe's calls inside the block (the
-    engine looks the probe up in ``obs.quality`` at each call)."""
+    engine looks the probe up in ``obs.quality`` at each call), and the
+    spinner launches they make (``spinner``)."""
 
     def __enter__(self):
+        from repro_torch.kernels import ops
         from repro_torch.obs import quality
-        self.calls, self.probe = 0, quality.srf_quality_probe
+        self.calls, self.probe, self.spinner = 0, quality.srf_quality_probe, 0
 
         def probe(*a, **k):
             self.calls += 1
-            return self.probe(*a, **k)
+            before = ops.launch_counts()["spinner"]
+            out = self.probe(*a, **k)
+            self.spinner += ops.launch_counts()["spinner"] - before
+            return out
         quality.srf_quality_probe = probe
         return self
 
@@ -2664,15 +2704,196 @@ def phase_hymba_kernels(gen):
     return out
 
 
+# the shapes the MoE and MLA configs' serving paths give kernels 1, 2, 4
+# and 5 (8 requests): deepseek-v2-lite-16b's MLA-SRF feature maps (one
+# P-model per query head, n = qk_nope + qk_rope = 192, no HD) and latent
+# pages (c: kv_lora 512, kpe: qk_rope 64, 27 layers); moonshot-v1-16b-a3b's
+# SRF feature maps (16 kv heads of 128, HD) and KV pages (16 x 128, 48
+# layers); the SRF state of both (16 heads, m 256, dv 128)
+MOE_MLA = dict(rows=8, heads=16, m=256, dv=128, mla_n=192, kv_n=128,
+               prefill_rows=8 * 16, pages=257, page=16, width=16,
+               mla_layers=27, kv_layers=48, kv_lora=512, rope=64)
+
+
+def _spinner_case(label, gsz, bsz, n, m, dtype, epi, use_hd, gen):
+    """One spinner shape against its plain version (``check_exp``), timed
+    beside it and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spinner as kspin
+    x, p = spinner_inputs("circulant", gsz, bsz, n, m, dtype, gen,
+                          use_hd=use_hd)
+    args = ("circulant", p["g"], x, m)
+    kw = dict(d0=p.get("d0"), d1=p.get("d1"), epilogue=epi,
+              out_scale=m ** -0.5)
+    err = check_exp(f"{label} {str(dtype)[6:]} (G={gsz}, B={bsz}, n={n}, "
+                    f"m={m}, {'HD' if use_hd else 'no HD'}, {epi})",
+                    kspin.spinner_project_cuda(*args, **kw),
+                    ref.spinner_project_ref(*args, **kw), dtype, epi)
+    k_ms = device_ms(lambda: kspin.spinner_project_cuda(*args, **kw))
+    p_ms = device_ms(lambda: ref.spinner_project_ref(*args, **kw),
+                     launches=10, repeats=3)
+    b_ms, b_by = spinner_bound("circulant", gsz, bsz, n, m,
+                               x.element_size(), p["g"][0].numel(), m,
+                               use_hd)
+    log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound {b_ms:.6f} "
+        f"ms ({b_by})")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _gather_case(label, n_layers, npg, pg, d, r, w, gen):
+    """paged_gather on bf16 rows of D: bit-equal to the plain version and
+    to ``pool[tables]``, also on pool views 2 and 8 bytes off 16-byte
+    alignment; timed cycling through ``n_layers`` layer pools beside the
+    plain version, ``pool[tables]`` and the bound."""
+    from repro_torch.kernels import paged_gather as kpg, ref
+    tables = torch.randint(1, npg, (r, w), generator=gen, device="cuda")
+    pools = _layer_pools(n_layers, npg, pg, d, torch.bfloat16, gen)
+    what = f"(N={npg}, P={pg}, D={d}, R={r}, M={w})"
+    for how, elems in (("aligned", 0), ("pool at +2 bytes", 1),
+                       ("pool at +8 bytes", 4)):
+        pool = _offset(pools[0], elems)
+        got = kpg.paged_gather_cuda(pool, tables)
+        exact(f"{label} paged_gather bf16 {what}, {how}", got,
+              ref.paged_gather_ref(pool, tables))
+        exact(f"{label} paged_gather bf16 {what}, {how}, against "
+              f"pool[tables]", got, pool[tables].reshape(got.shape))
+    rows = r * w * pg
+    g_ms = device_ms(_cycle(lambda a: kpg.paged_gather_cuda(a, tables),
+                            pools))
+    g_plain = device_ms(_cycle(lambda a: ref.paged_gather_ref(a, tables),
+                               pools))
+    g_lib = device_ms(_cycle(lambda a: a[tables], pools))
+    g_b, g_by = bound(2 * rows * d * 2, 0)
+    log(f"    kernel {g_ms:.5f} ms  plain {g_plain:.5f} ms  pool[tables] "
+        f"{g_lib:.5f} ms  bound {g_b:.5f} ms ({g_by})")
+    del pools
+    return dict(err=0.0, ms=g_ms, plain_ms=g_plain, library_ms=g_lib,
+                bound_ms=g_b, bound_by=g_by)
+
+
+def phase_moe_mla_kernels(gen):
+    """Kernels 1, 2, 4 and 5 at the shapes the MoE and MLA configs'
+    serving paths give them (``MOE_MLA``): the spinner at deepseek's
+    MLA-SRF shape (circulant n = 192 without HD, m = 256: two circulant
+    blocks of 192 rows, 256 kept; G = 16 query heads; decode query B = 8
+    identity, decode key B = 8 exp, prefill B = 8 x 16 = 128 query and
+    key; bf16 and f32; the route ``ops.kernel_takes`` picks for it must
+    be the kernel) and at moonshot's (n = 128 with HD, G = 16 kv heads,
+    decode query B = 8, bf16); srf_decode at (B = 8, H = 16, m = 256, dv =
+    128, f32); paged_gather on bf16 rows of D = 512 (deepseek's latent c)
+    and D = 64 (kpe: 128-byte rows), 27 layer pools cycled, and of D =
+    2048 (moonshot's K or V), 48 pools; paged_gather_dequant_kv on int8
+    rows of 2048 (R = 8, M = 16, P = 16, N = 257). Each against its plain
+    version (the tolerance of phase 2; the gathers bit-equal, the bf16
+    ones also against ``pool[tables]`` and on pool views off 16-byte
+    alignment), timed beside it and its bound. Returns {kernel: record}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gather as kpg, ref
+    from repro_torch.kernels import srf_decode as kdec
+    h = MOE_MLA
+    dev = "cuda"
+    out = {}
+    n, m, gsz = h["mla_n"], h["m"], h["heads"]
+    if not ops.kernel_takes("circulant", n, m, False):
+        raise AssertionError(f"the MLA-SRF spinner (n={n}, no HD) would "
+                             f"take the plain route on the card")
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, bsz, epi in (
+                ("decode query", h["rows"], "identity"),
+                ("decode key", h["rows"], "exp"),
+                ("prefill query", h["prefill_rows"], "identity"),
+                ("prefill key", h["prefill_rows"], "exp")):
+            out[(f"mla spinner {label}", dtype)] = _spinner_case(
+                f"deepseek MLA-SRF spinner {label}", gsz, bsz, n, m, dtype,
+                epi, False, gen)
+    out[("moonshot spinner decode query", torch.bfloat16)] = _spinner_case(
+        "moonshot SRF spinner decode query", gsz, h["rows"], h["kv_n"], m,
+        torch.bfloat16, "identity", True, gen)
+    b, hq, dv = h["rows"], h["heads"], h["dv"]
+    phi = lambda: torch.rand((b, hq, m), generator=gen, device=dev) / 16  # noqa
+    s = torch.randn((b, hq, m, dv), generator=gen, device=dev) * 4
+    z = phi() * 128
+    pq, pk = phi(), phi()
+    v = torch.randn((b, hq, dv), generator=gen, device=dev)
+    want = ref.srf_decode_ref(s, z, pq, pk, v)
+    got = kdec.srf_decode_cuda(s.clone(), z.clone(), pq, pk, v)
+    err = max(check(f"moe/mla srf_decode {part} (B={b}, H={hq}, m={m}, "
+                    f"dv={dv})", k, p_, torch.float32)
+              for part, k, p_ in zip(("S'", "z'", "out"), got, want))
+    s2, z2 = s.clone(), z.clone()
+    k_ms = device_ms(lambda: kdec.srf_decode_cuda(s2, z2, pq, pk, v))
+    p_ms = device_ms(lambda: ref.srf_decode_ref(s, z, pq, pk, v),
+                     launches=20, repeats=3)
+    byts = 4 * (2 * b * hq * m * dv + 2 * b * hq * m + 2 * b * hq * m
+                + 2 * b * hq * dv)
+    b_ms, b_by = bound(byts, 4.0 * b * hq * m * dv + 4.0 * b * hq * m)
+    log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound {b_ms:.5f} "
+        f"ms ({b_by})")
+    out["srf_decode"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+    npg, pg, r, w = h["pages"], h["page"], h["rows"], h["width"]
+    for key, label, layers, d in (
+            ("paged_gather c", "deepseek latent c", h["mla_layers"],
+             h["kv_lora"]),
+            ("paged_gather kpe", "deepseek kpe", h["mla_layers"], h["rope"]),
+            ("paged_gather kv", "moonshot K", h["kv_layers"],
+             gsz * h["kv_n"])):
+        out[key] = _gather_case(label, layers, npg, pg, d, r, w, gen)
+    nl, d = h["kv_layers"], gsz * h["kv_n"]
+    tables = torch.randint(1, npg, (r, w), generator=gen, device=dev)
+    q = _layer_pools(2 * nl, npg, pg, d, torch.int8, gen)
+    sc = [torch.rand((npg, pg, 1), generator=gen, device=dev) / 127
+          for _ in range(2 * nl)]
+    pairs = [((q[2 * i], sc[2 * i]), (q[2 * i + 1], sc[2 * i + 1]))
+             for i in range(nl)]
+    _dequant_exact(f"moonshot (N={npg}, P={pg}, D={d}, R={r}, M={w})",
+                   q[0], sc[0], q[1], sc[1], tables)
+    bf = torch.bfloat16
+    kv_ms = device_ms(_cycle(lambda a: kpg.paged_gather_dequant_kv_cuda(
+        a[0][0], a[0][1], a[1][0], a[1][1], tables, bf), pairs))
+    kv_plain = device_ms(_cycle(lambda a: [
+        ref.paged_gather_dequant_ref(qq, ss, tables, bf) for qq, ss in a],
+        pairs))
+    rows = r * w * pg
+    kv_b, kv_by = bound(2 * (rows * d + 4 * rows + 2 * rows * d),
+                        2 * rows * d)
+    log(f"    moonshot paged_gather_dequant_kv int8->bf16: kernel "
+        f"{kv_ms:.5f} ms ({100 * kv_b / kv_ms:.0f}% of bound)  plain "
+        f"{kv_plain:.5f} ms  bound {kv_b:.5f} ms ({kv_by})")
+    out["paged_gather_dequant"] = dict(err=0.0, ms=kv_ms, plain_ms=kv_plain,
+                                       library_ms=None, bound_ms=kv_b,
+                                       bound_by=kv_by)
+    del q, sc, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
 # reduced family cells: (label, arch, config overrides, int8 pages)
+# (the MoE cells at capacity factor 8, as the reference's parity tests:
+# a prefill chunk and a whole prompt drop no routing slot, so paged ==
+# legacy holds)
+CF8 = {"moe_capacity_factor": 8.0}
 FAMILIES_REDUCED = [("mamba2 ssd", "mamba2-2.7b", {}, False),
                     ("hymba full KV", "hymba-1.5b", {}, False),
                     ("hymba int8 pages", "hymba-1.5b", {}, True),
-                    ("hymba SRF", "hymba-1.5b", {"attn_impl": "srf"}, False)]
+                    ("hymba SRF", "hymba-1.5b", {"attn_impl": "srf"}, False),
+                    ("moonshot full KV", "moonshot-v1-16b-a3b", CF8, False),
+                    ("moonshot int8 pages", "moonshot-v1-16b-a3b", CF8,
+                     True),
+                    ("moonshot SRF", "moonshot-v1-16b-a3b",
+                     {**CF8, "attn_impl": "srf"}, False),
+                    ("deepseek MLA", "deepseek-v2-lite-16b", CF8, False),
+                    ("deepseek MLA+SRF", "deepseek-v2-lite-16b",
+                     {**CF8, "attn_impl": "srf"}, False)]
 # the kernels each reduced cell's card run must launch (and no other)
 FAMILY_PATHS = {"mamba2 ssd": set(), "hymba full KV": {"paged_gather"},
                 "hymba int8 pages": {"paged_gather_dequant_kv"},
-                "hymba SRF": {"spinner", "srf_decode"}}
+                "hymba SRF": {"spinner", "srf_decode"},
+                "moonshot full KV": {"paged_gather"},
+                "moonshot int8 pages": {"paged_gather_dequant_kv"},
+                "moonshot SRF": {"spinner", "srf_decode"},
+                "deepseek MLA": {"paged_gather"},
+                "deepseek MLA+SRF": {"spinner", "srf_decode"}}
 PREFIX_SCENARIOS = ("hit", "partial", "miss", "evict", "cow")
 PREFIX_COUNTERS = ("prefix_lookups_total", "prefix_hits_total",
                    "prefix_hit_tokens_total", "prefix_cow_forks_total",
@@ -2722,8 +2943,10 @@ def _prefix_run(cfg, params, device, scenario, prefix):
 
 
 def phase_reduced_families():
-    """Reduced mamba2-2.7b and hymba-1.5b (f32, 2 layers; hymba with full
-    KV, int8 pages and SRF) on the card and on the CPU. (1) 8
+    """Reduced mamba2-2.7b, hymba-1.5b, moonshot-v1-16b-a3b and
+    deepseek-v2-lite-16b (f32, 2 layers; hymba and moonshot with full KV,
+    int8 pages and SRF, deepseek with MLA latent pages and MLA + SRF;
+    ``FAMILIES_REDUCED``) on the card and on the CPU. (1) 8
     mixed-length requests through the paged engine and through the
     legacy engine, greedy and sampled (temperature 0.8, engine seed 5):
     card tokens equal CPU tokens, and on the card paged == legacy (int8
@@ -2886,17 +3109,25 @@ def _family_run(label, a, cfg, params, expect=None, eng=None, reqs=None):
 # A first card run measured mamba2-2.7b 0.073 and 0.076-0.085 (64 SSD
 # layers; the paged engine's chunks of 16 against one legacy chunk of
 # 128), hymba-1.5b 0.031 and 0.034-0.035; the limits bound a broken
-# engine (an O(1) error), at about twice those.
-FAMILY_LOGIT_TOL = {"ssm": (0.15, 0.2), "hybrid": (0.075, 0.1)}
+# engine (an O(1) error), at about twice those. deepseek-v2-lite-16b
+# (MLA with MoE; no f32 anchor: an f32 copy does not fit beside the bf16
+# weights) measured 0.296: besides bf16 rounding, expert capacity is a
+# per-call rule, so the paged engine's prefill chunks (cap 8 an expert)
+# and the legacy engine's whole prompt (cap 16) drop different routing
+# slots.
+FAMILY_LOGIT_TOL = {"ssm": (0.15, 0.2), "hybrid": (0.075, 0.1),
+                    "mla": (0.6, None)}
 
 
 def _first_logit_gap(label, paged, legacy, f32, family):
     """Worst, over requests, of max|a - b| over the row's largest |a| of
     the first-token logits of the two bf16 engines (``first_logits``
-    records) against each other and against an f32 copy's prefill
-    (``_f32_first_logits``): {pair: worst share}."""
-    pairs = {"legacy-paged": (legacy.rows, paged.rows),
-             "f32-legacy": (f32, legacy.rows), "f32-paged": (f32, paged.rows)}
+    records) against each other and, unless ``f32`` is None, against an
+    f32 copy's prefill (``_f32_first_logits``): {pair: worst share}."""
+    pairs = {"legacy-paged": (legacy.rows, paged.rows)}
+    if f32 is not None:
+        pairs.update({"f32-legacy": (f32, legacy.rows),
+                      "f32-paged": (f32, paged.rows)})
     gaps = {k: max(float((a[u] - b[u]).abs().max() / a[u].abs().max())
                    for u in a) for k, (a, b) in pairs.items()}
     engines, anchor = FAMILY_LOGIT_TOL[family]
@@ -3074,6 +3305,138 @@ def phase_serve_dense_configs():
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def _srf_launches(label, cfg, res, probes):
+    """An SRF run's launches, exactly: the spinner 2 a layer a step (a
+    layer's query and key feature maps) plus the live quality probe's
+    own (one sample a run, ``count_probes``), srf_decode 1 a layer a
+    decode step, nothing else."""
+    if probes.calls != 1:
+        raise AssertionError(f"{label}: {probes.calls} quality samples")
+    n = cfg.n_layers
+    _expect_launches(label, res["counts"], {
+        "spinner": (2 * n * res["steps"] + probes.spinner, True),
+        "srf_decode": (n * res["decode_steps"], True),
+        "paged_gather": (0, True)})
+    log(f"    spinner {res['counts']['spinner']} = 2 x {n} layers x "
+        f"{res['steps']} steps + {probes.spinner} in the quality probe; "
+        f"srf_decode {res['counts']['srf_decode']} = {n} x "
+        f"{res['decode_steps']} decode steps")
+
+
+def _build(a):
+    """Random full-width params for the serve arguments ``a``, described;
+    -> (cfg, params)."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    cfg, params = serve.build(a)
+    torch.cuda.synchronize()
+    _describe(cfg, params, t0)
+    log(f"    active params a token {cfg.active_param_count() / 1e9:.3f} B "
+        f"of {cfg.param_count() / 1e9:.3f} B; memory after init "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    return cfg, params
+
+
+def _free():
+    """Return what the dropped params and engines held to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_moe():
+    """Full-width moonshot-v1-16b-a3b (48 layers: 1 dense, then 47 MoE of
+    64 experts, top-6, 2 shared; 16 q / 16 kv heads of 128; bf16; 28.4 B
+    params, 56.8 GB), random weights: full KV on bf16 pages, 8 greedy
+    requests of 128 + 32 tokens, 8 slots (paged_gather exactly 2 a layer
+    a step); int8 pages, 4 requests of 128 + 16 (paged_gather_dequant_kv
+    exactly 1 a layer a step); then, the params rebuilt with SRF
+    attention, SRF at 4 x (128 + 16) (``_srf_launches``). Nothing else
+    launched, no plain route; tok/s, TTFT p50, peak memory and pool
+    bytes printed. Returns the results."""
+    from repro_torch.launch import serve
+    arch = "moonshot-v1-16b-a3b"
+    out = {}
+    for attn, runs in (("full", (("full KV", {}, FAMILY_TRAFFIC),
+                                 ("int8 pages", {"quantize_kv": True},
+                                  DENSE_TRAFFIC))),
+                       ("srf", (("SRF", {}, DENSE_TRAFFIC),))):
+        cfg, params = _build(serve_args(attn, arch=arch, **FAMILY_TRAFFIC))
+        n = cfg.n_layers
+        for label, flags, traffic in runs:
+            a = serve_args(attn, arch=arch, **traffic, **flags)
+            serve.warm(a, cfg, params)
+            eng = serve.engine(a, cfg, params)
+            with count_probes() as probes:
+                res = _family_run(f"{arch} {label}", a, cfg, params, eng=eng)
+            del eng
+            steps = res["steps"]
+            if label == "SRF":
+                _srf_launches(f"{arch} SRF", cfg, res, probes)
+            else:
+                key = "paged_gather" if label == "full KV" \
+                    else "paged_gather_dequant_kv"
+                _expect_launches(f"{arch} {label}", res["counts"], {
+                    key: ((2 if label == "full KV" else 1) * n * steps, True),
+                    "spinner": (0, True), "srf_decode": (0, True)})
+            out[label] = res
+        del params
+        _free()
+    return out
+
+
+def phase_serve_mla():
+    """Full-width deepseek-v2-lite-16b (27 layers: 1 dense, then 26 MoE;
+    MLA with kv_lora 512, qk 128 + 64 rope, v 128, 16 heads; bf16; 15.7
+    B params), random weights: MLA latent pages, 8 greedy requests of
+    128 + 32 tokens, 8 slots (paged_gather exactly 2 a layer a step: the
+    latents c and kpe); the legacy engine on the first 4 of them, 128 +
+    16 tokens, 4 slots (no kernel launched); then, the params rebuilt
+    with SRF attention, MLA + SRF at 4 x (128 + 16) (``_srf_launches``).
+    The two engines' first-token logits agree within
+    ``FAMILY_LOGIT_TOL["mla"]``; no f32 anchor (an f32 copy of 15.7 B
+    params, 63 GB, does not fit beside the bf16 weights). Returns the
+    results."""
+    from repro_torch.launch import serve
+    arch = "deepseek-v2-lite-16b"
+    none = {"paged_gather": (0, True), "spinner": (0, True),
+            "srf_decode": (0, True)}
+    out = {}
+    cfg, params = _build(serve_args(arch=arch, **FAMILY_TRAFFIC))
+    n = cfg.n_layers
+    a = serve_args(arch=arch, **FAMILY_TRAFFIC)
+    serve.warm(a, cfg, params)
+    eng = serve.engine(a, cfg, params)
+    prec = first_logits(eng)
+    res = _family_run(f"{arch} MLA", a, cfg, params, eng=eng)
+    del eng
+    _expect_launches(f"{arch} MLA", res["counts"], {
+        **none, "paged_gather": (2 * n * res["steps"], True)})
+    out["MLA"] = res
+    la = serve_args(arch=arch, legacy=True, **DENSE_TRAFFIC)
+    serve.warm(la, cfg, params)
+    leng = serve.engine(la, cfg, params)
+    lrec = first_logits(leng)
+    out["legacy"] = _family_run(f"{arch} legacy MLA", la, cfg, params, none,
+                                eng=leng)
+    del leng
+    res["first_logit_gap"] = _first_logit_gap(f"{arch} MLA", prec, lrec,
+                                              None, "mla")
+    del params, prec, lrec
+    _free()
+    cfg, params = _build(serve_args("srf", arch=arch, **FAMILY_TRAFFIC))
+    a = serve_args("srf", arch=arch, **DENSE_TRAFFIC)
+    serve.warm(a, cfg, params)
+    eng = serve.engine(a, cfg, params)
+    with count_probes() as probes:
+        res = _family_run(f"{arch} MLA+SRF", a, cfg, params, eng=eng)
+    del eng
+    _srf_launches(f"{arch} MLA+SRF", cfg, res, probes)
+    out["MLA+SRF"] = res
+    del params
+    _free()
     return out
 
 
@@ -3320,7 +3683,7 @@ def _leaves(tree):
 def _record(name, source, replaces, launches, rec, shape):
     extra = {k: v for k, v in rec.items() if k.startswith((
         "one_pool_", "two_single_", "train_", "dispatch_", "router_",
-        "hymba_", "dense_"))}
+        "hymba_", "dense_", "moonshot_", "deepseek_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -3357,6 +3720,7 @@ def main() -> int:
     circ = phase_circulant(gen)
     phase_sampler(gen)
     hymba_k = phase_hymba_kernels(gen)
+    moe_k = phase_moe_mla_kernels(gen)
 
     log("phase 3: the kernel-estimation library")
     phase_estimators(gen)
@@ -3390,6 +3754,8 @@ def main() -> int:
     dense = phase_serve_dense_configs()
     gc.collect()
     torch.cuda.empty_cache()
+    moe = phase_serve_moe()
+    mla = phase_serve_mla()
 
     log("phase 5: train")
     train = phase_train_full()
@@ -3453,6 +3819,23 @@ def main() -> int:
         out["hymba_shape"] = shape
         return out
     hg = "R=8, M=16, P=16, D=5*64, N=257, 32 layer pools cycled"
+
+    def family(prefix, rec, runs, shape):
+        """The kernel at a MoE / MLA config's shape
+        (``phase_moe_mla_kernels``) and its launches in that config's
+        full-width serve runs ({run label: (result, launch key)})."""
+        out = {f"{prefix}_{k}": rec[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+        out[f"{prefix}_max_abs_err"] = rec["err"]
+        out[f"{prefix}_library_ms"] = rec.get("library_ms")
+        out[f"{prefix}_launches"] = {run: r["counts"][key]
+                                     for run, (r, key) in runs.items()}
+        out[f"{prefix}_launches_of"] = "full-width serve runs: 8 " \
+            "requests x (128 + 32) tokens (moonshot full KV, deepseek " \
+            "MLA), 4 x (128 + 16) (int8 pages, SRF, MLA+SRF)"
+        out[f"{prefix}_shape"] = shape
+        return out
+    mg = "R=8, M=16, P=16, N=257"
     kernels = [
         _record("spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:111", srf["spinner"],
@@ -3464,14 +3847,30 @@ def main() -> int:
                  **routed("srf", "spinner"),
                  **hymba("spinner decode query", "SRF", "spinner",
                          "decode query: G=5, B=40, n=64, m=256, bf16, "
-                         "identity")},
+                         "identity"),
+                 **family("deepseek", moe_k[("mla spinner decode query",
+                                             torch.bfloat16)],
+                          {"MLA+SRF": (mla["MLA+SRF"], "spinner")},
+                          "decode query: G=16 query heads, B=8, n=192, "
+                          "m=256, no HD, bf16, identity"),
+                 **family("moonshot", moe_k[("moonshot spinner decode "
+                                             "query", torch.bfloat16)],
+                          {"SRF": (moe["SRF"], "spinner")},
+                          "decode query: G=16, B=8, n=128, m=256, HD, "
+                          "bf16, identity")},
                 "decode query: G=8, B=32, n=128, m=256, bf16, identity"),
         _record("srf_decode", src + "srf_decode.cu",
                 "src/repro/kernels/srf_decode.py:26", srf["srf_decode"],
                 {**dec, **dispatch("srf", "srf_decode"),
                  **routed("srf", "srf_decode"),
                  **hymba("srf_decode", "SRF", "srf_decode",
-                         "B=8, H=25, m=256, dv=64, f32")},
+                         "B=8, H=25, m=256, dv=64, f32"),
+                 **family("moonshot", moe_k["srf_decode"],
+                          {"SRF": (moe["SRF"], "srf_decode")},
+                          "B=8, H=16, m=256, dv=128, f32"),
+                 **family("deepseek", moe_k["srf_decode"],
+                          {"MLA+SRF": (mla["MLA+SRF"], "srf_decode")},
+                          "B=8, H=16, m=256, dv=128, f32")},
                 "B=8, H=32, m=256, dv=128, f32"),
         _record("paged_gather", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:28",
@@ -3483,7 +3882,18 @@ def main() -> int:
                  "dense_launches": {a: dense[a]["counts"]["paged_gather"]
                                     for a in DENSE_CONFIGS},
                  "dense_launches_of": "full width, 4 requests x (128 + "
-                                      "16) tokens each"},
+                                      "16) tokens each",
+                 **family("moonshot", moe_k["paged_gather kv"],
+                          {"full KV": (moe["full KV"], "paged_gather")},
+                          mg + ", D=16*128, 48 layer pools cycled, bf16"),
+                 **family("deepseek", moe_k["paged_gather c"],
+                          {"MLA": (mla["MLA"], "paged_gather")},
+                          mg + ", D=512 (latent c), 27 layer pools "
+                          "cycled, bf16"),
+                 **family("deepseek_kpe", moe_k["paged_gather kpe"],
+                          {"MLA": (mla["MLA"], "paged_gather")},
+                          mg + ", D=64 (rope key kpe), 27 layer pools "
+                          "cycled, bf16")},
                 decode + ", bf16"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
@@ -3496,7 +3906,12 @@ def main() -> int:
                                        "oom)",
                  **hymba("paged_gather_dequant", "int8 pages",
                          "paged_gather_dequant_kv",
-                         hg + ", int8 -> bf16, K and V in one launch")},
+                         hg + ", int8 -> bf16, K and V in one launch"),
+                 **family("moonshot", moe_k["paged_gather_dequant"],
+                          {"int8 pages": (moe["int8 pages"],
+                                          "paged_gather_dequant_kv")},
+                          mg + ", D=16*128, 48 layer pools cycled, int8 "
+                          "-> bf16, K and V in one launch")},
                 decode + ", int8 -> bf16, a layer's K and V in one launch "
                 "(paged_gather_dequant_kv, as the int8 serve run launches "
                 "it); plain_ms: two plain calls; one_pool_*: the "

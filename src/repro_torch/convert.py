@@ -5,9 +5,12 @@
 module never imports jax — and returns the port's params: the same
 nested layout (embed, stacked ``segments``, ``final_norm``, ``head``,
 and per-layer ``attn.srf`` generators and HD diagonals, or the uint32
-``seed`` leaves of seeded SRF, shaped (layers, kv heads)) with every
-leaf a torch tensor. Seeds become int64 tensors holding the same 32-bit
-values, the port's seed representation (``kernels.seedgen``). Both
+``seed`` leaves of seeded SRF, shaped (layers, kv heads); an MoE
+config's two segments, dense then moe, with the f32 router, the experts
+and the "shared" experts) with every leaf a torch tensor; float leaves
+take the config's dtype, the router excepted. Seeds become int64
+tensors holding the same 32-bit values, the port's seed representation
+(``kernels.seedgen``). Both
 packages then compute the same function. ``opt_state_from_jax`` carries
 the reference's AdamW state across the same way, so both packages can
 train on from one optimizer state.
@@ -34,8 +37,9 @@ def _leaf(a: Any, device, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _tree(t, device, dtype):
-    if isinstance(t, dict):
-        return {k: _tree(v, device, dtype) for k, v in t.items()}
+    if isinstance(t, dict):     # an MoE router stays f32 (moe.moe_init)
+        return {k: _tree(v, device, torch.float32 if k == "router"
+                         else dtype) for k, v in t.items()}
     if isinstance(t, (tuple, list)):
         return type(t)(_tree(v, device, dtype) for v in t)
     return _leaf(t, device, dtype)

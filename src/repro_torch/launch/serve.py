@@ -15,8 +15,9 @@ over engine replicas (``--replicas``), or the legacy per-slot engine
 
 Full width is the default: ``--reduced`` opts into the tiny same-family
 config of ``configs.registry.reduced``. ``--arch`` takes the dense
-configs, ``mamba2-2.7b`` (SSD state in slots) and ``hymba-1.5b``
-(attention beside SSD state in every layer). Without ``--attn`` the
+configs, ``mamba2-2.7b`` (SSD state in slots), ``hymba-1.5b``
+(attention beside SSD state in every layer), ``moonshot-v1-16b-a3b``
+(MoE) and ``deepseek-v2-lite-16b`` (MLA latent pages, MoE). Without ``--attn`` the
 config's own attention serves (``full``: paged KV). Weights are random, drawn
 from a ``torch.Generator`` seeded with ``--seed`` on the device; prompts
 are random tokens from ``numpy.random.default_rng(--seed)``, the first

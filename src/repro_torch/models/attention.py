@@ -1,10 +1,12 @@
-"""GQA attention: the paged serving engine's step (full-KV pages or the
-paper's SRF state), the training forward, and the per-request cache of
-the legacy engine (prefill and decode).
+"""Attention: full softmax GQA, MLA (DeepSeek latent attention) and the
+paper's SRF attention, for the paged serving engine's step, the training
+forward, and the per-request cache of the legacy engine (prefill and
+decode).
 
 Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init``,
-``init_cache``, ``_quantize_kv``, ``_dequantize_kv`` and ``attention``
-in modes ``"paged"``, ``"train"``, ``"prefill"`` and ``"decode"``.
+``init_cache``, ``_quantize_kv``, ``_dequantize_kv``, ``_mla_qkv`` and
+``attention`` in modes ``"paged"``, ``"train"``, ``"prefill"`` and
+``"decode"``.
 
 * ``attn_impl="full"`` (the configs' default): the chunk's k/v rows are
   scattered into the request's KV pages (bf16/f32, or int8 with one f32
@@ -23,6 +25,16 @@ in modes ``"paged"``, ``"train"``, ``"prefill"`` and ``"decode"``.
   the seeded spinner kernel. In training, the feature maps (the spinner
   kernels under autograd, ``kernels.ops``) feed
   ``srf_attention.attention_causal``.
+* MLA (``cfg.mla_kv_lora`` > 0, ``_mla_attention``): each token caches a
+  latent c = x·wdkv (kv_lora wide) and a rope key kpe = x·wkpe (qk_rope
+  wide, stored before RoPE); every step decompresses the whole history
+  into per-head keys [c·wuk | rope(kpe)] and values c·wuv. Paged, the
+  latents are scattered into their own pages (the ``mla`` family) and
+  gathered back through paged_gather (rows of kv_lora and of qk_rope),
+  the history roped at read time at positions 0..T-1; scale
+  1/sqrt(qk_nope + qk_rope). With SRF, the chunk's own keys and values
+  feed one P-model per query head, and the state is the SRF slot of
+  dv = mla_v_dim.
 
 * Prefill and decode (``init_cache``): one contiguous cache a request
   batch. Full KV: {"k", "v": (B, Hkv, S, hd)} in the params' dtype, or
@@ -30,7 +42,8 @@ in modes ``"paged"``, ``"train"``, ``"prefill"`` and ``"decode"``.
   (B, Hkv, S, 1)}) when ``cfg.kv_cache_dtype == "int8"``; prefill
   attends causally over the prompt and writes the cache from position
   0, decode writes one row at ``idx``, dequantizes the whole cache and
-  attends over ``arange(S) <= idx``. SRF: {"s": (B, Hq, m, dv), "z":
+  attends over ``arange(S) <= idx``. MLA: {"c": (B, S, kv_lora), "kpe":
+  (B, S, qk_rope)}, the same rule. SRF: {"s": (B, Hq, m, dv), "z":
   (B, Hq, m)} in the params' dtype; prefill runs
   ``srf_attention.attention_causal`` and stores ``prefill_state`` cast
   to v's dtype, decode runs ``srf_attention.decode_step`` in the
@@ -38,7 +51,7 @@ in modes ``"paged"``, ``"train"``, ``"prefill"`` and ``"decode"``.
   update). Plain PyTorch ops but the SRF feature maps (the spinner
   kernels), as the reference's are jnp ops.
 
-Not ported yet (they raise NotImplementedError): MLA, cross attention,
+Not ported yet (they raise NotImplementedError): cross attention,
 M-RoPE, mesh tensor parallelism (``tp_axis``) and the encoder mode.
 
 Unlike the reference, which returns new pools and caches, every cached
@@ -65,15 +78,18 @@ from repro_torch.kernels import ops as kops
 
 from . import layers
 
-NOT_IN_SLICE = ("not ported yet: the PyTorch port runs the dense, SSD "
-                "and hybrid families with full-KV or SRF attention "
-                "(ROADMAP.md, 'Port state')")
+NOT_IN_SLICE = ("not ported yet: the PyTorch port runs the dense, SSD, "
+                "hybrid and MoE families with full-KV, MLA or SRF "
+                "attention (ROADMAP.md, 'Port state')")
+
+
+def v_dim(cfg) -> int:
+    """Width of a head's value (the SRF state's dv)."""
+    return cfg.mla_v_dim if cfg.is_mla else cfg.head_dim
 
 
 def srf_cfg(cfg) -> SRFConfig:
-    if cfg.is_mla:
-        raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
-    dim = cfg.head_dim
+    dim = cfg.mla_qk_dim if cfg.is_mla else cfg.head_dim
     return SRFConfig(kind=cfg.srf.kind, n_features=cfg.srf.n_features,
                      head_dim=dim, feature=cfg.srf.feature, r=cfg.srf.r,
                      use_hd=is_pow2(dim), chunk=cfg.srf.chunk,
@@ -82,27 +98,36 @@ def srf_cfg(cfg) -> SRFConfig:
 
 def attn_init(gen: torch.Generator, cfg, dtype, device=None,
               lead=()) -> Dict:
-    """Attention params; ``lead`` stacks a leading layer axis."""
-    if cfg.is_mla:
-        raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
+    """Attention params; ``lead`` stacks a leading layer axis. MLA:
+    "wq", "wdkv", "wkpe", "wuk", "wuv", "wo"; SRF P-models one per kv
+    head, or one per query head under MLA."""
     d = cfg.d_model
-    p: Dict = {
-        "wq": layers.dense_init(gen, d, cfg.q_dim, dtype, device, lead=lead),
-        "wk": layers.dense_init(gen, d, cfg.kv_dim, dtype, device, lead=lead),
-        "wv": layers.dense_init(gen, d, cfg.kv_dim, dtype, device, lead=lead),
-        "wo": layers.dense_init(gen, cfg.q_dim, d, dtype, device, lead=lead)}
-    if cfg.qkv_bias:
+
+    def dense(i, o):
+        return layers.dense_init(gen, i, o, dtype, device, lead=lead)
+    if cfg.is_mla:
+        h = cfg.n_heads
+        p: Dict = {"wq": dense(d, h * cfg.mla_qk_dim),
+                   "wdkv": dense(d, cfg.mla_kv_lora),
+                   "wkpe": dense(d, cfg.mla_qk_rope),
+                   "wuk": dense(cfg.mla_kv_lora, h * cfg.mla_qk_nope),
+                   "wuv": dense(cfg.mla_kv_lora, h * cfg.mla_v_dim),
+                   "wo": dense(h * cfg.mla_v_dim, d)}
+    else:
+        p = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+    if cfg.qkv_bias and not cfg.is_mla:
         for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
                           ("bv", cfg.kv_dim)):
             p[name] = torch.zeros((*lead, dim), dtype=dtype, device=device)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((*lead, cfg.head_dim), dtype=dtype,
-                                 device=device)
-        p["k_norm"] = torch.ones((*lead, cfg.head_dim), dtype=dtype,
-                                 device=device)
+        hd = cfg.mla_qk_dim if cfg.is_mla else cfg.head_dim
+        p["q_norm"] = torch.ones((*lead, hd), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((*lead, hd), dtype=dtype, device=device)
     if cfg.attn_impl == "srf":
         sc = srf_cfg(cfg)
-        per_layer = [srf.init(gen, sc, cfg.n_kv_heads, dtype, device)
+        n_pm = cfg.n_heads if cfg.is_mla else cfg.n_kv_heads
+        per_layer = [srf.init(gen, sc, n_pm, dtype, device)
                      for _ in range(lead[0] if lead else 1)]
         if lead:
             p["srf"] = tuple({k: torch.stack([pl[i][k] for pl in per_layer])
@@ -122,10 +147,11 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device=None,
         return torch.zeros((*lead, *shape), dtype=dt, device=device)
     if cfg.attn_impl == "srf":
         m = srf_cfg(cfg).feat_dim
-        return {"s": zeros(batch, cfg.n_heads, m, cfg.head_dim),
+        return {"s": zeros(batch, cfg.n_heads, m, v_dim(cfg)),
                 "z": zeros(batch, cfg.n_heads, m), "idx": 0}
     if cfg.is_mla:
-        raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
+        return {"c": zeros(batch, max_len, cfg.mla_kv_lora),
+                "kpe": zeros(batch, max_len, cfg.mla_qk_rope), "idx": 0}
     shp = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         return {"k": zeros(*shp, dt=torch.int8),
@@ -422,12 +448,27 @@ def _srf_cached(sc: SRFConfig, phi_q: torch.Tensor, phi_k: torch.Tensor,
     return out
 
 
+def _feature_maps(sc: SRFConfig, p, cache: Optional[Dict],
+                  q: torch.Tensor, k: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SRF features of queries (B, G, Lq, n) and keys (B, G, Lk, n), one
+    P-model per group: the layer's own, or its seeds folded with the
+    step's embed seeds (``cache["srf_folded"]``, seeded SRF)."""
+    folded = None if cache is None else cache.get("srf_folded")
+    if folded is None:
+        return (srf.feature_map(sc, p["srf"], q, is_query=True),
+                srf.feature_map(sc, p["srf"], k, is_query=False))
+    return (srf.feature_map_folded(sc, folded, q, is_query=True),
+            srf.feature_map_folded(sc, folded, k, is_query=False))
+
+
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
               cache: Optional[Dict] = None) -> torch.Tensor:
-    """GQA attention: (B, L, d) -> (B, L, d).
+    """GQA or MLA attention: (B, L, d) -> (B, L, d).
 
     ``mode="paged"``: one serving step; ``cache["pool"]`` is the layer's
-    KV page pool (full) or slot pool (srf), updated in place.
+    KV page pool (full), latent page pool (MLA) or slot pool (srf),
+    updated in place.
     ``mode="train"``: causal attention over the whole sequence, no cache
     (full softmax, or SRF's causal linear attention).
     ``mode="prefill"`` / ``"decode"``: the prompt, or one new token, of
@@ -438,13 +479,14 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
                                   f"{NOT_IN_SLICE}")
     if mode != "train" and cache is None:
         raise ValueError(f"attention mode {mode!r} needs a cache")
-    if cfg.is_mla:
-        raise NotImplementedError(f"MLA attention is {NOT_IN_SLICE}")
     if cache is not None and cache.get("tp_axis"):
         raise NotImplementedError(f"tensor-parallel attention (tp_axis) is "
                                   f"{NOT_IN_SLICE}")
     if cfg.m_rope:
         raise NotImplementedError(f"M-RoPE is {NOT_IN_SLICE}")
+    if cfg.is_mla:
+        return _merge_heads(_mla_attention(p, cfg, x, positions, mode,
+                                           cache)) @ p["wo"]
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -471,14 +513,8 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     sc = srf_cfg(cfg)
     g = cfg.n_heads // cfg.n_kv_heads
     b, hq, l, hd = q.shape
-    qg = q.reshape(b, cfg.n_kv_heads, g * l, hd)
-    folded = None if cache is None else cache.get("srf_folded")
-    if folded is None:                       # per-(head, request) seeds
-        phi_q = srf.feature_map(sc, p["srf"], qg, is_query=True)
-        phi_k = srf.feature_map(sc, p["srf"], k, is_query=False)
-    else:
-        phi_q = srf.feature_map_folded(sc, folded, qg, is_query=True)
-        phi_k = srf.feature_map_folded(sc, folded, k, is_query=False)
+    phi_q, phi_k = _feature_maps(sc, p, cache,
+                                 q.reshape(b, cfg.n_kv_heads, g * l, hd), k)
     phi_q = phi_q.reshape(b, hq, l, -1)
     phi_k = _repeat_kv(phi_k, g)
     vr = _repeat_kv(v, g)
@@ -490,3 +526,75 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     else:
         out = _srf_cached(sc, phi_q, phi_k, vr, mode, cache)
     return _merge_heads(out) @ p["wo"]
+
+
+def _mla_qkv(p, cfg, x: torch.Tensor, c: torch.Tensor, kpe: torch.Tensor,
+             positions: torch.Tensor, kpos: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Roped queries (B, H, L, qk) of x, and the per-head keys (B, H, S,
+    qk) and values (B, H, S, v) decompressed from the latents c (B, S,
+    kv_lora) and kpe (B, S, qk_rope), kpe roped at ``kpos`` (default
+    ``positions``); qk = qk_nope + qk_rope."""
+    b, s = c.shape[:2]
+    h = cfg.n_heads
+    q = _split_heads(x @ p["wq"], h, cfg.mla_qk_dim)
+    if cfg.qk_norm:
+        q = layers.head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    qn, qp = q.split([cfg.mla_qk_nope, cfg.mla_qk_rope], dim=-1)
+    qp = layers.apply_rope(qp, positions, cfg.rope_theta)
+    kn = _split_heads(c @ p["wuk"], h, cfg.mla_qk_nope)
+    v = _split_heads(c @ p["wuv"], h, cfg.mla_v_dim)
+    kp = layers.apply_rope(kpe[:, None], positions if kpos is None else kpos,
+                           cfg.rope_theta)                  # (B, 1, S, rope)
+    k = torch.cat([kn, kp.expand(b, h, s, cfg.mla_qk_rope)], dim=-1)
+    return torch.cat([qn, qp], dim=-1), k, v
+
+
+def _mla_attention(p, cfg, x: torch.Tensor, positions: torch.Tensor,
+                   mode: str, cache: Optional[Dict]) -> torch.Tensor:
+    """MLA in every mode -> per-head outputs (B, H, L, v) (module
+    docstring)."""
+    b, l, _ = x.shape
+    scale = 1.0 / math.sqrt(cfg.mla_qk_dim)
+    c_new = x @ p["wdkv"]                                  # (B, L, kv_lora)
+    kpe_new = x @ p["wkpe"]                                # (B, L, rope)
+    if cfg.attn_impl == "srf":
+        # the chunk's own keys and values; the state carries the rest
+        q, k, v = _mla_qkv(p, cfg, x, c_new, kpe_new, positions)
+        sc = srf_cfg(cfg)
+        phi_q, phi_k = _feature_maps(sc, p, cache, q, k)
+        if mode == "train":
+            return srf.attention_causal(sc, phi_q, phi_k, v)
+        if mode == "paged":
+            return _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k,
+                              v, cache["q_valid"])
+        return _srf_cached(sc, phi_q, phi_k, v, mode, cache)
+    if mode == "paged":
+        pool, tables = cache["pool"], cache["tables"]
+        for name, rows in (("c", c_new), ("kpe", kpe_new)):
+            _paged_scatter(pool[name], rows, tables, positions,
+                           cache["q_valid"])
+        cc = _paged_hist(pool["c"], tables).to(x.dtype)
+        kk = _paged_hist(pool["kpe"], tables).to(x.dtype)
+        t = cc.shape[1]
+        kpos = torch.arange(t, device=x.device)[None].expand(b, t)
+        q, k, v = _mla_qkv(p, cfg, x, cc, kk, positions, kpos)
+        return _paged_softmax(q, k, v, scale, positions)
+    if mode == "decode":
+        idx = cache["idx"]
+        smax = cache["c"].shape[1]
+        at = min(max(idx, 0), smax - l)         # dynamic_update_slice's clamp
+        cache["c"][:, at:at + l] = c_new.to(cache["c"].dtype)
+        cache["kpe"][:, at:at + l] = kpe_new.to(cache["kpe"].dtype)
+        cache["idx"] = idx + 1
+        kpos = torch.arange(smax, device=x.device)[None].expand(b, smax)
+        q, k, v = _mla_qkv(p, cfg, x, cache["c"], cache["kpe"], positions,
+                           kpos)
+        valid = torch.arange(smax, device=x.device) <= idx
+        return _softmax_attn(q, k, v, scale, causal=False, kv_valid=valid)
+    if mode == "prefill":
+        cache["c"][:, :l] = c_new.to(cache["c"].dtype)
+        cache["kpe"][:, :l] = kpe_new.to(cache["kpe"].dtype)
+        cache["idx"] = l
+    q, k, v = _mla_qkv(p, cfg, x, c_new, kpe_new, positions)
+    return _softmax_attn(q, k, v, scale, causal=True)

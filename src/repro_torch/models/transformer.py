@@ -1,8 +1,9 @@
-"""Decoder LM of the dense, SSD and hybrid families: the paged serving
-step, the legacy engine's prefill and decode, and the training forward
-(full-KV or SRF attention; SSD blocks in ``models.ssm``).
+"""Decoder LM of the dense, SSD, hybrid and MoE families: the paged
+serving step, the legacy engine's prefill and decode, and the training
+forward (full-KV, MLA or SRF attention; SSD blocks in ``models.ssm``,
+expert FFNs in ``models.moe``).
 
-Port of ``repro.models.transformer`` for the dense, ssm and hybrid
+Port of ``repro.models.transformer`` for the dense, ssm, hybrid and moe
 families: ``init``,
 ``paged_step``, ``_paged_layer`` and ``_logits`` for the paged engine,
 ``init_serve_cache``, ``prefill``, ``decode_step`` and ``run_segment``
@@ -21,7 +22,10 @@ for leaf:
 
 An ssm layer is {"ln1", "ssm"}; a hybrid layer is a dense layer with an
 "ssm" block beside its attention and the two fusion norms "fuse_na" and
-"fuse_ns" (``layer_apply``: 0.5 (rmsnorm(attn) + rmsnorm(ssm))).
+"fuse_ns" (``layer_apply``: 0.5 (rmsnorm(attn) + rmsnorm(ssm))). A moe
+layer is a dense layer with "moe" (router, experts, shared experts) in
+place of "mlp"; an MoE config's stack is ``cfg.moe_first_dense`` dense
+layers, then a segment of moe layers.
 
 Layers run as a Python loop over the stacked layer axis (the reference
 scans). The serve cache of ``init_serve_cache`` is
@@ -34,8 +38,9 @@ in place by ``prefill`` and ``decode_step`` (which return it), with
 is recomputed in the backward as the config's ``remat`` says
 (``torch.utils.checkpoint``, see ``_remat``). Attention is full-KV
 (paged pools) or SRF (slot pools), as the config's ``attn_impl`` says;
-SSD state lives in slot pools. The MoE, MLA, enc-dec and vision
-families are not ported yet and raise NotImplementedError.
+SSD state lives in slot pools, MLA latents in paged pools of their
+own. The enc-dec and vision families are not ported yet and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import tree as tree_lib
 from repro_torch.core import srf_attention as srf
 
-from . import attention, hooks, layers, ssm
+from . import attention, hooks, layers, moe, ssm
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -61,10 +66,14 @@ def segments(cfg) -> List[Tuple[str, int]]:
         return [("ssm", cfg.n_layers)]
     if cfg.family == "hybrid":
         return [("hybrid", cfg.n_layers)]
-    if (cfg.family != "dense" or cfg.is_moe or cfg.is_mla
-            or cfg.is_encdec or cfg.frontend != "none"):
+    if cfg.is_encdec or cfg.frontend != "none" or \
+            cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is {attention.NOT_IN_SLICE}")
+    if cfg.is_moe:
+        first = cfg.moe_first_dense
+        return ([("dense", first)] if first else []) + \
+            [("moe", cfg.n_layers - first)]
     return [("dense", cfg.n_layers)]
 
 
@@ -112,7 +121,10 @@ def layer_init(gen: torch.Generator, cfg, kind: str, dtype, device=None,
         p["fuse_na"] = layers.rmsnorm_init(d, dtype, device, lead)
         p["fuse_ns"] = layers.rmsnorm_init(d, dtype, device, lead)
     p["ln2"] = layers.rmsnorm_init(d, dtype, device, lead)
-    p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dtype, device, lead)
+    if kind == "moe":
+        p["moe"] = moe.moe_init(gen, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dtype, device, lead)
     return p
 
 
@@ -137,11 +149,12 @@ def tree_index(tree, i: int):
 def layer_apply(p, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor,
                 mode: str = "train", cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder layer (dense, ssm or hybrid) -> (x, aux_loss); in
-    modes "prefill" and "decode" the layer's ``cache`` is written in
-    place. A hybrid layer's attention and SSD halves share the pre-norm
-    and are fused as 0.5 (rmsnorm(a) + rmsnorm(s))."""
-    if kind not in ("dense", "ssm", "hybrid"):
+    """One decoder layer (dense, ssm, hybrid or moe) -> (x, aux_loss:
+    the moe layer's load-balance loss, else 0); in modes "prefill" and
+    "decode" the layer's ``cache`` is written in place. A hybrid layer's
+    attention and SSD halves share the pre-norm and are fused as 0.5
+    (rmsnorm(a) + rmsnorm(s))."""
+    if kind not in ("dense", "ssm", "hybrid", "moe"):
         raise NotImplementedError(f"{kind} layers are "
                                   f"{attention.NOT_IN_SLICE}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -157,8 +170,12 @@ def layer_apply(p, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor,
     else:
         x = x + attention.attention(p["attn"], cfg, h, positions, mode,
                                     cache)
-    x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x, aux
+    h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == "moe":
+        y, aux = moe.moe_apply(p["moe"], cfg, h2)
+    else:
+        y = layers.mlp(p["mlp"], h2)
+    return x + y, aux
 
 
 def _fuse(p, cfg, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -409,9 +426,10 @@ def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
                  srf_folded=None) -> torch.Tensor:
     """Single-layer paged step (``layer_apply`` for serving); the
     attention pool (``lslot["attn"]`` for SRF, ``lpaged["attn"]`` for
-    full KV) and the SSD pool (``lslot["ssm"]``) are updated in place.
-    ``srf_folded``: the layer's seeds folded with the step's embed
-    seeds (seeded SRF)."""
+    full KV or MLA latents) and the SSD pool (``lslot["ssm"]``) are
+    updated in place. ``srf_folded``: the layer's seeds folded with the
+    step's embed seeds (seeded SRF). A moe layer routes with
+    ``valid=q_valid``: padded chunk rows take no expert capacity."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
         return x + ssm.paged_ssm_step(p["ssm"], cfg, h, q_valid,
@@ -428,5 +446,7 @@ def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
         x = x + _fuse(p, cfg, a, s)
     else:
         x = x + a
-    return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
-                                                    cfg.norm_eps))
+    h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == "moe":
+        return x + moe.moe_apply(p["moe"], cfg, h2, valid=q_valid)[0]
+    return x + layers.mlp(p["mlp"], h2)

@@ -1,10 +1,10 @@
-"""Paged continuous-batching serving engine (dense, SSD and hybrid
-families; full-KV or SRF attention).
+"""Paged continuous-batching serving engine (dense, SSD, hybrid and MoE
+families; full-KV, MLA or SRF attention).
 
 Port of ``repro.serving.engine``: requests share pooled, pre-allocated
-caches (``paged_cache``): full-KV pages indexed through per-request
-block tables (``blocks``), and one constant-size slot per request for
-the SRF and SSD states; a hybrid request holds both.
+caches (``paged_cache``): full-KV or MLA latent pages indexed through
+per-request block tables (``blocks``), and one constant-size slot per
+request for the SRF and SSD states; a hybrid request holds both.
 The scheduler (a copy of the reference's) handles admission, chunked
 prefill and preemption; prefill and decode both run as batched
 ``transformer.paged_step`` calls with fixed shapes (prefill_batch x

@@ -11,8 +11,8 @@ the paged engine's tokens are pinned to this one's, greedy and sampled
 
 Requests enter a queue; a free slot is filled by prefilling the request's
 prompt (batch 1) into a fresh cache (``transformer.init_serve_cache``:
-full KV, int8 KV or the SRF state; the SSD state of the ssm and hybrid
-families), and every active slot then decodes
+full KV, int8 KV, MLA latents or the SRF state; the SSD state of the
+ssm and hybrid families), and every active slot then decodes
 one token a step, slot after slot, each a batch-1 ``make_serve_step``
 call. Sampling uses the paged engine's stateless per-request keys
 (``sampler.sample_stateless``: noise from ``(base_key, uid, token

@@ -8,19 +8,22 @@ family     page contents (per layer)                       state growth
 ``kv``     k/v pages   (num_pages, P, Hkv, hd) x2          O(L) paged
            (int8 pages + (num_pages, P, 1) f32 scales x2
            with ``PagedConfig(quantize_kv=True)``)
+``mla``    latent c    (num_pages, P, kv_lora)
+           + rope kpe  (num_pages, P, qk_rope)             O(L) paged
 ``srf``    feature S   (num_slots, Hq, m, dv)
            + norm z    (num_slots, Hq, m)                  O(m d) constant
 ``ssd``    conv tail   (num_slots, k-1, d_inner + 2 ns)
            + state     (num_slots, nh, ns, hd) f32         O(1) constant
 =========  ==============================================  ===============
 
-``kv`` grows one page per ``page_size`` tokens in the *paged* index
-domain (page ids from the scheduler's allocator); ``srf`` (the paper's
-constant-size state) and ``ssd`` (the SSM state) hold one slot per
-request in the *slot* domain. A hybrid layer owns an attention
+``kv`` and ``mla`` grow one page per ``page_size`` tokens in the
+*paged* index domain (page ids from the scheduler's allocator); ``srf``
+(the paper's constant-size state) and ``ssd`` (the SSM state) hold one
+slot per request in the *slot* domain. A hybrid layer owns an attention
 component and an ssd component: a kv sub-pool in the paged domain and
 an ssd sub-pool in the slot domain (or, with SRF attention, two slot
-sub-pools). The MLA family is not ported (``plan_for`` raises for it).
+sub-pools). Only ``kv`` quantizes: MLA latents are already compressed
+and stay in the model's dtype under ``quantize_kv``.
 
 The pool container keeps the reference's layout::
 
@@ -89,6 +92,26 @@ class KVFamily:
                 * _itemsize(model_lib.dtype_of(cfg)))
 
 
+class MLAFamily:
+    name = "mla"
+    constant_state = False
+
+    def layer_pool(self, cfg, num_pages: int, page_size: int,
+                   paged: Optional[PagedConfig] = None, device="cuda",
+                   lead=()) -> Dict:
+        dt = model_lib.dtype_of(cfg)
+        return {"c": torch.zeros((*lead, num_pages, page_size,
+                                  cfg.mla_kv_lora), dtype=dt, device=device),
+                "kpe": torch.zeros((*lead, num_pages, page_size,
+                                    cfg.mla_qk_rope), dtype=dt,
+                                   device=device)}
+
+    def bytes_per_token(self, cfg, max_len: int,
+                        paged: Optional[PagedConfig] = None) -> float:
+        return ((cfg.mla_kv_lora + cfg.mla_qk_rope)
+                * _itemsize(model_lib.dtype_of(cfg)))
+
+
 class SRFFamily:
     name = "srf"
     constant_state = True
@@ -99,7 +122,8 @@ class SRFFamily:
         m = attn_lib.srf_cfg(cfg).feat_dim
         dt = model_lib.dtype_of(cfg)
         return {"s": torch.zeros((*lead, num_slots, cfg.n_heads, m,
-                                  cfg.head_dim), dtype=dt, device=device),
+                                  attn_lib.v_dim(cfg)), dtype=dt,
+                                 device=device),
                 "z": torch.zeros((*lead, num_slots, cfg.n_heads, m),
                                  dtype=dt, device=device)}
 
@@ -107,7 +131,7 @@ class SRFFamily:
                         paged: Optional[PagedConfig] = None) -> float:
         m = attn_lib.srf_cfg(cfg).feat_dim
         item = _itemsize(model_lib.dtype_of(cfg))
-        return cfg.n_heads * m * (cfg.head_dim + 1) * item / max_len
+        return cfg.n_heads * m * (attn_lib.v_dim(cfg) + 1) * item / max_len
 
 
 class SSDFamily:
@@ -129,7 +153,8 @@ class SSDFamily:
         return total / max_len
 
 
-FAMILIES = {f.name: f for f in (KVFamily(), SRFFamily(), SSDFamily())}
+FAMILIES = {f.name: f for f in (KVFamily(), MLAFamily(), SRFFamily(),
+                                SSDFamily())}
 
 
 def attn_family_for(cfg):
@@ -137,8 +162,7 @@ def attn_family_for(cfg):
     if cfg.attn_impl == "srf":
         return FAMILIES["srf"]
     if cfg.is_mla:
-        raise NotImplementedError(f"MLA latent pools are "
-                                  f"{attn_lib.NOT_IN_SLICE}")
+        return FAMILIES["mla"]
     return FAMILIES["kv"]
 
 
@@ -178,9 +202,10 @@ class PoolPlan:
 
 def plan_for(cfg) -> PoolPlan:
     """The pool plan of a config, resolved from its layers' components:
-    "attn" is ``kv`` or ``srf`` (``attn_family_for``), "ssm" is ``ssd``.
-    The name joins the paged family and then the slot families in the
-    order the layers name them ("kv+ssd", "srf+ssd", "ssd")."""
+    "attn" is ``kv``, ``mla`` or ``srf`` (``attn_family_for``), "ssm" is
+    ``ssd``. The name joins the paged family and then the slot families
+    in the order the layers name them ("kv+ssd", "srf+ssd", "ssd").
+    Enc-dec configs are refused (``transformer.segments``)."""
     segs = []
     paged_fam = attn_fam = None
     slot_fams: List[str] = []

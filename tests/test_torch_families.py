@@ -288,7 +288,7 @@ def test_full_width_slot_and_page_bytes():
     kv = paged_cache.FAMILIES["kv"].bytes_per_token(h, 1) * h.n_layers
     assert kv == 32 * 2 * 5 * 64 * 2 == 40960
     with pytest.raises(NotImplementedError, match="not ported"):
-        paged_cache.plan_for(registry.reduced("deepseek-v2-lite-16b"))
+        paged_cache.plan_for(registry.reduced("seamless-m4t-large-v2"))
 
 
 # ---------------------------------------------------------------------------

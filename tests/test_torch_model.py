@@ -233,18 +233,24 @@ def test_paged_srf_bf16_matches_reference_kernels(monkeypatch, c):
 
 
 def test_other_families_raise_not_implemented():
-    """The families still to port raise; the SSD and hybrid families
-    (ported) resolve to the reference's plans."""
-    for arch, over in (("deepseek-v2-lite-16b", {"attn_impl": "srf"}),
-                       ("deepseek-v2-lite-16b", {}),
-                       ("moonshot-v1-16b-a3b", {}),
-                       ("seamless-m4t-large-v2", {}), ("qwen2-vl-2b", {})):
+    """The families still to port (enc-dec, vision) raise; the SSD,
+    hybrid, MoE and MLA families (ported) resolve to the reference's
+    plans."""
+    for arch, over in (("seamless-m4t-large-v2", {"attn_impl": "srf"}),
+                       ("seamless-m4t-large-v2", {}),
+                       ("qwen2-vl-2b", {"attn_impl": "srf"}),
+                       ("qwen2-vl-2b", {})):
         cfg = registry.reduced(arch, **over)
         with pytest.raises(NotImplementedError):
             paged_cache.plan_for(cfg)
-    for arch, name in (("hymba-1.5b", "kv+ssd"), ("mamba2-2.7b", "ssd")):
-        assert paged_cache.plan_for(registry.reduced(arch)).name == name \
-            == jcache.plan_for(jregistry.reduced(arch)).name
+    for arch, over, name in (("hymba-1.5b", {}, "kv+ssd"),
+                             ("mamba2-2.7b", {}, "ssd"),
+                             ("moonshot-v1-16b-a3b", {}, "kv"),
+                             ("deepseek-v2-lite-16b", {}, "mla"),
+                             ("deepseek-v2-lite-16b", {"attn_impl": "srf"},
+                              "srf")):
+        assert paged_cache.plan_for(registry.reduced(arch, **over)).name \
+            == name == jcache.plan_for(jregistry.reduced(arch, **over)).name
 
 
 def _kv_pages(pools, key):

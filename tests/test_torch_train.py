@@ -68,10 +68,21 @@ def _with_qkv_bias(jcfg, jparams):
     return jparams
 
 
+_jinits = {}
+
+
+def _jinit(jcfg):
+    """The reference's params of ``jcfg`` from key 0, made once a config
+    (jax arrays are immutable, so tests share them)."""
+    if jcfg not in _jinits:
+        _jinits[jcfg] = jT.init(jax.random.PRNGKey(0), jcfg)
+    return _jinits[jcfg]
+
+
 def _models(attn, arch="qwen3-4b", **over):
     jcfg = jregistry.reduced(arch, attn_impl=attn, **over)
     cfg = registry.reduced(arch, attn_impl=attn, **over)
-    jparams = _with_qkv_bias(jcfg, jT.init(jax.random.PRNGKey(0), jcfg))
+    jparams = _with_qkv_bias(jcfg, jax.tree.map(lambda a: a, _jinit(jcfg)))
     params = T.requires_grad(convert.params_from_jax(
         jax.tree.map(np.asarray, jparams), cfg, device="cpu"))
     return jcfg, jparams, cfg, params
@@ -156,14 +167,30 @@ def test_unembed_is_f32():
             jnp.asarray(x.float().numpy(), jnp.bfloat16))), rtol=1e-6)
 
 
+_ref_grads = {}
+
+
+def _ref_loss_and_grads(jcfg, jparams, jb):
+    """The reference's loss and gradients on the batch ``jb``: one jitted
+    ``value_and_grad``, its result shared by the tests that ask for the
+    same config, params and batch (the remat settings differ in the port
+    only)."""
+    key = (jcfg, id(jparams), tuple((k, np.asarray(v).tobytes())
+                                    for k, v in sorted(jb.items())))
+    if key not in _ref_grads:
+        (jl, _), jg = jax.jit(jax.value_and_grad(
+            lambda p, b: jT.loss_fn(p, jcfg, b), has_aux=True))(jparams, jb)
+        _ref_grads[key] = (float(jl), jg, jparams)
+    return _ref_grads[key][:2]
+
+
 def _loss_and_grads(jcfg, jparams, cfg, params, jb, tb):
-    (jl, jm), jg = jax.value_and_grad(
-        lambda p: jT.loss_fn(p, jcfg, jb), has_aux=True)(jparams)
+    jl, jg = _ref_loss_and_grads(jcfg, jparams, jb)
     loss, metrics = T.loss_fn(params, cfg, tb)
     leaves = [p for p in tree_lib.leaves(params) if p.requires_grad]
     got = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
     grads = tree_lib.map(lambda p: got.get(id(p)), params)
-    return (float(jl), jg), (loss.item(), grads, metrics)
+    return (jl, jg), (loss.item(), grads, metrics)
 
 
 GRAD_CASES = [pytest.param("qwen3-4b", r, id=r)
@@ -204,7 +231,7 @@ def test_scan_group_two_equals_one():
     """scan_group=2 (nested recompute) gives scan_group=1's loss and
     gradients, and both match the reference (4 layers, remat full)."""
     jcfg = jregistry.reduced("qwen3-4b", n_layers=4, remat="full")
-    jparams = jT.init(jax.random.PRNGKey(0), jcfg)
+    jparams = _jinit(jcfg)
     out = []
     for g in (1, 2):
         cfg = registry.reduced("qwen3-4b", n_layers=4, remat="full",
@@ -215,7 +242,7 @@ def test_scan_group_two_equals_one():
         loss, _ = T.loss_fn(params, cfg, tb)
         out.append((loss.item(), torch.autograd.grad(
             loss, tree_lib.leaves(params))))
-    jl, _ = jT.loss_fn(jparams, jcfg, jb)
+    jl = jax.jit(lambda p, b: jT.loss_fn(p, jcfg, b)[0])(jparams, jb)
     assert abs(out[0][0] - out[1][0]) < 1e-5
     np.testing.assert_allclose(out[1][0], float(jl), rtol=1e-5)
     for a, b in zip(out[0][1], out[1][1]):
@@ -263,7 +290,7 @@ def test_unported_modes_and_kinds_raise():
         with pytest.raises(ValueError, match="needs a cache"):
             A.attention(lp["attn"], cfg, x, pos, mode)
     with pytest.raises(NotImplementedError):
-        T.layer_apply(lp, cfg, "moe", x, pos)
+        T.layer_apply(lp, cfg, "dense_cross", x, pos)
     with pytest.raises(NotImplementedError):
         T.run_segment(params["segments"][0], cfg, "dense", x, pos, "encoder")
 
@@ -391,9 +418,21 @@ def _jax_train_step(jcfg, jhyper):
                                      jhyper.total_steps)
         flat, state, stats = jadamw.update(g, state, flat, lr, jhyper.adam)
         return flat, state, {"loss": l, "lr": lr, **metrics, **stats}
-    jparams_proto = jT.init(jax.random.PRNGKey(0), jcfg)
+    jparams_proto = _jinit(jcfg)
     keys = list(_flat_jax(jparams_proto))
     return jax.jit(step)
+
+
+_jsteps = {}
+JHYPER = jsteps.TrainHyper(lr=1e-2, warmup=2, total_steps=10)
+
+
+def _jstep(jcfg):
+    """The reference's own jitted ``make_train_step`` at ``JHYPER``, one
+    a config (its compiled shapes shared by the tests that run it)."""
+    if jcfg not in _jsteps:
+        _jsteps[jcfg] = jax.jit(jsteps.make_train_step(jcfg, JHYPER))
+    return _jsteps[jcfg]
 
 
 @pytest.mark.parametrize("attn", ["full", "srf"])
@@ -403,7 +442,7 @@ def test_three_train_steps_match_reference(attn):
     also against the reference's own ``make_train_step``."""
     jcfg, jparams, cfg, params = _models(attn)
     hyper = steps.TrainHyper(lr=1e-2, warmup=2, total_steps=10)
-    jhyper = jsteps.TrainHyper(lr=1e-2, warmup=2, total_steps=10)
+    jhyper = JHYPER
     flat = {k: v for k, v in zip(_flat_jax(jparams),
                                  jax.tree.leaves(jparams))}
     jstate = jadamw.init(flat)
@@ -413,8 +452,7 @@ def test_three_train_steps_match_reference(attn):
     fn = steps.make_train_step(cfg, hyper)
     own = None
     if attn == "full":
-        own = (jparams, jadamw.init(jparams),
-               jax.jit(jsteps.make_train_step(jcfg, jhyper)))
+        own = (jparams, jadamw.init(jparams), _jstep(jcfg))
     for i in range(3):
         jb, tb = _batch(cfg, step=i)
         flat, jstate, jm = jfn(flat, jstate, jnp.asarray(i), jb)
@@ -580,13 +618,13 @@ def test_trainer_restores_reference_checkpoint(tmp_path, attn):
     values, and trains on."""
     jcfg = jregistry.reduced("qwen3-4b", attn_impl=attn)
     cfg = registry.reduced("qwen3-4b", attn_impl=attn)
-    jparams = jT.init(jax.random.PRNGKey(0), jcfg)
+    jparams = _jinit(jcfg)
     jb, _ = _batch(cfg)
     if attn == "full":
-        jparams, jstate, _ = jsteps.make_train_step(jcfg)(
-            jparams, jadamw.init(jparams), 0, jb)
+        jparams, jstate, _ = _jstep(jcfg)(
+            jparams, jadamw.init(jparams), jnp.asarray(0), jb)
     else:
-        jg = jax.grad(lambda p: jT.loss_fn(p, jcfg, jb)[0])(jparams)
+        jg = _ref_loss_and_grads(jcfg, jparams, jb)[1]
         jstate = {"mu": jg, "nu": jax.tree.map(jnp.square, jg),
                   "count": jnp.ones((), jnp.int32)}
     JCheckpointManager(str(tmp_path), async_save=False).save(
