@@ -8,9 +8,10 @@ through the legacy per-slot engine beside the paged one, through the
 request router with fault-tolerant serving and a chaos fault on one of
 two replicas, and through the serve CLI with kernel timing and a Chrome
 trace, serves full-width mamba2-2.7b (SSD) and hymba-1.5b (hybrid),
-the three other dense configs, moonshot-v1-16b-a3b (MoE) and
-deepseek-v2-lite-16b (MLA with MoE), then trains full-width qwen3-4b
-with SRF and with full attention.
+the three other dense configs, moonshot-v1-16b-a3b (MoE),
+deepseek-v2-lite-16b (MLA with MoE), qwen2-vl-2b (vision) and
+seamless-m4t-large-v2 (enc-dec), then trains full-width qwen3-4b with
+SRF and with full attention, and qwen2-vl-2b with both.
 
     python3 chip_smoke.py
 
@@ -91,6 +92,15 @@ result line):
      to the plain version and to ``pool[tables]``, also on pool views 2
      and 8 bytes off 16-byte alignment; paged_gather_dequant_kv on int8
      rows of 2048; timed beside their plain versions and bounds.
+   * kernels 1, 2, 4 and 5 at the vision and enc-dec configs' shapes
+     (``phase_vlm_encdec_kernels``): the spinner at qwen2-vl's decode
+     query and key (n=128, HD, G=2 kv heads, B=48 and 8), seamless's
+     (n=64, HD, G=16, B=8) and its encoder's (B=1024 frames a request);
+     srf_decode at (B=8, H=12, dv=128) and (B=8, H=16, dv=64);
+     paged_gather on rows of D=256 (28 pools) and D=1024 (24 pools) and
+     on the encoder-memory pool (a 2 MiB page of 1024 x 1024 bf16 a
+     slot, R=8, M=1), bit-equal to the plain version and to
+     ``pool[tables]``; paged_gather_dequant_kv on int8 rows of 1024.
    Times: CUDA events over back-to-back launches queued behind a device
    sleep, median of 5 repeats (3 for the circulant); the gathers cycle
    through 36 layer pools, as a decode step does, so pages come from HBM.
@@ -230,6 +240,27 @@ result line):
    within ``FAMILY_LOGIT_TOL["mla"]`` of the paged engine's), and MLA +
    SRF at 4 x (128 + 16). Each run prints tok/s, TTFT p50, peak memory
    and the pools' bytes; no plain spinner on the card.
+   The vision and enc-dec families: reduced qwen2-vl-2b (full KV, SRF)
+   and seamless-m4t-large-v2 (full KV, int8 pages, SRF; each request
+   with its own features) in ``phase_reduced_families``' part (1), card
+   == CPU and paged == legacy; then (``_reduced_new_families``) seeded
+   SRF with mixed embed seeds on reduced deepseek-v2-lite-16b (MLA) and
+   seamless, card == CPU; seamless's prefix cache with two feature sets
+   (hits only inside the donor's features' namespace); qwen2-vl's
+   ``loss_fn`` with ``pos3`` rows apart, card == CPU. Full width:
+   qwen2-vl-2b (28 layers, 12 q / 2 kv heads of 128; ``phase_serve_vlm``)
+   with full KV and SRF at 8 x (128 + 32), exact launches;
+   seamless-m4t-large-v2 (24 encoder and 24 decoder layers, 16 heads of
+   64; ``phase_serve_encdec``), each request with its own 1024 x 160
+   features, with full KV (paged_gather exactly 2 a layer a step plus
+   the memory gather, 1 a step), int8 pages and SRF at 8 x (128 + 32),
+   the prefix cache (a donor, then 4 requests with its features that hit
+   its 96 tokens and 4 with their own that hit nothing) and the legacy
+   engine on the first 4 requests (first-token logits within
+   ``FAMILY_LOGIT_TOL["audio"]``, each engine within it of an f32
+   copy's prefill too); encode ms a request and the cross attention's
+   device ms a step printed beside tok/s, TTFT p50, peak memory and the
+   memory pool's bytes.
 5. Train (after freeing the serving memory). Full-width, full-depth
    qwen3-4b (bf16, remat full, B = 8, seq = 64, the training launcher's
    defaults), random weights, 5 steps of ``launch.steps.make_train_step``
@@ -248,6 +279,9 @@ result line):
    ``torch.use_deterministic_algorithms(True)`` (reduced, 2 layers; full
    and SRF attention): final params torch.equal. Then reduced seeded SRF
    (f32), 3 steps on the card and on the CPU: losses within rtol 1e-4.
+   Then full-width qwen2-vl-2b (``phase_train_vlm``): 3 steps at B = 2,
+   seq = 2048 (a 1024-patch vision prefix, M-RoPE over ``pos3``) with SRF
+   attention and 3 with full attention, checked as qwen3-4b's are.
 6. Print the card (nvidia-smi name, power limit), one JSON line with a
    record per kernel, and the result line. The spinner records carry
    their training fields (``train_*``: the training run's launches and
@@ -263,6 +297,11 @@ result line):
    configs' runs (``dense_*``); the same four their time at the MoE and
    MLA shapes and their launches in those serve runs (``moonshot_*``,
    ``deepseek_*``; paged_gather's kpe shape ``deepseek_kpe_*``).
+   The same four carry ``qwen2vl_*`` and ``seamless_*`` fields: their
+   time at those configs' shapes and their launches in their serve runs
+   (the spinner also ``*_key`` and ``seamless_encoder*``, paged_gather
+   ``seamless_memory_*``: the memory gather), and the spinner its
+   launches in qwen2-vl's SRF training (``qwen2vl_train_*``).
    ``library_ms`` is ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
    for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
@@ -1729,13 +1768,20 @@ LEGACY_REDUCED = [("full KV", {}, False),
 
 
 def _mixed_requests(cfg, temperature):
-    """8 mixed-length requests (tests/test_engine_parity.py's recipe)."""
+    """8 mixed-length requests (tests/test_engine_parity.py's recipe: an
+    enc-dec request's own features drawn before its prompt)."""
+    from repro_torch.models import frontends
     from repro_torch.serving import Request
     rng = np.random.default_rng(0)
-    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(
-        rng.integers(2, 20))).astype(np.int32),
-        max_new=int(rng.integers(3, 7)), temperature=temperature)
-        for i in range(8)]
+    out = []
+    for i in range(8):
+        enc = (frontends.synthetic_audio_features(rng, cfg)
+               if cfg.is_encdec else None)
+        out.append(Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(
+            rng.integers(2, 20))).astype(np.int32),
+            max_new=int(rng.integers(3, 7)), temperature=temperature,
+            enc_emb=enc))
+    return out
 
 
 def _drive(eng, reqs):
@@ -1953,8 +1999,11 @@ def _f32_first_logits(cfg, params, args):
     for r in serve.requests(args, cfg):
         cache = model_lib.init_serve_cache(cfg32, 1, args.max_len,
                                            device="cuda")
-        tokens = torch.as_tensor(r.prompt[None], device="cuda")
-        logits, _ = model_lib.prefill(p32, cfg32, {"tokens": tokens}, cache)
+        batch = {"tokens": torch.as_tensor(r.prompt[None], device="cuda")}
+        if r.enc_emb is not None:
+            batch["enc_emb"] = torch.as_tensor(r.enc_emb[None],
+                                               device="cuda")
+        logits, _ = model_lib.prefill(p32, cfg32, batch, cache)
         out[r.uid] = logits[0, -1, :cfg.vocab].float().cpu()
     del p32
     gc.collect()
@@ -2610,96 +2659,22 @@ def phase_hymba_kernels(gen):
     layer's K and V in one launch): against their plain versions (the
     tolerance of phase 2; the gathers bit-equal), timed beside them and
     their bounds. Returns {kernel: record}."""
-    from repro_torch.kernels import paged_gather as kpg, ref
-    from repro_torch.kernels import spinner as kspin, srf_decode as kdec
     h = HYMBA
-    dev = "cuda"
     out = {}
     n, m, gsz = h["hd"], h["m"], h["kv_heads"]
     group = h["q_heads"] // gsz
     for label, bsz, epi in (("decode query", h["rows"] * group, "identity"),
                             ("decode key", h["rows"], "exp")):
-        x, p = spinner_inputs("circulant", gsz, bsz, n, m, torch.bfloat16,
-                              gen)
-        args = ("circulant", p["g"], x, m)
-        kw = dict(d0=p["d0"], d1=p["d1"], epilogue=epi, out_scale=m ** -0.5)
-        err = check_exp(f"hymba spinner {label} bf16 (G={gsz}, B={bsz}, "
-                        f"n={n}, m={m})", kspin.spinner_project_cuda(*args,
-                                                                     **kw),
-                        ref.spinner_project_ref(*args, **kw), torch.bfloat16,
-                        epi)
-        k_ms = device_ms(lambda: kspin.spinner_project_cuda(*args, **kw))
-        p_ms = device_ms(lambda: ref.spinner_project_ref(*args, **kw),
-                         launches=10, repeats=3)
-        b_ms, b_by = spinner_bound("circulant", gsz, bsz, n, m, 2,
-                                   p["g"][0].numel(), m)
-        log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound "
-            f"{b_ms:.6f} ms ({b_by})")
-        out[f"spinner {label}"] = dict(err=err, ms=k_ms, plain_ms=p_ms,
-                                       bound_ms=b_ms, bound_by=b_by)
-    b, hq, dv = h["rows"], h["q_heads"], h["hd"]
-    phi = lambda: torch.rand((b, hq, m), generator=gen, device=dev) / 16  # noqa
-    s = torch.randn((b, hq, m, dv), generator=gen, device=dev) * 4
-    z = phi() * 128
-    pq, pk = phi(), phi()
-    v = torch.randn((b, hq, dv), generator=gen, device=dev)
-    want = ref.srf_decode_ref(s, z, pq, pk, v)
-    got = kdec.srf_decode_cuda(s.clone(), z.clone(), pq, pk, v)
-    err = max(check(f"hymba srf_decode {part} (B={b}, H={hq}, m={m}, "
-                    f"dv={dv})", k, p_, torch.float32)
-              for part, k, p_ in zip(("S'", "z'", "out"), got, want))
-    s2, z2 = s.clone(), z.clone()
-    k_ms = device_ms(lambda: kdec.srf_decode_cuda(s2, z2, pq, pk, v))
-    p_ms = device_ms(lambda: ref.srf_decode_ref(s, z, pq, pk, v),
-                     launches=20, repeats=3)
-    byts = 4 * (2 * b * hq * m * dv + 2 * b * hq * m + 2 * b * hq * m
-                + 2 * b * hq * dv)
-    b_ms, b_by = bound(byts, 4.0 * b * hq * m * dv + 4.0 * b * hq * m)
-    log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound {b_ms:.5f} "
-        f"ms ({b_by})")
-    out["srf_decode"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by)
-    nl, npg, pg, d = h["layers"], h["pages"], h["page"], h["kv_heads"] * dv
-    r, w = h["rows"], h["width"]
-    tables = torch.randint(1, npg, (r, w), generator=gen, device=dev)
-    pools = _layer_pools(nl, npg, pg, d, torch.bfloat16, gen)
-    exact(f"hymba paged_gather bf16 (N={npg}, P={pg}, D={d}, R={r}, M={w})",
-          kpg.paged_gather_cuda(pools[0], tables),
-          ref.paged_gather_ref(pools[0], tables))
-    rows = r * w * pg
-    g_ms = device_ms(_cycle(lambda a: kpg.paged_gather_cuda(a, tables),
-                            pools))
-    g_plain = device_ms(_cycle(lambda a: ref.paged_gather_ref(a, tables),
-                               pools))
-    g_lib = device_ms(_cycle(lambda a: a[tables], pools))
-    g_b, g_by = bound(2 * rows * d * 2, 0)
-    log(f"    kernel {g_ms:.5f} ms  plain {g_plain:.5f} ms  pool[tables] "
-        f"{g_lib:.5f} ms  bound {g_b:.5f} ms ({g_by})")
-    out["paged_gather"] = dict(err=0.0, ms=g_ms, plain_ms=g_plain,
-                               library_ms=g_lib, bound_ms=g_b, bound_by=g_by)
-    del pools
-    q = _layer_pools(2 * nl, npg, pg, d, torch.int8, gen)
-    sc = [torch.rand((npg, pg, 1), generator=gen, device=dev) / 127
-          for _ in range(2 * nl)]
-    layers = [((q[2 * i], sc[2 * i]), (q[2 * i + 1], sc[2 * i + 1]))
-              for i in range(nl)]
-    _dequant_exact(f"hymba (N={npg}, P={pg}, D={d}, R={r}, M={w})",
-                   q[0], sc[0], q[1], sc[1], tables)
-    bf = torch.bfloat16
-    kv_ms = device_ms(_cycle(lambda a: kpg.paged_gather_dequant_kv_cuda(
-        a[0][0], a[0][1], a[1][0], a[1][1], tables, bf), layers))
-    kv_plain = device_ms(_cycle(lambda a: [
-        ref.paged_gather_dequant_ref(qq, ss, tables, bf) for qq, ss in a],
-        layers))
-    kv_b, kv_by = bound(2 * (rows * d + 4 * rows + 2 * rows * d),
-                        2 * rows * d)
-    log(f"    paged_gather_dequant_kv int8->bf16: kernel {kv_ms:.5f} ms "
-        f"({100 * kv_b / kv_ms:.0f}% of bound)  plain {kv_plain:.5f} ms  "
-        f"bound {kv_b:.5f} ms ({kv_by})")
-    out["paged_gather_dequant"] = dict(err=0.0, ms=kv_ms, plain_ms=kv_plain,
-                                       library_ms=None, bound_ms=kv_b,
-                                       bound_by=kv_by)
-    del q, sc, layers
+        out[f"spinner {label}"] = _spinner_case(
+            f"hymba spinner {label}", gsz, bsz, n, m, torch.bfloat16, epi,
+            True, gen)
+    out["srf_decode"] = _srf_decode_case("hymba", h["rows"], h["q_heads"],
+                                         m, h["hd"], gen)
+    nl, npg, pg = h["layers"], h["pages"], h["page"]
+    d, r, w = h["kv_heads"] * h["hd"], h["rows"], h["width"]
+    out["paged_gather"] = _gather_case("hymba", nl, npg, pg, d, r, w, gen)
+    out["paged_gather_dequant"] = _dequant_kv_case("hymba", nl, npg, pg, d,
+                                                   r, w, gen)
     torch.cuda.empty_cache()
     return out
 
@@ -2740,13 +2715,16 @@ def _spinner_case(label, gsz, bsz, n, m, dtype, epi, use_hd, gen):
     return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def _gather_case(label, n_layers, npg, pg, d, r, w, gen):
+def _gather_case(label, n_layers, npg, pg, d, r, w, gen, tables=None):
     """paged_gather on bf16 rows of D: bit-equal to the plain version and
     to ``pool[tables]``, also on pool views 2 and 8 bytes off 16-byte
     alignment; timed cycling through ``n_layers`` layer pools beside the
-    plain version, ``pool[tables]`` and the bound."""
+    plain version, ``pool[tables]`` and the bound. ``tables``: (R, M)
+    page ids (default: drawn from 1..N-1)."""
     from repro_torch.kernels import paged_gather as kpg, ref
-    tables = torch.randint(1, npg, (r, w), generator=gen, device="cuda")
+    if tables is None:
+        tables = torch.randint(1, npg, (r, w), generator=gen,
+                               device="cuda")
     pools = _layer_pools(n_layers, npg, pg, d, torch.bfloat16, gen)
     what = f"(N={npg}, P={pg}, D={d}, R={r}, M={w})"
     for how, elems in (("aligned", 0), ("pool at +2 bytes", 1),
@@ -2788,10 +2766,7 @@ def phase_moe_mla_kernels(gen):
     ones also against ``pool[tables]`` and on pool views off 16-byte
     alignment), timed beside it and its bound. Returns {kernel: record}."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_gather as kpg, ref
-    from repro_torch.kernels import srf_decode as kdec
     h = MOE_MLA
-    dev = "cuda"
     out = {}
     n, m, gsz = h["mla_n"], h["m"], h["heads"]
     if not ops.kernel_takes("circulant", n, m, False):
@@ -2809,7 +2784,41 @@ def phase_moe_mla_kernels(gen):
     out[("moonshot spinner decode query", torch.bfloat16)] = _spinner_case(
         "moonshot SRF spinner decode query", gsz, h["rows"], h["kv_n"], m,
         torch.bfloat16, "identity", True, gen)
-    b, hq, dv = h["rows"], h["heads"], h["dv"]
+    out["srf_decode"] = _srf_decode_case("moe/mla", h["rows"], h["heads"],
+                                         m, h["dv"], gen)
+    npg, pg, r, w = h["pages"], h["page"], h["rows"], h["width"]
+    for key, label, layers, d in (
+            ("paged_gather c", "deepseek latent c", h["mla_layers"],
+             h["kv_lora"]),
+            ("paged_gather kpe", "deepseek kpe", h["mla_layers"], h["rope"]),
+            ("paged_gather kv", "moonshot K", h["kv_layers"],
+             gsz * h["kv_n"])):
+        out[key] = _gather_case(label, layers, npg, pg, d, r, w, gen)
+    out["paged_gather_dequant"] = _dequant_kv_case(
+        "moonshot", h["kv_layers"], npg, pg, gsz * h["kv_n"], r, w, gen)
+    torch.cuda.empty_cache()
+    return out
+
+
+# the shapes the vision and enc-dec configs' serving paths give kernels
+# 1, 2, 4 and 5 (8 requests): qwen2-vl-2b's SRF feature maps (2 kv heads
+# of 128, HD; a group of 6 query heads a kv head) and KV pages (2 x 128,
+# 28 layers); seamless-m4t-large-v2's (16 kv heads of 64, HD; KV rows of
+# 16 x 64, 24 layers), its encoder's feature maps (one request's 1024
+# frames) and its memory pool (one slot a request, a page of enc_len =
+# 1024 rows of d_model = 1024, gathered through a width-1 table)
+VLM_ENCDEC = dict(rows=8, m=256, pages=257, page=16, width=16,
+                  vl_kv=2, vl_group=6, vl_hd=128, vl_layers=28,
+                  sm_heads=16, sm_hd=64, sm_layers=24, enc_len=1024,
+                  d_model=1024, mem_pools=8)
+
+
+def _srf_decode_case(label, b, hq, m, dv, gen):
+    """srf_decode at (B, H, m, dv), f32, against its plain version, timed
+    beside it and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import srf_decode as kdec
+    dev = "cuda"
     phi = lambda: torch.rand((b, hq, m), generator=gen, device=dev) / 16  # noqa
     s = torch.randn((b, hq, m, dv), generator=gen, device=dev) * 4
     z = phi() * 128
@@ -2817,7 +2826,7 @@ def phase_moe_mla_kernels(gen):
     v = torch.randn((b, hq, dv), generator=gen, device=dev)
     want = ref.srf_decode_ref(s, z, pq, pk, v)
     got = kdec.srf_decode_cuda(s.clone(), z.clone(), pq, pk, v)
-    err = max(check(f"moe/mla srf_decode {part} (B={b}, H={hq}, m={m}, "
+    err = max(check(f"{label} srf_decode {part} (B={b}, H={hq}, m={m}, "
                     f"dv={dv})", k, p_, torch.float32)
               for part, k, p_ in zip(("S'", "z'", "out"), got, want))
     s2, z2 = s.clone(), z.clone()
@@ -2829,24 +2838,22 @@ def phase_moe_mla_kernels(gen):
     b_ms, b_by = bound(byts, 4.0 * b * hq * m * dv + 4.0 * b * hq * m)
     log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound {b_ms:.5f} "
         f"ms ({b_by})")
-    out["srf_decode"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by)
-    npg, pg, r, w = h["pages"], h["page"], h["rows"], h["width"]
-    for key, label, layers, d in (
-            ("paged_gather c", "deepseek latent c", h["mla_layers"],
-             h["kv_lora"]),
-            ("paged_gather kpe", "deepseek kpe", h["mla_layers"], h["rope"]),
-            ("paged_gather kv", "moonshot K", h["kv_layers"],
-             gsz * h["kv_n"])):
-        out[key] = _gather_case(label, layers, npg, pg, d, r, w, gen)
-    nl, d = h["kv_layers"], gsz * h["kv_n"]
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _dequant_kv_case(label, nl, npg, pg, d, r, w, gen):
+    """paged_gather_dequant_kv (int8 -> bf16, a layer's K and V in one
+    launch) on rows of D, bit-equal to the plain version, timed cycling
+    through ``nl`` layers' pools beside two plain calls and the bound."""
+    from repro_torch.kernels import paged_gather as kpg, ref
+    dev = "cuda"
     tables = torch.randint(1, npg, (r, w), generator=gen, device=dev)
     q = _layer_pools(2 * nl, npg, pg, d, torch.int8, gen)
     sc = [torch.rand((npg, pg, 1), generator=gen, device=dev) / 127
           for _ in range(2 * nl)]
     pairs = [((q[2 * i], sc[2 * i]), (q[2 * i + 1], sc[2 * i + 1]))
              for i in range(nl)]
-    _dequant_exact(f"moonshot (N={npg}, P={pg}, D={d}, R={r}, M={w})",
+    _dequant_exact(f"{label} (N={npg}, P={pg}, D={d}, R={r}, M={w})",
                    q[0], sc[0], q[1], sc[1], tables)
     bf = torch.bfloat16
     kv_ms = device_ms(_cycle(lambda a: kpg.paged_gather_dequant_kv_cuda(
@@ -2857,13 +2864,69 @@ def phase_moe_mla_kernels(gen):
     rows = r * w * pg
     kv_b, kv_by = bound(2 * (rows * d + 4 * rows + 2 * rows * d),
                         2 * rows * d)
-    log(f"    moonshot paged_gather_dequant_kv int8->bf16: kernel "
+    log(f"    {label} paged_gather_dequant_kv int8->bf16: kernel "
         f"{kv_ms:.5f} ms ({100 * kv_b / kv_ms:.0f}% of bound)  plain "
         f"{kv_plain:.5f} ms  bound {kv_b:.5f} ms ({kv_by})")
-    out["paged_gather_dequant"] = dict(err=0.0, ms=kv_ms, plain_ms=kv_plain,
-                                       library_ms=None, bound_ms=kv_b,
-                                       bound_by=kv_by)
     del q, sc, pairs
+    return dict(err=0.0, ms=kv_ms, plain_ms=kv_plain, library_ms=None,
+                bound_ms=kv_b, bound_by=kv_by)
+
+
+def phase_vlm_encdec_kernels(gen):
+    """Kernels 1, 2, 4 and 5 at the shapes the vision and enc-dec configs'
+    serving paths give them (``VLM_ENCDEC``): the spinner at qwen2-vl's
+    decode query (circulant n = 128 with HD, m = 256, G = 2 kv heads, B = 8
+    requests x a group of 6 = 48, identity) and key (B = 8, exp), at
+    seamless's (n = 64 with HD, G = 16, B = 8) and at its encoder's (one
+    request's B = 1024 frames, query identity and key exp); srf_decode at
+    (B = 8, H = 12, m = 256, dv = 128) and (B = 8, H = 16, dv = 64);
+    paged_gather on bf16 rows of D = 2 x 128 = 256 (28 layer pools
+    cycled) and D = 16 x 64 = 1024 (24 pools), and on the memory pool (N
+    = 9 slots, a page of P = 1024 rows of D = 1024, 2 MiB; R = 8 distinct
+    slots, M = 1; 8 pools cycled, so pages come from HBM), bit-equal to
+    the plain
+    version and to ``pool[tables]``, also on pool views off 16-byte
+    alignment; paged_gather_dequant_kv on int8 rows of 1024 (seamless's K
+    and V). Each timed beside its plain version and its bound. Returns
+    {kernel: record}."""
+    h = VLM_ENCDEC
+    out = {}
+    r, m = h["rows"], h["m"]
+    for key, label, gsz, bsz, n, epi in (
+            ("qwen2vl spinner query", "qwen2-vl SRF spinner decode query",
+             h["vl_kv"], r * h["vl_group"], h["vl_hd"], "identity"),
+            ("qwen2vl spinner key", "qwen2-vl SRF spinner decode key",
+             h["vl_kv"], r, h["vl_hd"], "exp"),
+            ("seamless spinner query", "seamless SRF spinner decode query",
+             h["sm_heads"], r, h["sm_hd"], "identity"),
+            ("seamless spinner key", "seamless SRF spinner decode key",
+             h["sm_heads"], r, h["sm_hd"], "exp"),
+            ("seamless encoder query", "seamless encoder SRF spinner query",
+             h["sm_heads"], h["enc_len"], h["sm_hd"], "identity"),
+            ("seamless encoder key", "seamless encoder SRF spinner key",
+             h["sm_heads"], h["enc_len"], h["sm_hd"], "exp")):
+        out[key] = _spinner_case(label, gsz, bsz, n, m, torch.bfloat16, epi,
+                                 True, gen)
+    out["qwen2vl srf_decode"] = _srf_decode_case(
+        "qwen2-vl", r, h["vl_kv"] * h["vl_group"], m, h["vl_hd"], gen)
+    out["seamless srf_decode"] = _srf_decode_case(
+        "seamless", r, h["sm_heads"], m, h["sm_hd"], gen)
+    npg, pg, w = h["pages"], h["page"], h["width"]
+    out["qwen2vl paged_gather"] = _gather_case(
+        "qwen2-vl K", h["vl_layers"], npg, pg, h["vl_kv"] * h["vl_hd"], r, w,
+        gen)
+    out["seamless paged_gather"] = _gather_case(
+        "seamless K", h["sm_layers"], npg, pg, h["sm_heads"] * h["sm_hd"], r,
+        w, gen)
+    # the 8 rows' slots are distinct, as a batch's requests' are; the
+    # pools cycled hold 8 x 16 MiB read a call, past the 50 MB L2
+    slots = (torch.randperm(r, generator=gen, device="cuda") + 1)[:, None]
+    out["seamless memory gather"] = _gather_case(
+        "seamless encoder memory", h["mem_pools"], r + 1, h["enc_len"],
+        h["d_model"], r, 1, gen, tables=slots)
+    out["seamless paged_gather_dequant"] = _dequant_kv_case(
+        "seamless", h["sm_layers"], npg, pg, h["sm_heads"] * h["sm_hd"], r,
+        w, gen)
     torch.cuda.empty_cache()
     return out
 
@@ -2884,7 +2947,15 @@ FAMILIES_REDUCED = [("mamba2 ssd", "mamba2-2.7b", {}, False),
                      {**CF8, "attn_impl": "srf"}, False),
                     ("deepseek MLA", "deepseek-v2-lite-16b", CF8, False),
                     ("deepseek MLA+SRF", "deepseek-v2-lite-16b",
-                     {**CF8, "attn_impl": "srf"}, False)]
+                     {**CF8, "attn_impl": "srf"}, False),
+                    ("qwen2-vl full KV", "qwen2-vl-2b", {}, False),
+                    ("qwen2-vl SRF", "qwen2-vl-2b", {"attn_impl": "srf"},
+                     False),
+                    ("seamless full KV", "seamless-m4t-large-v2", {}, False),
+                    ("seamless int8 pages", "seamless-m4t-large-v2", {},
+                     True),
+                    ("seamless SRF", "seamless-m4t-large-v2",
+                     {"attn_impl": "srf"}, False)]
 # the kernels each reduced cell's card run must launch (and no other)
 FAMILY_PATHS = {"mamba2 ssd": set(), "hymba full KV": {"paged_gather"},
                 "hymba int8 pages": {"paged_gather_dequant_kv"},
@@ -2893,7 +2964,20 @@ FAMILY_PATHS = {"mamba2 ssd": set(), "hymba full KV": {"paged_gather"},
                 "moonshot int8 pages": {"paged_gather_dequant_kv"},
                 "moonshot SRF": {"spinner", "srf_decode"},
                 "deepseek MLA": {"paged_gather"},
-                "deepseek MLA+SRF": {"spinner", "srf_decode"}}
+                "deepseek MLA+SRF": {"spinner", "srf_decode"},
+                "qwen2-vl full KV": {"paged_gather"},
+                "qwen2-vl SRF": {"spinner", "srf_decode"},
+                # enc-dec: the memory pool's gather a step beside the rest
+                "seamless full KV": {"paged_gather"},
+                "seamless int8 pages": {"paged_gather_dequant_kv",
+                                        "paged_gather"},
+                "seamless SRF": {"spinner", "srf_decode", "paged_gather"}}
+# reduced seeded-SRF cells with mixed embed seeds (``_personalize``), card
+# == CPU: (label, arch, config overrides, the path's kernels)
+SEEDED_REDUCED = [("deepseek MLA seeded SRF", "deepseek-v2-lite-16b", CF8,
+                   {"spinner_seeded", "srf_decode"}),
+                  ("seamless seeded SRF", "seamless-m4t-large-v2", {},
+                   {"spinner_seeded", "srf_decode", "paged_gather"})]
 PREFIX_SCENARIOS = ("hit", "partial", "miss", "evict", "cow")
 PREFIX_COUNTERS = ("prefix_lookups_total", "prefix_hits_total",
                    "prefix_hit_tokens_total", "prefix_cow_forks_total",
@@ -3037,6 +3121,118 @@ def phase_reduced_families():
                                  f"CPU {ref}, undisturbed {base}")
         log(f"  reduced hymba chaos {kind}: rescued == undisturbed == CPU, "
             f"counters {res['counters']} == CPU's")
+    _reduced_new_families()
+
+
+def _reduced_new_families():
+    """``phase_reduced_families``' parts (4)-(6): seeded SRF with mixed
+    embed seeds (``SEEDED_REDUCED``: deepseek's MLA-SRF and seamless,
+    greedy and sampled rows in one batch) card == CPU, the path's kernels
+    launched; seamless's prefix cache with two feature sets (a donor and
+    a wave sharing its features hit, the same prompts with other
+    features miss) card == CPU == cold, counters == CPU's; qwen2-vl's
+    ``loss_fn`` on a batch whose ``pos3`` rows differ (a patch grid, then
+    text), full and SRF, card within rtol 1e-4 of the CPU."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synth
+    from repro_torch.kernels import ops
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serving import (ChunkConfig, Engine, PrefixConfig,
+                                     Request)
+    for label, arch, over, path in SEEDED_REDUCED:
+        cfg = _seeded(registry.reduced(arch, n_layers=2, attn_impl="srf",
+                                       **over))
+        cpu = model_lib.init(cfg, seed=3, device="cpu")
+        got = {}
+        for where, device, params in (("CPU", "cpu", cpu),
+                                      ("card", "cuda", _to(cpu, "cuda"))):
+            ops.reset_counts()
+            got[where] = _drive(Engine(cfg, params, batch_slots=4,
+                                       max_len=64, seed=5, device=device),
+                                _personalize(_mixed_requests(cfg, 0.0)))
+            counts = ops.launch_counts()
+        _check_path_launches(f"reduced {label}", counts, path)
+        if got["card"] != got["CPU"] or len(got["card"]) != 8:
+            raise AssertionError(f"reduced {label}: card tokens differ from "
+                                 f"the CPU's: {got}")
+        log(f"  reduced {label}, mixed embed seeds, greedy + sampled: card "
+            f"tokens == CPU tokens "
+            f"({sum(map(len, got['card'].values()))} tokens)")
+
+    cfg = registry.reduced("seamless-m4t-large-v2", n_layers=2)
+    cpu = model_lib.init(cfg, seed=3, device="cpu")
+    card = _to(cpu, "cuda")
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, cfg.vocab, 36).astype(np.int32)
+    feats = [frontends.synthetic_audio_features(rng, cfg) for _ in range(2)]
+    tails = [rng.integers(1, cfg.vocab, 3 + i).astype(np.int32)
+             for i in range(4)]
+
+    def waves():
+        donor = [Request(uid=100, prompt=shared.copy(), max_new=2,
+                         enc_emb=feats[0])]
+        wave = [Request(uid=i, prompt=np.concatenate([shared, tails[i % 4]]),
+                        max_new=6, enc_emb=feats[i // 4]) for i in range(8)]
+        return donor, wave
+
+    def run(params, device, prefix):
+        # 8 slots: the wave is admitted at once, so only the donor's
+        # pages can be hit
+        eng = Engine(cfg, params, batch_slots=8, max_len=64, device=device,
+                     prefix=PrefixConfig(chunk=ChunkConfig(chunk_tokens=16))
+                     if prefix else None)
+        donor, wave = waves()
+        _drive(eng, donor)
+        toks = _drive(eng, wave)
+        hit = [r.uid for r in wave if r.trace.count("prefix_hit")]
+        v = eng.metrics.value_sum
+        return toks, {c: int(v(c)) for c in PREFIX_COUNTERS}, eng, hit
+    cold, _, _, _ = run(card, "cuda", False)
+    want, want_c, _, _ = run(cpu, "cpu", True)
+    got, got_c, eng, hit = run(card, "cuda", True)
+    if got != want or got != cold or got_c != want_c or \
+            hit != [0, 1, 2, 3] or got_c["prefix_hits_total"] != 4:
+        raise AssertionError(f"reduced seamless prefix, two feature sets: "
+                             f"card {got} {got_c}, cold {cold}, CPU {want} "
+                             f"{want_c}")
+    eng.prefix.drop_all()
+    if eng.sched.alloc.used_pages or eng.sched.slot_alloc.used_pages:
+        raise AssertionError("reduced seamless prefix: leak")
+    log(f"  reduced seamless prefix, two feature sets: 4 hits (the donor's "
+        f"features), none across features; card == cold == CPU, counters "
+        f"== CPU's: {got_c}")
+
+    for attn in ("full", "srf"):
+        cfg = registry.reduced("qwen2-vl-2b", n_layers=2, attn_impl=attn)
+        cpu = model_lib.init(cfg, seed=3, device="cpu")
+        hb = synth.full_batch(cfg, 2, 32, 0)
+        nv = hb["vision_emb"].shape[1]
+        i = np.arange(nv)
+        grid = np.stack([np.zeros(nv), i // 4, i % 4]).astype(np.int32)
+        text = np.broadcast_to(grid.max() + 1 + np.arange(32 - nv),
+                               (3, 32 - nv))
+        hb["pos3"] = np.ascontiguousarray(np.broadcast_to(
+            np.concatenate([grid, text], 1)[:, None], (3, 2, 32))
+        ).astype(np.int32)
+        losses = {}
+        for device, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            ops.reset_counts()
+            batch = {k: torch.from_numpy(v).to(device) for k, v in hb.items()}
+            with torch.no_grad():
+                losses[device] = float(model_lib.loss_fn(params, cfg,
+                                                         batch)[0])
+            counts = ops.launch_counts()
+        if attn == "srf" and (not counts["spinner"]
+                              or counts["spinner_plain_on_cuda"]):
+            raise AssertionError(f"reduced qwen2-vl loss {attn}: {counts}")
+        if not abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * losses["cpu"]:
+            raise AssertionError(f"reduced qwen2-vl loss {attn}, M-RoPE "
+                                 f"rows apart: card {losses['cuda']} != "
+                                 f"CPU {losses['cpu']}")
+        log(f"  reduced qwen2-vl {attn} loss_fn, a 16-patch grid then text "
+            f"(pos3 rows apart): card {losses['cuda']:.6f} == CPU "
+            f"{losses['cpu']:.6f} within rtol 1e-4")
 
 
 def _pool_bytes(eng):
@@ -3440,6 +3636,196 @@ def phase_serve_mla():
     return out
 
 
+def phase_serve_vlm():
+    """Full-width qwen2-vl-2b (28 layers, d_model 1536, 12 q / 2 kv heads
+    of 128, bf16; served as a text LM with 1-D RoPE, as the reference's
+    engines serve it), random weights, 8 greedy requests of 128 + 32
+    tokens, 8 slots: full KV on bf16 pages (paged_gather exactly 2 a layer
+    a step), then, the params rebuilt with SRF attention, SRF
+    (``_srf_launches``). Nothing else launched; tok/s, TTFT p50, peak
+    memory and pool bytes printed. Returns the results."""
+    from repro_torch.launch import serve
+    arch = "qwen2-vl-2b"
+    out = {}
+    for attn, label in (("full", "full KV"), ("srf", "SRF")):
+        cfg, params = _build(serve_args(attn, arch=arch, **FAMILY_TRAFFIC))
+        a = serve_args(attn, arch=arch, **FAMILY_TRAFFIC)
+        serve.warm(a, cfg, params)
+        eng = serve.engine(a, cfg, params)
+        with count_probes() as probes:
+            res = _family_run(f"{arch} {label}", a, cfg, params, eng=eng)
+        del eng
+        if attn == "srf":
+            _srf_launches(f"{arch} SRF", cfg, res, probes)
+        else:
+            _expect_launches(f"{arch} full KV", res["counts"], {
+                "paged_gather": (2 * cfg.n_layers * res["steps"], True),
+                "spinner": (0, True), "srf_decode": (0, True)})
+        out[label] = res
+        del params
+        _free()
+    return out
+
+
+def _encode_ms(eng, reqs):
+    """Device ms of one request's encoder pass (``Engine._encode``, batch
+    1, as at admission): CUDA events around back-to-back calls, median
+    of 5 repeats of 3."""
+    feats = torch.as_tensor(reqs[0].enc_emb[None], device="cuda")
+    return device_ms(lambda: eng._encode(eng.params, feats), launches=3,
+                     repeats=5)
+
+
+def _cross_ms(cfg, params, gen):
+    """Device ms of a decode step's cross attention: one decoder layer's
+    ``paged_cross_attention`` at the step's shapes (8 rows of 1 token over
+    8 gathered memories of 1024 x 1024), times the layer count."""
+    from repro_torch.models import attention as attn_lib
+    p = {k: v[0] for k, v in params["segments"][0]["cross"].items()}
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    mem = torch.randn((8, cfg.enc_len, cfg.d_model), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    one = device_ms(lambda: attn_lib.paged_cross_attention(p, cfg, x, mem),
+                    launches=10, repeats=5)
+    return one * cfg.n_layers
+
+
+# first-token logits of the enc-dec engines (bf16, 8 paged chunks of 32
+# against one legacy prefill of 128, both after one batch-1 encoder
+# pass): a first card run measured 0.0130 between the engines and
+# 0.0142-0.0147 against an f32 copy's prefill; the limits are about twice
+# that
+FAMILY_LOGIT_TOL["audio"] = (0.03, 0.03)
+
+
+def phase_serve_encdec():
+    """Full-width seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
+    d_model 1024, 16 heads of 64, vocab 256206, bf16), random weights, 8
+    greedy requests of 128 + 32 tokens, 8 slots, each request with its
+    own 1024 x 160 synthetic audio features (encoded once at admission,
+    batch 1, into its slot of the memory pool): full KV on bf16 pages
+    (paged_gather exactly 2 a layer a step for K and V plus 1 a step for
+    the memory), int8 pages (paged_gather_dequant_kv 1 a layer a step,
+    paged_gather 1 a step), SRF (the spinner 2 a layer a step, 2 an
+    encoder layer a request at admission, plus the probe's; srf_decode 1
+    a layer a decode step; paged_gather 1 a step); the prefix cache (a
+    donor of the 96 shared tokens with request 0's features, then the 8
+    requests: 0-3 with the donor's features hit its 96 tokens, 4-7 with
+    their own hit nothing); the legacy engine on the first 4 requests at
+    128 + 32, 4 slots (no kernel; first-token logits within
+    ``FAMILY_LOGIT_TOL["audio"]`` of the paged engine's and of an f32
+    copy's prefill). Encode ms a request (``_encode_ms``) and the cross
+    attention's device ms a step (``_cross_ms``) printed beside tok/s,
+    TTFT p50, peak memory and the memory pool's bytes. Returns the
+    results."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request
+    from repro_torch.serving import paged_cache
+    arch = "seamless-m4t-large-v2"
+    none = {"paged_gather": (0, True), "spinner": (0, True),
+            "srf_decode": (0, True)}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    out = {}
+    for attn, runs in (("full", (("full KV", {}),
+                                 ("int8 pages", {"quantize_kv": True}))),
+                       ("srf", (("SRF", {}),))):
+        cfg, params = _build(serve_args(attn, arch=arch, **FAMILY_TRAFFIC))
+        n = cfg.n_layers
+        for label, flags in runs:
+            a = serve_args(attn, arch=arch, **FAMILY_TRAFFIC, **flags)
+            serve.warm(a, cfg, params)
+            eng = serve.engine(a, cfg, params)
+            prec = first_logits(eng)
+            with count_probes() as probes:
+                res = _family_run(f"{arch} {label}", a, cfg, params, eng=eng)
+            steps, dec = res["steps"], res["decode_steps"]
+            mem_b = paged_cache.memory_bytes(eng.pools)
+            res["memory_pool_bytes"] = mem_b
+            res["encode_ms"] = _encode_ms(eng, serve.requests(a, cfg))
+            log(f"    memory pool {mem_b} B ({eng.sched.num_slots} slots x "
+                f"{cfg.enc_len} x {cfg.d_model}); encode "
+                f"{res['encode_ms']:.3f} ms of device time a request "
+                f"(batch 1)")
+            del eng
+            if label == "SRF":
+                if probes.calls != 1:
+                    raise AssertionError(f"{arch} SRF: {probes.calls} "
+                                         f"quality samples")
+                want = {"spinner": (2 * n * steps + 2 * cfg.enc_layers
+                                    * a.requests + probes.spinner, True),
+                        "srf_decode": (n * dec, True),
+                        "paged_gather": (steps, True)}
+            elif label == "int8 pages":
+                want = {"paged_gather_dequant_kv": (n * steps, True),
+                        "paged_gather": (steps, True)}
+            else:
+                want = {"paged_gather": (2 * n * steps + steps, True)}
+            _expect_launches(f"{arch} {label}", res["counts"],
+                             {**none, **want})
+            log(f"    launches as the path needs: {want}")
+            out[label] = res
+            if label == "full KV":
+                first_rec = prec
+                res["cross_ms"] = _cross_ms(cfg, params, gen)
+                log(f"    cross attention: {res['cross_ms']:.3f} ms of device "
+                    f"time a decode step ({n} layers x memory @ wk, wv over "
+                    f"8 x {cfg.enc_len} rows)")
+        if attn == "full":
+            pa = serve_args(arch=arch, prefix_cache=True,
+                            shared_prefix=SHARED, **FAMILY_TRAFFIC)
+            serve.warm(pa, cfg, params)
+            eng = serve.engine(pa, cfg, params)
+            reqs = serve.requests(pa, cfg)
+            for r in reqs[1:4]:
+                r.enc_emb = reqs[0].enc_emb
+            serve.serve(pa, eng=eng, reqs=[Request(
+                uid=100, prompt=reqs[0].prompt[:SHARED].copy(), max_new=2,
+                enc_emb=reqs[0].enc_emb)])
+            steps0 = _steps(eng)
+            res = _family_run(f"{arch} prefix cache (a donor of the 96 "
+                              f"shared tokens, then 4 requests with its "
+                              f"features and 4 with their own)", pa, cfg,
+                              params, eng=eng, reqs=reqs)
+            st = _steps(eng) - steps0
+            _expect_launches(f"{arch} prefix cache", res["counts"], {
+                **none, "paged_gather": (2 * n * st + st, True)})
+            v = eng.metrics.value_sum
+            stats = {c: int(v(c)) for c in PREFIX_COUNTERS}
+            hit = sorted(r.uid for r in reqs if r.trace.count("prefix_hit"))
+            log(f"    prefix counters: {stats}; hit uids {hit}; the 8 "
+                f"requests cold: TTFT p50 "
+                f"{out['full KV']['ttft_s']['p50']:.4f} s")
+            if stats["prefix_hit_tokens_total"] != 4 * SHARED or \
+                    stats["prefix_hits_total"] != 4 or hit != [0, 1, 2, 3]:
+                raise AssertionError(f"{arch} prefix cache: expected 4 hits "
+                                     f"of {SHARED} tokens (uids 0-3): "
+                                     f"{stats}, {hit}")
+            eng.prefix.drop_all()
+            if eng.sched.alloc.used_pages or \
+                    eng.sched.slot_alloc.used_pages:
+                raise AssertionError(f"{arch} prefix cache: pages or slots "
+                                     f"left after drop_all")
+            res["prefix"] = stats
+            out["prefix cache"] = res
+            del eng
+            la = serve_args(arch=arch, legacy=True,
+                            **dict(FAMILY_TRAFFIC, requests=4, slots=4))
+            serve.warm(la, cfg, params)
+            leng = serve.engine(la, cfg, params)
+            lrec = first_logits(leng)
+            out["legacy"] = _family_run(f"{arch} legacy full KV", la, cfg,
+                                        params, none, eng=leng)
+            del leng
+            out["full KV"]["first_logit_gap"] = _first_logit_gap(
+                f"{arch} full KV", first_rec, lrec,
+                _f32_first_logits(cfg, params, la), "audio")
+        del params
+        _free()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5: train
 # ---------------------------------------------------------------------------
@@ -3464,19 +3850,20 @@ def _loader(cfg, batch, seq, seed=0):
         cfg, batch, seq, step, seed=seed, shard=shard))
 
 
-def _train_run(attn, seeded=False):
-    """TRAIN_STEPS steps of full-width, full-depth qwen3-4b (bf16, remat
+def _train_run(attn, seeded=False, arch="qwen3-4b", batch_size=TRAIN_BATCH,
+               seq=TRAIN_SEQ, n_steps=TRAIN_STEPS):
+    """``n_steps`` steps of full-width, full-depth ``arch`` (bf16, remat
     full) as the Trainer takes them: ``make_train_step`` fed by
-    ``ShardedLoader`` over ``synth.full_batch``, each step timed by
-    ``profile_train.timed``. Counts are zeroed just before the steps and
-    read just after."""
+    ``ShardedLoader`` over ``synth.full_batch`` (B = ``batch_size``,
+    ``seq`` tokens), each step timed by ``profile_train.timed``. Counts
+    are zeroed just before the steps and read just after."""
     from repro_torch.configs import registry
     from repro_torch.data.loader import device_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_train import timed
     from repro_torch.models import transformer as model_lib
     from repro_torch.optim import adamw
-    cfg = registry.get("qwen3-4b", attn_impl=attn)
+    cfg = registry.get(arch, attn_impl=attn)
     if seeded:
         cfg = _seeded(cfg)
     t0 = time.perf_counter()
@@ -3485,13 +3872,13 @@ def _train_run(attn, seeded=False):
     state = adamw.init(params)
     torch.cuda.synchronize()
     _describe(cfg, params, t0)
-    fn = _train_step_fn(cfg, TRAIN_STEPS)
-    loader = _loader(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    fn = _train_step_fn(cfg, n_steps)
+    loader = _loader(cfg, batch_size, seq)
     it = iter(loader)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     losses, gnorms, times = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         step_i, host = next(it)
         assert step_i == i
         batch = device_batch(host, "cuda")
@@ -3511,6 +3898,54 @@ def _train_run(attn, seeded=False):
 TRAIN_RUNS = (("srf", False), ("srf", True), ("full", False))
 
 
+def _train_checks(run, attn, seeded, cfg, losses, gnorms, times, peak,
+                  counts, batch_size, seq, n_steps):
+    """A training run's report and checks (``phase_train_full``'s): every
+    loss and gradient norm finite, the first loss within 0.5 of ln(V_pad)
+    + 1/2, SRF's spinner (materialized or seeded) launched 2 a layer in
+    the forward and 2 in the recompute a step, its plain backward 2 a
+    layer a step, nothing else; step ms, tokens/s, bf16-peak share over
+    the median of steps 2 on. Returns the record."""
+    from repro_torch.launch.profile_train import step_rates
+    rates = step_rates(cfg, batch_size, seq, statistics.median(times[1:]))
+    log(f"  train {run}: losses {[round(x, 4) for x in losses]}, "
+        f"grad norms {[round(x, 3) for x in gnorms]}")
+    log(f"    step {rates['step_ms']:.1f} ms (median of steps 2-"
+        f"{n_steps}; first {1e3 * times[0]:.1f} ms), "
+        f"{rates['tokens_s']:.1f} training tokens/s, peak memory "
+        f"{peak:.2f} GiB, 6*N*tokens/step at "
+        f"{100 * rates['bf16_peak_share']:.2f}% of bf16 dense peak "
+        f"(N = {cfg.param_count():,})")
+    log(f"    launches: {counts}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train {run}: non-finite loss or grad "
+                             f"norm: {losses} {gnorms}")
+    centre = math.log(cfg.padded_vocab) + 0.5
+    log(f"    first loss {losses[0]:.4f}: {losses[0] - centre:+.4f} from "
+        f"ln(V_pad) + 1/2 = {centre:.4f}, "
+        f"{losses[0] - math.log(cfg.vocab):+.4f} from ln(V) = "
+        f"{math.log(cfg.vocab):.4f}")
+    if not abs(losses[0] - centre) <= 0.5:
+        raise AssertionError(f"train {run}: first loss {losses[0]} not "
+                             f"within 0.5 of {centre}")
+    per_step = 2 * cfg.n_layers * (2 if cfg.remat == "full" else 1)
+    key = "spinner_seeded" if seeded else "spinner"
+    expect = {k: 0 for k in counts}
+    if attn == "srf":
+        expect[key] = per_step * n_steps
+        expect[key + "_bwd"] = 2 * cfg.n_layers * n_steps
+    bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"train {run}: launches (got, expected) "
+                             f"{bad}")
+    if attn == "srf":
+        log(f"    {key}: {counts[key] // n_steps} forward launches "
+            f"a step ({per_step // 2} in the forward, {per_step // 2} "
+            f"in the recompute), {counts[key + '_bwd'] // n_steps} "
+            f"plain backward calls a step")
+    return dict(losses=losses, peak_gib=peak, counts=counts, **rates)
+
+
 def phase_train_full():
     """Full-width, full-depth qwen3-4b trains TRAIN_STEPS steps with SRF
     attention, with seeded SRF, then with full attention (freeing between
@@ -3523,50 +3958,34 @@ def phase_train_full():
     its plain backward once per forward launch of the first pass, no
     plain forward on the card, no launch of the other spinner. Step ms,
     training tokens/s and bf16-peak share by ``profile_train.step_rates``
-    over the median of steps 2 on."""
-    from repro_torch.launch.profile_train import step_rates
+    over the median of steps 2 on (``_train_checks``)."""
     out = {}
     for attn, seeded in TRAIN_RUNS:
         run = attn + (" seeded" if seeded else "")
         cfg, losses, gnorms, times, peak, counts = _train_run(attn, seeded)
-        rates = step_rates(cfg, TRAIN_BATCH, TRAIN_SEQ,
-                           statistics.median(times[1:]))
-        log(f"  train {run}: losses {[round(x, 4) for x in losses]}, "
-            f"grad norms {[round(x, 3) for x in gnorms]}")
-        log(f"    step {rates['step_ms']:.1f} ms (median of steps 2-"
-            f"{TRAIN_STEPS}; first {1e3 * times[0]:.1f} ms), "
-            f"{rates['tokens_s']:.1f} training tokens/s, peak memory "
-            f"{peak:.2f} GiB, 6*N*tokens/step at "
-            f"{100 * rates['bf16_peak_share']:.2f}% of bf16 dense peak "
-            f"(N = {cfg.param_count():,})")
-        log(f"    launches: {counts}")
-        if not all(math.isfinite(x) for x in losses + gnorms):
-            raise AssertionError(f"train {run}: non-finite loss or grad "
-                                 f"norm: {losses} {gnorms}")
-        centre = math.log(cfg.padded_vocab) + 0.5
-        log(f"    first loss {losses[0]:.4f}: {losses[0] - centre:+.4f} from "
-            f"ln(V_pad) + 1/2 = {centre:.4f}, "
-            f"{losses[0] - math.log(cfg.vocab):+.4f} from ln(V) = "
-            f"{math.log(cfg.vocab):.4f}")
-        if not abs(losses[0] - centre) <= 0.5:
-            raise AssertionError(f"train {run}: first loss {losses[0]} not "
-                                 f"within 0.5 of {centre}")
-        per_step = 2 * cfg.n_layers * (2 if cfg.remat == "full" else 1)
-        key = "spinner_seeded" if seeded else "spinner"
-        expect = {k: 0 for k in counts}
-        if attn == "srf":
-            expect[key] = per_step * TRAIN_STEPS
-            expect[key + "_bwd"] = 2 * cfg.n_layers * TRAIN_STEPS
-        bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
-        if bad:
-            raise AssertionError(f"train {run}: launches (got, expected) "
-                                 f"{bad}")
-        if attn == "srf":
-            log(f"    {key}: {counts[key] // TRAIN_STEPS} forward launches "
-                f"a step ({per_step // 2} in the forward, {per_step // 2} "
-                f"in the recompute), {counts[key + '_bwd'] // TRAIN_STEPS} "
-                f"plain backward calls a step")
-        out[run] = dict(losses=losses, peak_gib=peak, counts=counts, **rates)
+        out[run] = _train_checks(run, attn, seeded, cfg, losses, gnorms,
+                                 times, peak, counts, TRAIN_BATCH,
+                                 TRAIN_SEQ, TRAIN_STEPS)
+    return out
+
+
+VLM_TRAIN = dict(arch="qwen2-vl-2b", batch_size=2, seq=2048, n_steps=3)
+
+
+def phase_train_vlm():
+    """Full-width, full-depth qwen2-vl-2b (28 layers, bf16, remat full)
+    trains 3 steps at B = 2, seq = 2048 (``synth.full_batch``: a 1024-patch
+    vision prefix through the adapter, 1024 labelled text tokens, M-RoPE
+    over ``pos3``) with SRF attention (the spinner under autograd), then
+    3 with full attention; ``_train_checks`` on each."""
+    out = {}
+    for attn in ("srf", "full"):
+        cfg, losses, gnorms, times, peak, counts = _train_run(
+            attn, **VLM_TRAIN)
+        out[attn] = _train_checks(
+            f"qwen2-vl-2b {attn}", attn, False, cfg, losses, gnorms, times,
+            peak, counts, VLM_TRAIN["batch_size"], VLM_TRAIN["seq"],
+            VLM_TRAIN["n_steps"])
     return out
 
 
@@ -3683,7 +4102,8 @@ def _leaves(tree):
 def _record(name, source, replaces, launches, rec, shape):
     extra = {k: v for k, v in rec.items() if k.startswith((
         "one_pool_", "two_single_", "train_", "dispatch_", "router_",
-        "hymba_", "dense_", "moonshot_", "deepseek_"))}
+        "hymba_", "dense_", "moonshot_", "deepseek_", "qwen2vl_",
+        "seamless_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -3721,6 +4141,7 @@ def main() -> int:
     phase_sampler(gen)
     hymba_k = phase_hymba_kernels(gen)
     moe_k = phase_moe_mla_kernels(gen)
+    vlm_k = phase_vlm_encdec_kernels(gen)
 
     log("phase 3: the kernel-estimation library")
     phase_estimators(gen)
@@ -3756,9 +4177,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_serve_moe()
     mla = phase_serve_mla()
+    vlm = phase_serve_vlm()
+    encdec = phase_serve_encdec()
 
     log("phase 5: train")
     train = phase_train_full()
+    train_vlm = phase_train_vlm()
     phase_train_resume()
     phase_train_agreement()
 
@@ -3820,22 +4244,30 @@ def main() -> int:
         return out
     hg = "R=8, M=16, P=16, D=5*64, N=257, 32 layer pools cycled"
 
-    def family(prefix, rec, runs, shape):
-        """The kernel at a MoE / MLA config's shape
-        (``phase_moe_mla_kernels``) and its launches in that config's
-        full-width serve runs ({run label: (result, launch key)})."""
+    moe_of = "full-width serve runs: 8 requests x (128 + 32) tokens " \
+        "(moonshot full KV, deepseek MLA), 4 x (128 + 16) (int8 pages, " \
+        "SRF, MLA+SRF)"
+
+    def family(prefix, rec, runs, shape, of=moe_of):
+        """The kernel at a config's shape (``phase_moe_mla_kernels``,
+        ``phase_vlm_encdec_kernels``) and its launches in that config's
+        full-width serve runs ({run label: (result, launch key)}), which
+        ``of`` describes."""
         out = {f"{prefix}_{k}": rec[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by")}
         out[f"{prefix}_max_abs_err"] = rec["err"]
         out[f"{prefix}_library_ms"] = rec.get("library_ms")
         out[f"{prefix}_launches"] = {run: r["counts"][key]
                                      for run, (r, key) in runs.items()}
-        out[f"{prefix}_launches_of"] = "full-width serve runs: 8 " \
-            "requests x (128 + 32) tokens (moonshot full KV, deepseek " \
-            "MLA), 4 x (128 + 16) (int8 pages, SRF, MLA+SRF)"
+        out[f"{prefix}_launches_of"] = of
         out[f"{prefix}_shape"] = shape
         return out
     mg = "R=8, M=16, P=16, N=257"
+    vl_of = "full-width qwen2-vl-2b serve runs, 8 requests x (128 + 32)"
+    sm_of = "full-width seamless-m4t-large-v2 serve runs, 8 requests x " \
+        "(128 + 32), each with its own 1024 x 160 features"
+    vl_g = mg + ", D=2*128, 28 layer pools cycled, bf16"
+    sm_g = mg + ", D=16*64, 24 layer pools cycled"
     kernels = [
         _record("spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:111", srf["spinner"],
@@ -3843,6 +4275,12 @@ def main() -> int:
                  **train_extra("spinner", train["srf"]["counts"], "spinner",
                                f"full-width SRF training, {TRAIN_STEPS} "
                                f"steps"),
+                 "qwen2vl_train_launches": train_vlm["srf"]["counts"][
+                     "spinner"],
+                 "qwen2vl_train_bwd_launches": train_vlm["srf"]["counts"][
+                     "spinner_bwd"],
+                 "qwen2vl_train_of": "full-width qwen2-vl-2b SRF training, "
+                                     "3 steps of B=2 x 2048",
                  **dispatch("srf", "spinner_project"),
                  **routed("srf", "spinner"),
                  **hymba("spinner decode query", "SRF", "spinner",
@@ -3857,7 +4295,33 @@ def main() -> int:
                                              "query", torch.bfloat16)],
                           {"SRF": (moe["SRF"], "spinner")},
                           "decode query: G=16, B=8, n=128, m=256, HD, "
-                          "bf16, identity")},
+                          "bf16, identity"),
+                 **family("qwen2vl", vlm_k["qwen2vl spinner query"],
+                          {"SRF": (vlm["SRF"], "spinner")},
+                          "decode query: G=2 kv heads, B=48 (8 requests x a "
+                          "group of 6), n=128, m=256, HD, bf16, identity",
+                          vl_of),
+                 **family("qwen2vl_key", vlm_k["qwen2vl spinner key"],
+                          {"SRF": (vlm["SRF"], "spinner")},
+                          "decode key: G=2, B=8, n=128, m=256, HD, bf16, "
+                          "exp", vl_of),
+                 **family("seamless", vlm_k["seamless spinner query"],
+                          {"SRF": (encdec["SRF"], "spinner")},
+                          "decode query: G=16, B=8, n=64, m=256, HD, bf16, "
+                          "identity", sm_of),
+                 **family("seamless_key", vlm_k["seamless spinner key"],
+                          {"SRF": (encdec["SRF"], "spinner")},
+                          "decode key: G=16, B=8, n=64, m=256, HD, bf16, "
+                          "exp", sm_of),
+                 **family("seamless_encoder", vlm_k["seamless encoder query"],
+                          {"SRF": (encdec["SRF"], "spinner")},
+                          "encoder query: G=16, B=1024 (one request's "
+                          "frames), n=64, m=256, HD, bf16, identity", sm_of),
+                 **family("seamless_encoder_key",
+                          vlm_k["seamless encoder key"],
+                          {"SRF": (encdec["SRF"], "spinner")},
+                          "encoder key: G=16, B=1024, n=64, m=256, HD, "
+                          "bf16, exp", sm_of)},
                 "decode query: G=8, B=32, n=128, m=256, bf16, identity"),
         _record("srf_decode", src + "srf_decode.cu",
                 "src/repro/kernels/srf_decode.py:26", srf["srf_decode"],
@@ -3870,7 +4334,13 @@ def main() -> int:
                           "B=8, H=16, m=256, dv=128, f32"),
                  **family("deepseek", moe_k["srf_decode"],
                           {"MLA+SRF": (mla["MLA+SRF"], "srf_decode")},
-                          "B=8, H=16, m=256, dv=128, f32")},
+                          "B=8, H=16, m=256, dv=128, f32"),
+                 **family("qwen2vl", vlm_k["qwen2vl srf_decode"],
+                          {"SRF": (vlm["SRF"], "srf_decode")},
+                          "B=8, H=12, m=256, dv=128, f32", vl_of),
+                 **family("seamless", vlm_k["seamless srf_decode"],
+                          {"SRF": (encdec["SRF"], "srf_decode")},
+                          "B=8, H=16, m=256, dv=64, f32", sm_of)},
                 "B=8, H=32, m=256, dv=128, f32"),
         _record("paged_gather", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:28",
@@ -3893,7 +4363,26 @@ def main() -> int:
                  **family("deepseek_kpe", moe_k["paged_gather kpe"],
                           {"MLA": (mla["MLA"], "paged_gather")},
                           mg + ", D=64 (rope key kpe), 27 layer pools "
-                          "cycled, bf16")},
+                          "cycled, bf16"),
+                 **family("qwen2vl", vlm_k["qwen2vl paged_gather"],
+                          {"full KV": (vlm["full KV"], "paged_gather")},
+                          vl_g, vl_of),
+                 **family("seamless", vlm_k["seamless paged_gather"],
+                          {run: (encdec[run], "paged_gather") for run in
+                           ("full KV", "int8 pages", "SRF",
+                            "prefix cache")},
+                          sm_g + ", bf16", sm_of + " (full KV: K, V and "
+                          "the memory; int8 pages and SRF: the memory "
+                          "alone)"),
+                 **family("seamless_memory",
+                          vlm_k["seamless memory gather"],
+                          {run: (encdec[run], "paged_gather") for run in
+                           ("int8 pages", "SRF")},
+                          "the encoder-memory pool: N=9 slots, P=1024 "
+                          "(enc_len), D=1024 (d_model), R=8 distinct slots, M=1 (a 2 MiB "
+                          "page through a width-1 table), 8 pools cycled, "
+                          "bf16", sm_of + " (the memory gather alone: 1 a "
+                          "step)")},
                 decode + ", bf16"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
@@ -3911,7 +4400,13 @@ def main() -> int:
                           {"int8 pages": (moe["int8 pages"],
                                           "paged_gather_dequant_kv")},
                           mg + ", D=16*128, 48 layer pools cycled, int8 "
-                          "-> bf16, K and V in one launch")},
+                          "-> bf16, K and V in one launch"),
+                 **family("seamless",
+                          vlm_k["seamless paged_gather_dequant"],
+                          {"int8 pages": (encdec["int8 pages"],
+                                          "paged_gather_dequant_kv")},
+                          sm_g + ", int8 -> bf16, K and V in one launch",
+                          sm_of)},
                 decode + ", int8 -> bf16, a layer's K and V in one launch "
                 "(paged_gather_dequant_kv, as the int8 serve run launches "
                 "it); plain_ms: two plain calls; one_pool_*: the "

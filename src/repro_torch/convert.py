@@ -7,7 +7,10 @@ nested layout (embed, stacked ``segments``, ``final_norm``, ``head``,
 and per-layer ``attn.srf`` generators and HD diagonals, or the uint32
 ``seed`` leaves of seeded SRF, shaped (layers, kv heads); an MoE
 config's two segments, dense then moe, with the f32 router, the experts
-and the "shared" experts) with every leaf a torch tensor; float leaves
+and the "shared" experts; an enc-dec config's stacked "encoder",
+"enc_norm", "frontend" adapter and each decoder layer's "cross" and
+"ln_x"; a vision config's "frontend" adapter) with every leaf a torch
+tensor; float leaves
 take the config's dtype, the router excepted. Seeds become int64
 tensors holding the same 32-bit values, the port's seed representation
 (``kernels.seedgen``). Both
@@ -49,7 +52,9 @@ def params_from_jax(tree, cfg, device="cuda"):
     """Reference param pytree (numpy leaves) -> port params on ``device``,
     float leaves in ``cfg.dtype``. Checks the layout against ``cfg``."""
     want = {"embed", "segments", "final_norm"} | \
-        (set() if cfg.tie_embeddings else {"head"})
+        (set() if cfg.tie_embeddings else {"head"}) | \
+        ({"encoder", "enc_norm"} if cfg.is_encdec else set()) | \
+        ({"frontend"} if cfg.frontend != "none" else set())
     if set(tree) != want:
         raise ValueError(f"expected top-level keys {sorted(want)}, got "
                          f"{sorted(tree)}")
@@ -62,6 +67,11 @@ def params_from_jax(tree, cfg, device="cuda"):
         if n != count:
             raise ValueError(f"segment holds {n} layers, config says "
                              f"{count}")
+    if cfg.is_encdec:
+        n = np.asarray(tree["encoder"]["ln1"]["w"]).shape[0]
+        if n != cfg.enc_layers:
+            raise ValueError(f"encoder holds {n} layers, config says "
+                             f"{cfg.enc_layers}")
     emb = np.asarray(tree["embed"]["tok"]).shape
     if emb != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"embed is {emb}, config needs "

@@ -134,6 +134,17 @@ def _phi(cfg: SRFConfig, params, xg: torch.Tensor, is_query: bool,
     return phi
 
 
+def attention_noncausal(phi_q: torch.Tensor, phi_k: torch.Tensor,
+                        v: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Encoder (bidirectional) SRF attention: every query attends to
+    every key through the summed state phi_k^T v and its normalizer."""
+    kv = torch.einsum("bhlm,bhld->bhmd", phi_k, v)
+    z = torch.sum(phi_k, dim=-2)                         # (B, H, m)
+    num = torch.einsum("bhlm,bhmd->bhld", phi_q, kv)
+    den = torch.einsum("bhlm,bhm->bhl", phi_q, z)
+    return num / (den[..., None] + eps)
+
+
 def attention_causal(cfg: SRFConfig, phi_q: torch.Tensor,
                      phi_k: torch.Tensor, v: torch.Tensor,
                      eps: float = 1e-6) -> torch.Tensor:

@@ -14,12 +14,6 @@ from typing import Dict
 
 import numpy as np
 
-# frame and patch feature widths of the reference's audio and vision
-# front ends (``repro.models.frontends``)
-AUDIO_FEAT_DIM = 160
-VISION_FEAT_DIM = 1176
-
-
 def _rng(seed: int, step: int, shard: int) -> np.random.Generator:
     ss = np.random.SeedSequence([seed, step, shard, 0x5EED])
     return np.random.Generator(np.random.Philox(ss))
@@ -54,17 +48,18 @@ def frontend_features(batch: int, length: int, dim: int, step: int,
 def full_batch(cfg, batch: int, seq: int, step: int, seed: int = 0,
                shard: int = 0) -> Dict[str, np.ndarray]:
     """Batch matching configs.shapes.batch_specs for any arch family."""
+    from repro_torch.models import frontends    # the feature widths
     out: Dict[str, np.ndarray] = {}
     if cfg.is_encdec:
         out.update(lm_batch(cfg.vocab, batch, seq, step, seed, shard))
         out["enc_emb"] = frontend_features(batch, cfg.enc_len,
-                                           AUDIO_FEAT_DIM,
+                                           frontends.AUDIO_FEAT_DIM,
                                            step, seed, shard)
     elif cfg.frontend == "vision_stub":
         nv = min(cfg.n_vision_tokens, seq // 2)
         out.update(lm_batch(cfg.vocab, batch, seq - nv, step, seed, shard))
         out["vision_emb"] = frontend_features(batch, nv,
-                                              VISION_FEAT_DIM,
+                                              frontends.VISION_FEAT_DIM,
                                               step, seed, shard)
         pos = np.broadcast_to(np.arange(seq, dtype=np.int32), (batch, seq))
         out["pos3"] = np.broadcast_to(pos, (3, batch, seq)).copy()

@@ -17,7 +17,12 @@ Full width is the default: ``--reduced`` opts into the tiny same-family
 config of ``configs.registry.reduced``. ``--arch`` takes the dense
 configs, ``mamba2-2.7b`` (SSD state in slots), ``hymba-1.5b``
 (attention beside SSD state in every layer), ``moonshot-v1-16b-a3b``
-(MoE) and ``deepseek-v2-lite-16b`` (MLA latent pages, MoE). Without ``--attn`` the
+(MoE), ``deepseek-v2-lite-16b`` (MLA latent pages, MoE), ``qwen2-vl-2b``
+(served as a text LM with 1-D RoPE, as the reference serves it) and
+``seamless-m4t-large-v2`` (enc-dec: each request gets its own synthetic
+audio features, ``frontends.synthetic_audio_features`` drawn from the
+request generator right after its prompt; the encoder runs once a
+request at admission). Without ``--attn`` the
 config's own attention serves (``full``: paged KV). Weights are random, drawn
 from a ``torch.Generator`` seeded with ``--seed`` on the device; prompts
 are random tokens from ``numpy.random.default_rng(--seed)``, the first
@@ -77,6 +82,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import registry
+from repro_torch.models import frontends
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import export as trace_export
 from repro_torch.obs import quality as quality_lib
@@ -179,21 +185,25 @@ def requests(args, cfg) -> List[Request]:
     """``args.requests`` requests of ``args.prompt_len`` random tokens,
     the first ``args.shared_prefix`` common to all, decoded with
     ``args``' temperature, top-k and top-p, each with a priority in 0-2
-    and ``args.deadline``."""
+    and ``args.deadline``; an enc-dec config's each with its own
+    synthetic audio features, drawn after its prompt."""
     rng = np.random.default_rng(args.seed)
     common = rng.integers(0, cfg.vocab, max(args.shared_prefix, 0)
                           ).astype(np.int32)
-    prompts = []
+    prompts, feats = [], []
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32)
         k = min(len(common), args.prompt_len)
         prompt[:k] = common[:k]
         prompts.append(prompt)
+        feats.append(frontends.synthetic_audio_features(rng, cfg)
+                     if cfg.is_encdec else None)
     priorities = rng.integers(0, 3, args.requests)
     return [Request(uid=i, prompt=prompt, max_new=args.max_new,
                     priority=int(priorities[i]),
                     temperature=args.temperature, top_k=args.top_k,
-                    top_p=args.top_p, deadline=args.deadline)
+                    top_p=args.top_p, deadline=args.deadline,
+                    enc_emb=feats[i])
             for i, prompt in enumerate(prompts)]
 
 

@@ -1,6 +1,7 @@
-"""Step factories: port of ``repro.launch.steps`` but the paged, encode
-and mesh factories (``TrainHyper``, ``make_train_step``,
-``make_grad_step``, ``make_prefill_step``, ``make_serve_step``). Each
+"""Step factories: port of ``repro.launch.steps`` but the paged and
+mesh factories (``TrainHyper``, ``make_train_step``,
+``make_grad_step``, ``make_prefill_step``, ``make_serve_step``,
+``make_encode_step``). Each
 step is one eager function. A training step: forward and loss,
 ``torch.autograd.grad`` over the float params, the schedule, AdamW. The
 serve steps drive the legacy engine's per-slot cache.
@@ -77,6 +78,16 @@ def make_prefill_step(cfg):
     def prefill_step(params, batch, cache):
         return model.prefill(params, cfg, batch, cache)
     return prefill_step
+
+
+def make_encode_step(cfg):
+    """Enc-dec encoder pass: (params, enc_emb (B, E, feat)) -> memory
+    (B, E, d_model), ``transformer.encode_memory``. The paged engine
+    runs it once a request at admission (batch 1, the legacy engine's
+    prefill computation) into the read-only memory pool."""
+    def encode_step(params, enc_emb):
+        return model.encode_memory(params, cfg, enc_emb)
+    return encode_step
 
 
 def make_serve_step(cfg):

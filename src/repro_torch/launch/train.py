@@ -7,7 +7,10 @@
 
 The reference CLI's flags (``repro.launch.train``) plus ``--device`` and
 ``--seeded-srf`` (SRF projections regenerated from one seed per layer
-and kv head instead of learned ``g``, ``d0``, ``d1``).
+and kv head instead of learned ``g``, ``d0``, ``d1``). Every config of
+the registry trains: qwen2-vl-2b on batches with a vision prefix (the
+synthetic patch features through the adapter, unlabelled, and M-RoPE
+over ``pos3``), seamless-m4t-large-v2 on batches with encoder features.
 Full width is the default (``--reduced`` opts into the tiny same-family
 config): on one card that is qwen3-4b's 4.4 B params with bf16 grads
 and f32 AdamW moments, about 53 GB. It runs on the card unless

@@ -4,9 +4,10 @@ forward, and the per-request cache of the legacy engine (prefill and
 decode).
 
 Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init``,
-``init_cache``, ``_quantize_kv``, ``_dequantize_kv``, ``_mla_qkv`` and
-``attention`` in modes ``"paged"``, ``"train"``, ``"prefill"`` and
-``"decode"``.
+``cross_attn_init``, ``init_cache``, ``_quantize_kv``,
+``_dequantize_kv``, ``_mla_qkv``, ``attention`` in modes ``"paged"``,
+``"train"``, ``"encoder"``, ``"prefill"`` and ``"decode"``,
+``cross_attention`` and ``paged_cross_attention``.
 
 * ``attn_impl="full"`` (the configs' default): the chunk's k/v rows are
   scattered into the request's KV pages (bf16/f32, or int8 with one f32
@@ -51,8 +52,15 @@ Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init``,
   update). Plain PyTorch ops but the SRF feature maps (the spinner
   kernels), as the reference's are jnp ops.
 
-Not ported yet (they raise NotImplementedError): cross attention,
-M-RoPE, mesh tensor parallelism (``tp_axis``) and the encoder mode.
+M-RoPE (``cfg.m_rope``, qwen2-vl) rotates q and k by the (t, h, w)
+rows of ``pos3`` wherever a batch carries them (training, and the
+prefill of a batch with ``pos3``); the serving paths get none and use
+1-D RoPE, as the reference's. Mode ``"encoder"`` is the enc-dec
+encoder's bidirectional attention (softmax, or SRF's
+``attention_noncausal``); ``cross_attention`` and
+``paged_cross_attention`` attend an enc-dec decoder layer to the
+encoder memory. Not ported yet (it raises NotImplementedError): mesh
+tensor parallelism (``tp_axis``).
 
 Unlike the reference, which returns new pools and caches, every cached
 path writes IN PLACE and ``attention`` returns the output alone: the
@@ -78,9 +86,9 @@ from repro_torch.kernels import ops as kops
 
 from . import layers
 
-NOT_IN_SLICE = ("not ported yet: the PyTorch port runs the dense, SSD, "
-                "hybrid and MoE families with full-KV, MLA or SRF "
-                "attention (ROADMAP.md, 'Port state')")
+NOT_IN_SLICE = ("not ported yet: the PyTorch port runs every family of "
+                "the registry on one card; the mesh (tensor parallelism, "
+                "sharded pools) is still to come (ROADMAP.md, item 4)")
 
 
 def v_dim(cfg) -> int:
@@ -463,27 +471,29 @@ def _feature_maps(sc: SRFConfig, p, cache: Optional[Dict],
 
 
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
-              cache: Optional[Dict] = None) -> torch.Tensor:
+              cache: Optional[Dict] = None,
+              pos3: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GQA or MLA attention: (B, L, d) -> (B, L, d).
 
     ``mode="paged"``: one serving step; ``cache["pool"]`` is the layer's
     KV page pool (full), latent page pool (MLA) or slot pool (srf),
     updated in place.
     ``mode="train"``: causal attention over the whole sequence, no cache
-    (full softmax, or SRF's causal linear attention).
+    (full softmax, or SRF's causal linear attention); ``"encoder"``: the
+    same, bidirectional (softmax, or ``srf.attention_noncausal``).
     ``mode="prefill"`` / ``"decode"``: the prompt, or one new token, of
     every request of a batch against ``cache`` (``init_cache``), which
-    is written in place and its ``idx`` advanced."""
-    if mode not in ("paged", "train", "prefill", "decode"):
-        raise NotImplementedError(f"attention mode {mode!r} is "
-                                  f"{NOT_IN_SLICE}")
-    if mode != "train" and cache is None:
+    is written in place and its ``idx`` advanced.
+    ``pos3`` (3, B, L): the (t, h, w) position rows of an M-RoPE config
+    (``layers.apply_m_rope``); without it, or for another config, 1-D
+    RoPE at ``positions``."""
+    if mode not in ("paged", "train", "encoder", "prefill", "decode"):
+        raise ValueError(f"attention mode {mode!r}")
+    if mode not in ("train", "encoder") and cache is None:
         raise ValueError(f"attention mode {mode!r} needs a cache")
     if cache is not None and cache.get("tp_axis"):
         raise NotImplementedError(f"tensor-parallel attention (tp_axis) is "
                                   f"{NOT_IN_SLICE}")
-    if cfg.m_rope:
-        raise NotImplementedError(f"M-RoPE is {NOT_IN_SLICE}")
     if cfg.is_mla:
         return _merge_heads(_mla_attention(p, cfg, x, positions, mode,
                                            cache)) @ p["wo"]
@@ -498,12 +508,16 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     if cfg.qk_norm:
         q = layers.head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.head_rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.m_rope and pos3 is not None:
+        q = layers.apply_m_rope(q, pos3, cfg.rope_theta, cfg.m_rope_sections)
+        k = layers.apply_m_rope(k, pos3, cfg.rope_theta, cfg.m_rope_sections)
+    else:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     if cfg.attn_impl != "srf":
         scale = 1.0 / math.sqrt(cfg.head_dim)
-        if mode == "train":
-            out = _softmax_attn(q, k, v, scale, causal=True)
+        if mode in ("train", "encoder"):
+            out = _softmax_attn(q, k, v, scale, causal=mode == "train")
         elif mode == "paged":
             out = _paged_full(cfg, q, k, v, positions, cache)
         else:
@@ -520,6 +534,8 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     vr = _repeat_kv(v, g)
     if mode == "train":
         out = srf.attention_causal(sc, phi_q, phi_k, vr)
+    elif mode == "encoder":
+        out = srf.attention_noncausal(phi_q, phi_k, vr)
     elif mode == "paged":
         out = _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k, vr,
                          cache["q_valid"])
@@ -598,3 +614,37 @@ def _mla_attention(p, cfg, x: torch.Tensor, positions: torch.Tensor,
         cache["idx"] = l
     q, k, v = _mla_qkv(p, cfg, x, c_new, kpe_new, positions)
     return _softmax_attn(q, k, v, scale, causal=True)
+
+
+def cross_attn_init(gen: torch.Generator, cfg, dtype, device=None,
+                    lead=()) -> Dict:
+    """Cross-attention params of an enc-dec decoder layer: "wq", "wk",
+    "wv", "wo" (no biases, no norms, no RoPE)."""
+    def dense(i, o):
+        return layers.dense_init(gen, i, o, dtype, device, lead=lead)
+    d = cfg.d_model
+    return {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+            "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+
+
+def cross_attention(p, cfg, x: torch.Tensor, memory: torch.Tensor,
+                    tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Exact softmax cross attention of x (B, L, d) over the encoder
+    memory (B, E, d): keys and values are ``memory @ wk`` and ``memory
+    @ wv``, recomputed at every call, as in the reference."""
+    if tp_axis:
+        raise NotImplementedError(f"tensor-parallel attention (tp_axis) is "
+                                  f"{NOT_IN_SLICE}")
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(memory @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(memory @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    out = _softmax_attn(q, k, v, 1.0 / math.sqrt(cfg.head_dim), causal=False)
+    return _merge_heads(out) @ p["wo"]
+
+
+def paged_cross_attention(p, cfg, x: torch.Tensor, memory: torch.Tensor,
+                          tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Cross attention of the paged engine's step: ``memory`` holds the
+    batch rows' encoder memories, gathered from the read-only memory
+    pool. The same math as :func:`cross_attention`, row by row."""
+    return cross_attention(p, cfg, x, memory, tp_axis)

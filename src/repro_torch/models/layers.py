@@ -62,6 +62,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return y.to(x.dtype)
 
 
+def apply_m_rope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                 sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, H, L, hd); positions3: (3, B, L)
+    = (t, h, w) ids. The hd/2 frequency slots are split into
+    ``sections`` (sum = hd/2), each rotated by the position row of its
+    axis; half-split convention, as ``apply_rope``."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {hd // 2}")
+    inv = rope_freqs(hd, theta, x.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.as_tensor(tuple(sections), device=x.device))
+    pos = positions3.to(x.device)[sec_id]                  # (hd/2, B, L)
+    ang = pos.permute(1, 2, 0).float() * inv               # (B, L, hd/2)
+    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return y.to(x.dtype)
+
+
 def mlp_init(gen: torch.Generator, d: int, ff: int, dtype, device=None,
              lead=()) -> Dict:
     return {"wi": dense_init(gen, d, ff, dtype, device, lead=lead),

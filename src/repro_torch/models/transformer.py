@@ -1,13 +1,14 @@
-"""Decoder LM of the dense, SSD, hybrid and MoE families: the paged
-serving step, the legacy engine's prefill and decode, and the training
-forward (full-KV, MLA or SRF attention; SSD blocks in ``models.ssm``,
-expert FFNs in ``models.moe``).
+"""The model of every family of the registry (dense, SSD, hybrid, MoE,
+MLA, vision and enc-dec): the paged serving step, the legacy engine's
+prefill and decode, and the training forward (full-KV, MLA or SRF
+attention; SSD blocks in ``models.ssm``, expert FFNs in ``models.moe``,
+the stub front ends in ``models.frontends``).
 
-Port of ``repro.models.transformer`` for the dense, ssm, hybrid and moe
-families: ``init``,
+Port of ``repro.models.transformer``: ``init``,
 ``paged_step``, ``_paged_layer`` and ``_logits`` for the paged engine,
 ``init_serve_cache``, ``prefill``, ``decode_step`` and ``run_segment``
 in modes ``"prefill"`` and ``"decode"`` for the legacy per-slot engine,
+``encode_memory`` (``run_segment`` in mode ``"encoder"``) for enc-dec,
 and ``layer_apply``, ``run_segment`` (mode ``"train"``),
 ``embed_inputs``, ``forward`` and ``loss_fn`` for training, as functions
 over a param dict. The param tree has the reference's layout,
@@ -25,7 +26,13 @@ An ssm layer is {"ln1", "ssm"}; a hybrid layer is a dense layer with an
 "fuse_ns" (``layer_apply``: 0.5 (rmsnorm(attn) + rmsnorm(ssm))). A moe
 layer is a dense layer with "moe" (router, experts, shared experts) in
 place of "mlp"; an MoE config's stack is ``cfg.moe_first_dense`` dense
-layers, then a segment of moe layers.
+layers, then a segment of moe layers. An enc-dec config (seamless)
+has one segment of "dense_cross" layers (a dense layer with the cross
+attention "cross" and its pre-norm "ln_x" between attention and MLP),
+a stacked "encoder" of dense layers, "enc_norm" and a "frontend"
+adapter; a vision config (qwen2-vl) is dense with a "frontend" adapter
+whose projected patches prefix the tokens, rotated by M-RoPE where the
+batch carries ``pos3``.
 
 Layers run as a Python loop over the stacked layer axis (the reference
 scans). The serve cache of ``init_serve_cache`` is
@@ -39,8 +46,9 @@ is recomputed in the backward as the config's ``remat`` says
 (``torch.utils.checkpoint``, see ``_remat``). Attention is full-KV
 (paged pools) or SRF (slot pools), as the config's ``attn_impl`` says;
 SSD state lives in slot pools, MLA latents in paged pools of their
-own. The enc-dec and vision families are not ported yet and raise
-NotImplementedError.
+own; an enc-dec request's encoder memory lives in the read-only
+memory pool, one slot a request, gathered once a step through
+paged_gather and cross-attended by every decoder layer.
 """
 from __future__ import annotations
 
@@ -53,7 +61,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import tree as tree_lib
 from repro_torch.core import srf_attention as srf
 
-from . import attention, hooks, layers, moe, ssm
+from . import attention, frontends, hooks, layers, moe, ssm
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -66,10 +74,8 @@ def segments(cfg) -> List[Tuple[str, int]]:
         return [("ssm", cfg.n_layers)]
     if cfg.family == "hybrid":
         return [("hybrid", cfg.n_layers)]
-    if cfg.is_encdec or cfg.frontend != "none" or \
-            cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is {attention.NOT_IN_SLICE}")
+    if cfg.is_encdec:
+        return [("dense_cross", cfg.n_layers)]
     if cfg.is_moe:
         first = cfg.moe_first_dense
         return ([("dense", first)] if first else []) + \
@@ -82,7 +88,8 @@ def _layer_plan(cfg) -> List[Tuple[str, int, Tuple[str, ...]]]:
     ``components`` names the decode-state objects every layer of the
     segment owns: "attn" (kv pages or the srf state, resolved by
     ``serving.paged_cache.attn_family_for``) and/or "ssm" (the ssd
-    constant state). Hybrid layers own both."""
+    constant state). Hybrid layers own both; the enc-dec memory is one
+    pool of the model, not of a layer (``PoolPlan.has_memory``)."""
     comps = {"ssm": ("ssm",), "hybrid": ("attn", "ssm")}
     return [(kind, count, comps.get(kind, ("attn",)))
             for kind, count in segments(cfg)]
@@ -100,6 +107,12 @@ def init(cfg, seed: int = 0, device="cuda") -> Dict:
                                                device)}
     params["segments"] = [layer_init(gen, cfg, kind, dt, device, (count,))
                           for kind, count in segments(cfg)]
+    if cfg.is_encdec:
+        params["encoder"] = layer_init(gen, cfg, "dense", dt, device,
+                                       (cfg.enc_layers,))
+        params["enc_norm"] = layers.rmsnorm_init(d, dt, device)
+    if cfg.frontend != "none":
+        params["frontend"] = frontends.frontend_init(gen, cfg, dt, device)
     params["final_norm"] = layers.rmsnorm_init(d, dt, device)
     if not cfg.tie_embeddings:
         params["head"] = layers.dense_init(gen, d, cfg.padded_vocab, dt,
@@ -121,6 +134,9 @@ def layer_init(gen: torch.Generator, cfg, kind: str, dtype, device=None,
         p["fuse_na"] = layers.rmsnorm_init(d, dtype, device, lead)
         p["fuse_ns"] = layers.rmsnorm_init(d, dtype, device, lead)
     p["ln2"] = layers.rmsnorm_init(d, dtype, device, lead)
+    if kind == "dense_cross":
+        p["ln_x"] = layers.rmsnorm_init(d, dtype, device, lead)
+        p["cross"] = attention.cross_attn_init(gen, cfg, dtype, device, lead)
     if kind == "moe":
         p["moe"] = moe.moe_init(gen, cfg, dtype, device, lead)
     else:
@@ -147,29 +163,37 @@ def tree_index(tree, i: int):
 
 
 def layer_apply(p, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor,
-                mode: str = "train", cache: Optional[Dict] = None
+                mode: str = "train", cache: Optional[Dict] = None,
+                pos3: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder layer (dense, ssm, hybrid or moe) -> (x, aux_loss:
-    the moe layer's load-balance loss, else 0); in modes "prefill" and
-    "decode" the layer's ``cache`` is written in place. A hybrid layer's
-    attention and SSD halves share the pre-norm and are fused as 0.5
-    (rmsnorm(a) + rmsnorm(s))."""
-    if kind not in ("dense", "ssm", "hybrid", "moe"):
-        raise NotImplementedError(f"{kind} layers are "
-                                  f"{attention.NOT_IN_SLICE}")
+    """One layer (dense, dense_cross, ssm, hybrid or moe) -> (x,
+    aux_loss: the moe layer's load-balance loss, else 0); in modes
+    "prefill" and "decode" the layer's ``cache`` is written in place. A
+    hybrid layer's attention and SSD halves share the pre-norm and are
+    fused as 0.5 (rmsnorm(a) + rmsnorm(s)); a dense_cross layer attends
+    to ``memory`` (B, E, d) after its self-attention. ``pos3``: M-RoPE
+    position rows for the attention."""
+    if kind not in ("dense", "dense_cross", "ssm", "hybrid", "moe"):
+        raise ValueError(f"layer kind {kind!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
         return x + ssm.ssm_apply(p["ssm"], cfg, h, mode, cache), aux
     if kind == "hybrid":
         a = attention.attention(p["attn"], cfg, h, positions, mode,
-                                None if cache is None else cache["attn"])
+                                None if cache is None else cache["attn"],
+                                pos3)
         s = ssm.ssm_apply(p["ssm"], cfg, h, mode,
                           None if cache is None else cache["ssm"])
         x = x + _fuse(p, cfg, a, s)
     else:
         x = x + attention.attention(p["attn"], cfg, h, positions, mode,
-                                    cache)
+                                    cache, pos3)
+    if kind == "dense_cross" and memory is not None:
+        x = x + attention.cross_attention(
+            p["cross"], cfg, layers.rmsnorm(p["ln_x"], x, cfg.norm_eps),
+            memory)
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == "moe":
         y, aux = moe.moe_apply(p["moe"], cfg, h2)
@@ -228,15 +252,19 @@ def _remat(cfg, fn):
 
 def run_segment(stacked, cfg, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, mode: str = "train",
-                caches: Optional[Dict] = None
+                caches: Optional[Dict] = None,
+                pos3: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """All layers of one segment -> (x, caches, aux_sum).
+    """All layers of one segment -> (x, caches, aux_sum); ``pos3`` and
+    ``memory`` go to every layer (``layer_apply``).
 
     Modes "prefill" and "decode" run the layers in order against the
     segment's ``caches`` (``init_serve_cache``), each layer on its slice
     of the stacked buffers, written in place; the returned caches are
-    the same object, its "idx" advanced. Mode "train" returns None for
-    the caches. In training, with ``cfg.scan_group`` g > 1 (dividing the layer count) the
+    the same object, its "idx" advanced. Modes "train" and "encoder"
+    (the enc-dec encoder: bidirectional attention, the training
+    forward's recompute) return None for the caches. In training, with ``cfg.scan_group`` g > 1 (dividing the layer count) the
     recompute nests as the reference's does: the outer checkpoint keeps
     the residual only every g layers, and the inner per-layer checkpoints
     recompute one layer's internals at a time. The reference's
@@ -247,18 +275,18 @@ def run_segment(stacked, cfg, kind: str, x: torch.Tensor,
         for i in range(count):
             lc = _cache_at(caches, i)
             x, _ = layer_apply(tree_index(stacked, i), cfg, kind, x,
-                               positions, mode, lc)
+                               positions, mode, lc, pos3, memory)
         _take_idx(caches, lc)
         return x, caches, torch.zeros((), dtype=torch.float32,
                                       device=x.device)
-    if mode != "train":
-        raise NotImplementedError(f"run_segment mode {mode!r} is "
-                                  f"{attention.NOT_IN_SLICE}")
+    if mode not in ("train", "encoder"):
+        raise ValueError(f"run_segment mode {mode!r}")
     g = cfg.scan_group if (cfg.scan_group > 1
                            and count % cfg.scan_group == 0) else 1
 
     def one_layer(x, lp):
-        return layer_apply(lp, cfg, kind, x, positions, mode)
+        return layer_apply(lp, cfg, kind, x, positions, mode, None, pos3,
+                           memory)
     inner = _remat(cfg, one_layer) if g > 1 else one_layer
 
     def body(x, *group):
@@ -276,28 +304,51 @@ def run_segment(stacked, cfg, kind: str, x: torch.Tensor,
     return x, None, aux
 
 
-def embed_inputs(params, cfg, batch: Dict
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (x, positions) for a text batch {"tokens", optional
-    "positions"}; the vision and audio front ends are not ported."""
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name} inputs are "
-                                  f"{attention.NOT_IN_SLICE}")
+def encode_memory(params, cfg, enc_emb: torch.Tensor) -> torch.Tensor:
+    """The encoder, run once: (B, enc_len, feat) features -> (B, enc_len,
+    d_model) memory. Training and prefill (``embed_inputs``) and the
+    paged engine (once a request at admission, into the memory pool)
+    share it."""
+    enc_x = frontends.frontend_apply(params["frontend"], cfg,
+                                     enc_emb).to(dtype_of(cfg))
+    b, s, _ = enc_x.shape
+    enc_pos = torch.arange(s, device=enc_x.device)[None].expand(b, s)
+    enc_x, _, _ = run_segment(params["encoder"], cfg, "dense", enc_x,
+                              enc_pos, "encoder")
+    return layers.rmsnorm(params["enc_norm"], enc_x, cfg.norm_eps)
+
+
+def embed_inputs(params, cfg, batch: Dict):
+    """-> (x, positions, pos3, memory) of a batch {"tokens", optional
+    "positions"; a vision config's "vision_emb" (B, Lv, feat) and
+    "pos3" (3, B, Lv + L); an enc-dec config's "enc_emb" (B, E, feat)}:
+    a vision batch's projected patches prefix the token embeddings, and
+    an enc-dec batch's features run through the encoder (``memory``)."""
+    dt = dtype_of(cfg)
+    pos3 = batch.get("pos3")
+    memory = None
+    if cfg.is_encdec:
+        memory = encode_memory(params, cfg, batch["enc_emb"])
     tokens = batch["tokens"]
-    x = layers.embed(params["embed"], tokens).to(dtype_of(cfg))
-    b, l = tokens.shape
+    x = layers.embed(params["embed"], tokens).to(dt)
+    if cfg.frontend == "vision_stub" and "vision_emb" in batch:
+        v = frontends.frontend_apply(params["frontend"], cfg,
+                                     batch["vision_emb"]).to(dt)
+        x = torch.cat([v, x], dim=1)
+    b, l = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(l, device=tokens.device)[None].expand(b, l)
-    return hooks.constrain(x, "activation"), positions
+        positions = torch.arange(l, device=x.device)[None].expand(b, l)
+    return hooks.constrain(x, "activation"), positions, pos3, memory
 
 
 def forward(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward -> (logits (B, L, V_padded), aux)."""
-    x, positions = embed_inputs(params, cfg, batch)
+    x, positions, pos3, memory = embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (kind, _) in zip(params["segments"], segments(cfg)):
-        x, _, aux = run_segment(seg_params, cfg, kind, x, positions)
+        x, _, aux = run_segment(seg_params, cfg, kind, x, positions,
+                                pos3=pos3, memory=memory)
         aux_total = aux_total + aux
     return _logits(params, cfg, x), aux_total
 
@@ -324,7 +375,9 @@ def init_serve_cache(cfg, batch_size: int, max_len: int,
     """The legacy engine's cache for ``batch_size`` requests of up to
     ``max_len`` tokens: per segment, ``attention.init_cache`` (dense),
     ``ssm.init_ssm_cache`` (ssm) or both (hybrid: {"attn", "ssm"}) with
-    a leading layer axis, in the params' dtype, on ``device``."""
+    a leading layer axis, in the params' dtype, on ``device``; an
+    enc-dec config's adds the encoder "memory" (batch, enc_len,
+    d_model), which ``prefill`` fills."""
     dt = dtype_of(cfg)
 
     def seg(kind, count):
@@ -336,21 +389,28 @@ def init_serve_cache(cfg, batch_size: int, max_len: int,
         if kind == "hybrid":
             return {name: make() for name, make in c.items()}
         return c["ssm" if kind == "ssm" else "attn"]()
-    return {"segments": [seg(kind, count) for kind, count in segments(cfg)],
-            "pos": 0}
+    out = {"segments": [seg(kind, count) for kind, count in segments(cfg)],
+           "pos": 0}
+    if cfg.is_encdec:
+        out["memory"] = torch.zeros((batch_size, cfg.enc_len, cfg.d_model),
+                                    dtype=dt, device=device)
+    return out
 
 
 def prefill(params, cfg, batch: Dict, cache: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     """The prompt ``batch["tokens"]`` (B, L) through every layer, the
     cache written in place -> (logits of the last position (B, 1,
-    V_padded), cache)."""
-    x, positions = embed_inputs(params, cfg, batch)
+    V_padded), cache); an enc-dec batch's encoder memory is stored in
+    ``cache["memory"]``."""
+    x, positions, pos3, memory = embed_inputs(params, cfg, batch)
     for seg_params, seg_cache, (kind, _) in zip(
             params["segments"], cache["segments"], segments(cfg)):
         x, _, _ = run_segment(seg_params, cfg, kind, x, positions,
-                              "prefill", seg_cache)
+                              "prefill", seg_cache, pos3, memory)
     cache["pos"] = x.shape[1]
+    if memory is not None:
+        cache["memory"].copy_(memory)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
@@ -363,10 +423,11 @@ def decode_step(params, cfg, cache: Dict, tokens: torch.Tensor
                            device=tokens.device)
     x = hooks.constrain(layers.embed(params["embed"], tokens)
                         .to(dtype_of(cfg)), "activation")
+    memory = cache.get("memory")
     for seg_params, seg_cache, (kind, _) in zip(
             params["segments"], cache["segments"], segments(cfg)):
         x, _, _ = run_segment(seg_params, cfg, kind, x, positions,
-                              "decode", seg_cache)
+                              "decode", seg_cache, memory=memory)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
 
@@ -384,7 +445,10 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
     (full-KV attention; 0 = null page); slots: (B,) slot ids into the
     slot-domain pools (SRF attention; 0 = null slot for padded rows).
     ``pools`` is the container from ``serving.paged_cache.init_pools``
-    ({"paged", "slot"} per-segment lists); each layer's pools are
+    ({"paged", "slot"} per-segment lists, and an enc-dec config's
+    read-only "memory" pool (num_slots, enc_len, d_model), gathered
+    once a step through paged_gather with a width-1 table of the rows'
+    slots and cross-attended by every decoder layer); each layer's pools are
     updated IN PLACE (full-KV pages in the paged domain; the SRF and
     SSD states in the slot domain: a hybrid layer carries a kv sub-pool
     and an ssd sub-pool side by side, or two slot sub-pools with SRF)
@@ -400,6 +464,10 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
     dt = dtype_of(cfg)
     x = hooks.constrain(layers.embed(params["embed"], tokens).to(dt),
                         "activation")
+    memory = None
+    if pools.get("memory") is not None:
+        memory = attention._paged_hist(pools["memory"],
+                                       slots[:, None]).to(dt)
     for seg_params, pseg, sseg, (kind, count) in zip(
             params["segments"], pools["paged"], pools["slot"],
             segments(cfg)):
@@ -417,19 +485,21 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
                              None if sseg is None else tree_index(sseg, i),
                              tables, slots,
                              None if folded is None
-                             else tree_index(folded, i))
+                             else tree_index(folded, i), memory)
     return _logits(params, cfg, x), pools
 
 
 def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
                  lpaged, lslot, tables, slots,
-                 srf_folded=None) -> torch.Tensor:
+                 srf_folded=None, memory=None) -> torch.Tensor:
     """Single-layer paged step (``layer_apply`` for serving); the
     attention pool (``lslot["attn"]`` for SRF, ``lpaged["attn"]`` for
     full KV or MLA latents) and the SSD pool (``lslot["ssm"]``) are
     updated in place. ``srf_folded``: the layer's seeds folded with the
     step's embed seeds (seeded SRF). A moe layer routes with
-    ``valid=q_valid``: padded chunk rows take no expert capacity."""
+    ``valid=q_valid``: padded chunk rows take no expert capacity; a
+    dense_cross layer cross-attends to ``memory`` (the rows' gathered
+    encoder memories)."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
         return x + ssm.paged_ssm_step(p["ssm"], cfg, h, q_valid,
@@ -446,6 +516,10 @@ def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
         x = x + _fuse(p, cfg, a, s)
     else:
         x = x + a
+    if kind == "dense_cross" and memory is not None:
+        x = x + attention.paged_cross_attention(
+            p["cross"], cfg, layers.rmsnorm(p["ln_x"], x, cfg.norm_eps),
+            memory)
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == "moe":
         return x + moe.moe_apply(p["moe"], cfg, h2, valid=q_valid)[0]

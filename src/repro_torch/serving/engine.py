@@ -1,10 +1,16 @@
-"""Paged continuous-batching serving engine (dense, SSD, hybrid and MoE
-families; full-KV, MLA or SRF attention).
+"""Paged continuous-batching serving engine (every family of the
+registry; full-KV, MLA or SRF attention).
 
 Port of ``repro.serving.engine``: requests share pooled, pre-allocated
 caches (``paged_cache``): full-KV or MLA latent pages indexed through
 per-request block tables (``blocks``), and one constant-size slot per
-request for the SRF and SSD states; a hybrid request holds both.
+request for the SRF and SSD states and the enc-dec encoder memory; a
+hybrid request holds both. An enc-dec request carries its front-end
+features (``Request.enc_emb``): the encoder runs once for it at
+admission, batch 1, and its memory is written into the request's slot
+of the read-only memory pool, which every decode step gathers. A vision
+config serves as a text LM with 1-D RoPE (no vision prefix), as the
+reference's engine does.
 The scheduler (a copy of the reference's) handles admission, chunked
 prefill and preemption; prefill and decode both run as batched
 ``transformer.paged_step`` calls with fixed shapes (prefill_batch x
@@ -37,8 +43,7 @@ with the instants ``prefill_chunk``, ``cow_fork``, ``cache_tail_copy``
 and ``preempt`` (the scheduler, prefix cache and chunk policy record
 into the same recorder).
 
-Not ported yet, and refused if asked for: mesh-sharded pools and enc-dec
-memories.
+Not ported yet, and refused if asked for: mesh-sharded pools.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import seedgen
+from repro_torch.launch import steps as step_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import metrics as obs_metrics
@@ -77,7 +83,7 @@ class Request:
     top_p: float = 1.0
     embed_seed: int = 0              # seeded-SRF configs: personalized
     #                                  projection seed (0 = base projection)
-    enc_emb: Optional[np.ndarray] = None  # enc-dec input (not ported)
+    enc_emb: Optional[np.ndarray] = None  # (enc_len, feat) enc-dec input
     deadline: Optional[float] = None # seconds after submit; overdue WAITING
     #                                  requests finish as 'timeout'
     max_retries: int = 2             # replica-failure rescue budget
@@ -111,14 +117,24 @@ def _default_sched(cfg, batch_slots: int, max_len: int, plan,
                        policy=policy)
 
 
+def _enc_namespace(enc_emb) -> int:
+    """Prefix-cache namespace of an enc-dec request: a blake2b hash of
+    its encoder features as C-contiguous bytes (equal features give
+    equal memory rows and so equal decoder KV: sharing is sound;
+    different features must partition the trie)."""
+    h = hashlib.blake2b(np.ascontiguousarray(enc_emb).tobytes(),
+                        digest_size=8)
+    return int.from_bytes(h.digest(), "big")
+
+
 def _cache_namespace(req, seeded_srf: bool = False) -> int:
-    """Prefix-cache trie namespace of a request: partitioned by tenant
-    (requests of different namespaces never share cache state); the
-    default tenant is ``0``. ``seeded_srf`` engines also partition by
+    """Prefix-cache trie namespace of a request: partitioned by encoder
+    content (enc-dec, ``_enc_namespace``) and by tenant (requests of
+    different namespaces never share cache state); a default-tenant
+    text request is ``0``. ``seeded_srf`` engines also partition by
     ``embed_seed``: personalized projections make different attention
-    states of the same tokens. (The reference also partitions by enc-dec
-    encoder content; the port refuses enc-dec requests.)"""
-    ns = 0
+    states of the same tokens."""
+    ns = _enc_namespace(req.enc_emb) if req.enc_emb is not None else 0
     tenant = getattr(req, "namespace", "")
     if tenant:
         h = hashlib.blake2b(tenant.encode("utf-8"), digest_size=8)
@@ -187,6 +203,8 @@ class Engine:
         # keyed by fold_in(fold_in(base, uid), position)
         self._base_key = seedgen.threefry_seed(seed, self.device)
         self._seeded_srf = cfg.attn_impl == "srf" and cfg.srf.seeded
+        self._encode = (step_lib.make_encode_step(cfg) if cfg.is_encdec
+                        else None)
         self.clock = time.perf_counter
         self.nonfinite_rows = 0          # sampled logit rows with inf/nan
         self._pending_snaps: List[paged_cache.PendingSnapshot] = []
@@ -317,9 +335,10 @@ class Engine:
     # -- public API ---------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        if req.enc_emb is not None:
-            raise NotImplementedError(f"enc-dec serving is "
-                                      f"{attn_lib.NOT_IN_SLICE}")
+        if self.cfg.is_encdec and req.enc_emb is None:
+            raise ValueError(
+                "enc-dec serving needs Request.enc_emb (frontend features "
+                f"({self.cfg.enc_len}, feat)); request uid={req.uid} has none")
         now = time.perf_counter()
         req.t_submit = now
         if req.deadline is not None and req.deadline_at is None:
@@ -397,7 +416,12 @@ class Engine:
                 if seq.slot is not None:
                     fresh.append(seq)    # a reused slot starts from zero
         if fresh:
-            paged_cache.zero_slot_rows(self.pools, [s.slot for s in fresh])
+            # the encoder overwrites the fresh memory rows whole below,
+            # so they are not zeroed first
+            paged_cache.zero_slot_rows(self.pools, [s.slot for s in fresh],
+                                       zero_memory=self._encode is None)
+            if self._encode is not None:
+                self._write_memories(fresh)
         self._apply_forks(admitted)
         for seq in admitted:
             if seq.state_payload is not None:
@@ -448,6 +472,19 @@ class Engine:
     @staticmethod
     def _slot_ids(seq: Sequence) -> List[int]:
         return [seq.slot] if seq.slot is not None else []
+
+    def _write_memories(self, seqs: List[Sequence]) -> None:
+        """Run the encoder once for each freshly admitted enc-dec request
+        (batch 1, the legacy engine's prefill computation) and write the
+        memories into their slots of the memory pool in ONE batched
+        in-place write."""
+        mem = self.pools["memory"]
+        rows = [self._encode(self.params, torch.as_tensor(
+            np.asarray(s.req.enc_emb), device=self.device)[None])[0]
+            for s in seqs]
+        idx = torch.as_tensor([s.slot for s in seqs], dtype=torch.long,
+                              device=self.device)
+        mem[idx] = torch.stack(rows).to(mem.dtype)
 
     def _expire(self, seq: Sequence) -> None:
         req = seq.req
@@ -791,6 +828,7 @@ class Engine:
                 "bytes_per_token_per_layer":
                     self.plan.bytes_per_token(self.cfg, ml, self.paged),
                 "pool_bytes": paged_cache.pool_bytes(self.pools),
+                "memory_pool_bytes": paged_cache.memory_bytes(self.pools),
                 "pool_bytes_per_device":
                     paged_cache.pool_bytes_per_device(self.pools),
                 "free_pages": self.sched.alloc.free_pages,

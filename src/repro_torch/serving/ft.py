@@ -36,7 +36,7 @@ from typing import List, Optional, Set, Tuple
 
 import numpy as np
 
-from repro_torch.models import attention as attn_lib
+from repro_torch.models import frontends
 from repro_torch.obs import spans as obs_spans
 
 from .engine import Request
@@ -174,9 +174,12 @@ def fold_emitted_prefix(req: Request) -> int:
 
 def make_probe(cfg, uid: int = -1, max_new: int = 2) -> Request:
     """A tiny greedy request with which ``Router.revive`` proves that a
-    quarantined replica is healthy again before it rejoins placement."""
-    if cfg.is_encdec:
-        raise NotImplementedError(f"enc-dec serving is "
-                                  f"{attn_lib.NOT_IN_SLICE}")
+    quarantined replica is healthy again before it rejoins placement;
+    an enc-dec probe carries synthetic audio features drawn from
+    ``default_rng(0)``, the reference's."""
     prompt = (np.arange(1, 4, dtype=np.int32) % cfg.vocab).astype(np.int32)
-    return Request(uid=uid, prompt=prompt, max_new=max_new)
+    enc = None
+    if cfg.is_encdec:
+        enc = frontends.synthetic_audio_features(np.random.default_rng(0),
+                                                 cfg)
+    return Request(uid=uid, prompt=prompt, max_new=max_new, enc_emb=enc)

@@ -12,7 +12,8 @@ the paged engine's tokens are pinned to this one's, greedy and sampled
 Requests enter a queue; a free slot is filled by prefilling the request's
 prompt (batch 1) into a fresh cache (``transformer.init_serve_cache``:
 full KV, int8 KV, MLA latents or the SRF state; the SSD state of the
-ssm and hybrid families), and every active slot then decodes
+ssm and hybrid families; an enc-dec request's encoder memory, from its
+``enc_emb``), and every active slot then decodes
 one token a step, slot after slot, each a batch-1 ``make_serve_step``
 call. Sampling uses the paged engine's stateless per-request keys
 (``sampler.sample_stateless``: noise from ``(base_key, uid, token
@@ -105,6 +106,9 @@ class Engine:
                 req = self.queue.pop(0)
                 batch = {"tokens": torch.as_tensor(
                     np.asarray(req.prompt)[None, :], device=self.device)}
+                if req.enc_emb is not None:
+                    batch["enc_emb"] = torch.as_tensor(
+                        np.asarray(req.enc_emb), device=self.device)[None]
                 cache = model_lib.init_serve_cache(self.cfg, 1,
                                                    self.max_len, self.device)
                 logits, cache = self._prefill(self.params, batch, cache)

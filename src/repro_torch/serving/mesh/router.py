@@ -253,16 +253,20 @@ class Router:
         shape) of every pool leaf: all that a snapshot's scatter must
         agree on except the pools' page and slot counts. Leaves are
         (layers, pages or slots, ...), so the row shape drops axis 1.
-        (The reference adds the enc-dec memory pool's row; the port
-        serves no enc-dec model.)"""
+        An enc-dec engine adds its memory pool's (dtype, row shape): the
+        snapshot carries the request's encoded memory."""
         def seg_sig(seg):
             if seg is None:
                 return None
             return tuple(sorted(
                 (path, str(a.dtype), tuple(a.shape[:1] + a.shape[2:]))
                 for path, a in tree_lib.leaves_with_path(seg)))
-        return tuple(tuple(seg_sig(s) for s in eng.pools[dom])
-                     for dom in ("paged", "slot"))
+        sig = tuple(tuple(seg_sig(s) for s in eng.pools[dom])
+                    for dom in ("paged", "slot"))
+        mem = eng.pools.get("memory")
+        if mem is not None:
+            sig += ((str(mem.dtype), tuple(mem.shape[1:])),)
+        return sig
 
     def _can_place(self, src: Engine, dst: Engine, seq: Sequence) -> bool:
         """Whether ``dst`` can adopt ``seq``. A preemption snapshot

@@ -1,6 +1,6 @@
 """Pooled, pre-allocated decode caches for the paged engine.
 
-Port of ``repro.serving.paged_cache`` for the families the port serves:
+Port of ``repro.serving.paged_cache``:
 
 =========  ==============================================  ===============
 family     page contents (per layer)                       state growth
@@ -14,6 +14,8 @@ family     page contents (per layer)                       state growth
            + norm z    (num_slots, Hq, m)                  O(m d) constant
 ``ssd``    conv tail   (num_slots, k-1, d_inner + 2 ns)
            + state     (num_slots, nh, ns, hd) f32         O(1) constant
+``mem``    encoder memory (num_slots, enc_len, d_model)    O(1), read-only
+           (one pool of the model, enc-dec only)
 =========  ==============================================  ===============
 
 ``kv`` and ``mla`` grow one page per ``page_size`` tokens in the
@@ -23,12 +25,15 @@ slot per request in the *slot* domain. A hybrid layer owns an attention
 component and an ssd component: a kv sub-pool in the paged domain and
 an ssd sub-pool in the slot domain (or, with SRF attention, two slot
 sub-pools). Only ``kv`` quantizes: MLA latents are already compressed
-and stay in the model's dtype under ``quantize_kv``.
+and stay in the model's dtype under ``quantize_kv``. An enc-dec
+request also holds one slot of the memory pool, written once at
+admission by the encoder and read by every decoder step.
 
 The pool container keeps the reference's layout::
 
     {"paged": [per-segment {"attn": {leaf: (L, num_pages, ...)}} | None],
-     "slot":  [per-segment {"attn": {leaf: (L, num_slots, ...)}} | None]}
+     "slot":  [per-segment {"attn": {leaf: (L, num_slots, ...)}} | None],
+     "memory": (num_slots, enc_len, d_model)}        # enc-dec only
 
 Page 0 and slot 0 are reserved: padded batch rows, and the invalid rows
 of a chunk, write there and no live request reads them. Unlike the
@@ -194,18 +199,23 @@ class PoolPlan:
     def bytes_per_token(self, cfg, max_len: int,
                         paged: Optional[PagedConfig] = None) -> float:
         """Per-layer decode-state bytes per token of the plan's
-        families."""
+        families; the enc-dec memory slot amortized over ``max_len``
+        like the other constant states."""
         fams = {f for _, _, comps in self.segments for _, f in comps}
-        return sum(FAMILIES[f].bytes_per_token(cfg, max_len, paged)
-                   for f in sorted(fams))
+        total = sum(FAMILIES[f].bytes_per_token(cfg, max_len, paged)
+                    for f in sorted(fams))
+        if self.has_memory:
+            total += cfg.enc_len * cfg.d_model * \
+                _itemsize(model_lib.dtype_of(cfg)) / max_len
+        return total
 
 
 def plan_for(cfg) -> PoolPlan:
     """The pool plan of a config, resolved from its layers' components:
     "attn" is ``kv``, ``mla`` or ``srf`` (``attn_family_for``), "ssm" is
     ``ssd``. The name joins the paged family and then the slot families
-    in the order the layers name them ("kv+ssd", "srf+ssd", "ssd").
-    Enc-dec configs are refused (``transformer.segments``)."""
+    in the order the layers name them ("kv+ssd", "srf+ssd", "ssd"); an
+    enc-dec config adds its memory pool ("kv+mem", "srf+mem")."""
     segs = []
     paged_fam = attn_fam = None
     slot_fams: List[str] = []
@@ -222,18 +232,22 @@ def plan_for(cfg) -> PoolPlan:
             elif fam.name not in slot_fams:
                 slot_fams.append(fam.name)
         segs.append((kind, count, tuple(resolved)))
-    parts = ([paged_fam] if paged_fam else []) + slot_fams
+    parts = ([paged_fam] if paged_fam else []) + slot_fams + \
+        (["mem"] if cfg.is_encdec else [])
     return PoolPlan(name="+".join(parts), segments=tuple(segs),
                     paged_family=paged_fam, attn_family=attn_fam,
-                    slot_families=tuple(slot_fams), has_memory=False)
+                    slot_families=tuple(slot_fams),
+                    has_memory=cfg.is_encdec)
 
 
 def init_pools(cfg, num_pages: int, page_size: int, num_slots: int = 0,
                device="cuda", paged: Optional[PagedConfig] = None) -> Dict:
     """The full pool container (layout in the module docstring) on
     ``device``: ``num_pages`` sizes the paged domain, ``num_slots`` the
-    slot domain. Each segment's leaves carry a leading layer axis and are
-    allocated whole (torch.zeros), so no two layers share storage."""
+    slot domain (and the enc-dec memory pool: one contiguous row a
+    slot, so a slot's memory is one page for paged_gather). Each
+    segment's leaves carry a leading layer axis and are allocated whole
+    (torch.zeros), so no two layers share storage."""
     plan = plan_for(cfg)
     if plan.needs_slot:
         num_slots = max(num_slots, 2)
@@ -248,6 +262,10 @@ def init_pools(cfg, num_pages: int, page_size: int, num_slots: int = 0,
                 cfg, n, page_size, paged, device, lead=(count,))
         pools["paged"].append(pseg or None)
         pools["slot"].append(sseg or None)
+    if plan.has_memory:
+        pools["memory"] = torch.zeros(
+            (num_slots, cfg.enc_len, cfg.d_model),
+            dtype=model_lib.dtype_of(cfg), device=device)
     return pools
 
 
@@ -265,7 +283,18 @@ def _map_segs(segs, fn):
 
 
 def _map_segs_pair(tree: Dict, fn) -> Dict:
-    return {part: _map_segs(tree[part], fn) for part in ("paged", "slot")}
+    """``fn`` on every leaf of both domains, and on the memory rows."""
+    out = {part: _map_segs(tree[part], fn) for part in ("paged", "slot")}
+    if "memory" in tree:
+        out["memory"] = fn(tree["memory"])
+    return out
+
+
+def _all_leaves(tree: Dict) -> Iterator[torch.Tensor]:
+    yield from _leaves(tree["paged"])
+    yield from _leaves(tree["slot"])
+    if "memory" in tree:
+        yield tree["memory"]
 
 
 def _index(ids: List[int], a: torch.Tensor) -> torch.Tensor:
@@ -274,12 +303,16 @@ def _index(ids: List[int], a: torch.Tensor) -> torch.Tensor:
 
 def _slice_pools(pools: Dict, page_ids: List[int],
                  slot_ids: List[int]) -> Dict:
-    """Device copies of the given pages and slots of every pool (advanced
-    indexing gathers into fresh tensors)."""
-    return {"paged": _map_segs(pools["paged"],
-                               lambda a: a[:, _index(page_ids, a)]),
-            "slot": _map_segs(pools["slot"],
-                              lambda a: a[:, _index(slot_ids, a)])}
+    """Device copies of the given pages and slots of every pool, and of
+    the slots' memory rows (advanced indexing gathers into fresh
+    tensors)."""
+    out = {"paged": _map_segs(pools["paged"],
+                              lambda a: a[:, _index(page_ids, a)]),
+           "slot": _map_segs(pools["slot"],
+                             lambda a: a[:, _index(slot_ids, a)])}
+    if "memory" in pools:
+        out["memory"] = pools["memory"][_index(slot_ids, pools["memory"])]
+    return out
 
 
 class PendingSnapshot:
@@ -299,8 +332,7 @@ class PendingSnapshot:
         self._dev = slices
         self._event = None
         self._host = None
-        leaves = list(_leaves(slices["paged"])) + list(_leaves(slices["slot"]))
-        if any(a.is_cuda for a in leaves):
+        if any(a.is_cuda for a in _all_leaves(slices)):
             self._host = _map_segs_pair(
                 slices, lambda a: torch.empty(a.shape, dtype=a.dtype,
                                               pin_memory=True).copy_(
@@ -326,14 +358,14 @@ class PendingSnapshot:
     @property
     def nbytes(self) -> int:
         return sum(a.numel() * a.element_size()
-                   for part in ("paged", "slot")
-                   for a in _leaves(self._host[part]))
+                   for a in _all_leaves(self._host))
 
 
 def snapshot_page_rows_async(pools: Dict, page_ids: List[int],
                              slot_ids: List[int]) -> PendingSnapshot:
-    """Copy-on-preempt over both index domains; the host transfer
-    overlaps the steps that follow (see :class:`PendingSnapshot`)."""
+    """Copy-on-preempt over both index domains (and the memory rows of
+    an enc-dec request); the host transfer overlaps the steps that
+    follow (see :class:`PendingSnapshot`)."""
     return PendingSnapshot(_slice_pools(pools, page_ids, slot_ids))
 
 
@@ -344,13 +376,18 @@ def pool_page_rows(pools: Dict, page_ids: List[int],
                           lambda a: a.cpu())
 
 
-def zero_slot_rows(pools: Dict, slot_ids: List[int]) -> Dict:
-    """Reset the given slots of every constant-state pool to zero, in
-    place: SRF and SSD states are running accumulators (and the SSD conv
-    tail a window of past inputs), so a re-issued slot must not carry
-    the previous request's state."""
+def zero_slot_rows(pools: Dict, slot_ids: List[int],
+                   zero_memory: bool = True) -> Dict:
+    """Reset the given slots of every constant-state pool (and of the
+    memory pool) to zero, in place: SRF and SSD states are running
+    accumulators (and the SSD conv tail a window of past inputs), so a
+    re-issued slot must not carry the previous request's state.
+    ``zero_memory=False`` leaves the memory rows, which the engine's
+    encoder is about to overwrite whole."""
     for a in _leaves(pools["slot"]):
         a[:, _index(slot_ids, a)] = 0
+    if zero_memory and "memory" in pools:
+        pools["memory"][_index(slot_ids, pools["memory"])] = 0
     return pools
 
 
@@ -368,6 +405,9 @@ def restore_page_rows(pools: Dict, page_ids: List[int], slot_ids: List[int],
             for c, comp in seg.items():
                 for k, a in comp.items():
                     a[:, _index(ids, a)] = sseg[c][k].to(a.device, a.dtype)
+    if "memory" in pools:
+        mem = pools["memory"]
+        mem[_index(slot_ids, mem)] = snap["memory"].to(mem.device, mem.dtype)
     return pools
 
 
@@ -404,8 +444,14 @@ def apply_moves(pools: Dict, moves: Dict[int, int]) -> Dict:
 
 
 def pool_bytes(pools: Dict) -> int:
-    return sum(a.numel() * a.element_size()
-               for part in ("paged", "slot") for a in _leaves(pools[part]))
+    """Bytes of every pool, the memory pool included."""
+    return sum(a.numel() * a.element_size() for a in _all_leaves(pools))
+
+
+def memory_bytes(pools: Dict) -> int:
+    """Bytes of the enc-dec memory pool (0 without one)."""
+    mem = pools.get("memory")
+    return 0 if mem is None else mem.numel() * mem.element_size()
 
 
 def pool_bytes_per_device(pools: Dict) -> int:

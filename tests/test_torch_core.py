@@ -21,6 +21,10 @@ from repro.core import structured as jstructured
 from repro.core import transforms as jtransforms
 from repro_torch.core import spinner, srf_attention, structured, transforms
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 

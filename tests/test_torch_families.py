@@ -45,6 +45,10 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import (ChunkConfig, Engine, PagedConfig,
                                  PrefixConfig, Request, paged_cache)
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 LOGIT_RTOL = 1e-4
 STATE_RTOL = 1e-5
 # cell -> (arch, config overrides, int8 pages)
@@ -287,8 +291,13 @@ def test_full_width_slot_and_page_bytes():
     assert slot(h) == 32 * (50 * 16 * 64 * 4 + 3 * 3232 * 2)
     kv = paged_cache.FAMILIES["kv"].bytes_per_token(h, 1) * h.n_layers
     assert kv == 32 * 2 * 5 * 64 * 2 == 40960
-    with pytest.raises(NotImplementedError, match="not ported"):
-        paged_cache.plan_for(registry.reduced("seamless-m4t-large-v2"))
+    sm = registry.get("seamless-m4t-large-v2")
+    plan = paged_cache.plan_for(sm)
+    assert (plan.name, plan.has_memory, plan.needs_slot) == \
+        ("kv+mem", True, True)
+    # the memory slot, amortized over max_len, beside 24 layers' KV
+    assert plan.bytes_per_token(sm, 1024) == \
+        2 * 16 * 64 * 2 + 1024 * 1024 * 2 / 1024
 
 
 # ---------------------------------------------------------------------------

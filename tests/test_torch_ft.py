@@ -1,11 +1,13 @@
 """The port's fault-tolerant serving (``serving/ft.py``, ``serving/chaos.py``,
 ``serving/mesh/router.py`` with ``ft``) against the reference's on the CPU.
 
-The chaos matrix of ``tests/test_ft_serving.py`` for the cells the port
-serves: reduced qwen3-4b (2 layers, f32) with full-KV pages, int8 pages
-and SRF state, and reduced hymba-1.5b (the hybrid cell: kv pages and ssd
-slots, so the router's headroom and the oom fault's hostages span both
-domains), replica 1 killed at its 4th step by each fault kind
+The chaos matrix of ``tests/test_ft_serving.py``: reduced qwen3-4b (2
+layers, f32) with full-KV pages, int8 pages and SRF state, reduced
+hymba-1.5b (the hybrid cell: kv pages and ssd slots, so the router's
+headroom and the oom fault's hostages span both domains) and reduced
+seamless-m4t-large-v2 (the enc-dec cell: kv pages and a memory slot a
+request, each request with its own encoder features, which a rescue
+re-encodes on the surviving replica), replica 1 killed at its 4th step by each fault kind
 (``raise``, ``hang``, ``reject``, ``oom``). The params are the
 reference's, carried over with ``convert.params_from_jax``. In every
 cell the port's greedy tokens equal the reference's undisturbed single
@@ -22,6 +24,7 @@ import re
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import serving as jserving
 from repro.configs import registry as jregistry
@@ -32,6 +35,7 @@ from repro.serving import ft as jft
 from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.launch import serve
+from repro_torch.models import frontends
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serving import (Engine, FTConfig, PagedConfig,
                                  ReplicaWatchdog, Request, Router,
@@ -40,13 +44,19 @@ from repro_torch.serving import (Engine, FTConfig, PagedConfig,
 from repro_torch.serving import ft as ft_lib
 from repro_torch.serving.chaos import ChaosEngine, ChaosError, ChaosPlan
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 KINDS = ["raise", "hang", "reject", "oom"]
-# cell -> (arch, config overrides, int8 pages); "hybrid" is the
-# reference matrix's hymba-1.5b cell: a plan with pages and slots
+# cell -> (arch, config overrides, int8 pages); "hybrid" and "encdec"
+# are the reference matrix's hymba-1.5b and seamless-m4t-large-v2 cells
+# (plans with pages and slots)
 CELLS = {"full KV": ("qwen3-4b", {}, False),
          "int8 pages": ("qwen3-4b", {}, True),
          "SRF": ("qwen3-4b", {"attn_impl": "srf"}, False),
-         "hybrid": ("hymba-1.5b", {}, False)}
+         "hybrid": ("hymba-1.5b", {}, False),
+         "encdec": ("seamless-m4t-large-v2", {}, False)}
 N_REQ = 8
 MAX_NEW = 10
 COUNTERS = ("quarantined", "rescued", "replayed", "failed", "submitted")
@@ -57,10 +67,11 @@ _ref_steps = {}
 
 def _share_step(eng):
     """Reference engines of one (config, page layout) share the first
-    one's jitted step (``make_paged_step(cfg, paged=...)``): the reference
-    wraps its step in a new ``jax.jit`` per engine, so each would compile
-    it anew."""
+    one's jitted step (``make_paged_step(cfg, paged=...)``) and encode
+    step: the reference wraps each in a new ``jax.jit`` per engine, so
+    each would compile them anew."""
     eng._step = _ref_steps.setdefault((eng.cfg, eng.paged), eng._step)
+    eng._encode = _ref_steps.setdefault(eng.cfg, eng._encode)
     return eng
 
 
@@ -102,9 +113,13 @@ def _setup(cell):
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                      device="cpu")
     rng = np.random.default_rng(0)
-    blue = [rng.integers(1, cfg.vocab, int(rng.integers(4, 20)))
-            .astype(np.int32) for _ in range(N_REQ)]
-    ref = _requests(REF, blue)
+    blue, enc = [], []
+    for _ in range(N_REQ):      # the reference recipe: features, prompt
+        enc.append(frontends.synthetic_audio_features(rng, cfg)
+                   if cfg.is_encdec else None)
+        blue.append(rng.integers(1, cfg.vocab, int(rng.integers(4, 20)))
+                    .astype(np.int32))
+    ref = _requests(REF, blue, enc)
     eng = _share_step(REF.Engine(jcfg, jparams, batch_slots=2, max_len=64,
                                  seed=0,
                                  paged=REF.PagedConfig(quantize_kv=quant)))
@@ -114,15 +129,18 @@ def _setup(cell):
     want = {r.uid: list(r.out_tokens) for r in ref}
     assert all(len(t) == MAX_NEW for t in want.values())
     _cache[cell] = {"jcfg": jcfg, "jparams": jparams, "cfg": cfg,
-                    "params": params, "blue": blue, "want": want,
+                    "params": params, "blue": blue, "enc": enc,
+                    "want": want,
                     "quant": quant}
     return _cache[cell]
 
 
-def _requests(pkg, blue, **kw):
+def _requests(pkg, blue, enc=None, **kw):
     # fresh Request objects per run; prompts copied because a replay
-    # folds emitted tokens into req.prompt in place
-    return [pkg.Request(uid=i, prompt=p.copy(), max_new=MAX_NEW, **kw)
+    # folds emitted tokens into req.prompt in place; ``enc``: each
+    # request's encoder features (enc-dec)
+    return [pkg.Request(uid=i, prompt=p.copy(), max_new=MAX_NEW,
+                        enc_emb=None if enc is None else enc[i], **kw)
             for i, p in enumerate(blue)]
 
 
@@ -201,7 +219,7 @@ def _chaos_router(pkg, s, kind, seeds=(0, 1), **req_kw):
     router = pkg.Router(engines, cfg=pkg.RouterConfig(migrate=False),
                         metrics=reg,
                         ft=pkg.FTConfig(grace_steps=2, stuck_rounds=3))
-    reqs = _requests(pkg, s["blue"], **req_kw)
+    reqs = _requests(pkg, s["blue"], s["enc"], **req_kw)
     homes = [router.submit(r) for r in reqs]
     return router, engines, reg, reqs, homes
 
@@ -266,7 +284,7 @@ def test_chaos_matrix_matches_reference(cell, kind):
     assert router.dead == set()
     assert reg.value_sum("router_revived_total") == 1
     extra = [Request(uid=100 + i, prompt=s["blue"][i].copy(),
-                     max_new=MAX_NEW) for i in range(2)]
+                     max_new=MAX_NEW, enc_emb=s["enc"][i]) for i in range(2)]
     for r in extra:
         router.submit(r)
     router.run(on_step=lambda rt: _check_allocators(rt.engines))
@@ -487,8 +505,12 @@ def test_snapshot_is_current_and_probe():
     assert (probe.uid, list(probe.prompt), probe.max_new) == \
         (jprobe.uid, list(jprobe.prompt), jprobe.max_new)
     encdec = registry.reduced("seamless-m4t-large-v2")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ft_lib.make_probe(encdec)
+    jencdec = jregistry.reduced("seamless-m4t-large-v2")
+    probe, jprobe = ft_lib.make_probe(encdec), jft.make_probe(jencdec)
+    assert list(probe.prompt) == list(jprobe.prompt)
+    assert probe.enc_emb.dtype == np.float32 and \
+        np.array_equal(probe.enc_emb, jprobe.enc_emb)
+    assert ft_lib.make_probe(s["cfg"]).enc_emb is None
 
 
 def test_fits_is_remaining_aware_for_replays():

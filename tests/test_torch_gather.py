@@ -22,6 +22,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_gather as kpg
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 # ``repro.kernels`` re-exports a function named paged_gather over the module
 jpg = importlib.import_module("repro.kernels.paged_gather")
 

@@ -38,10 +38,22 @@ from repro_torch.kernels import paged_gather as kpg
 from repro_torch.kernels import spinner as kspin
 from repro_torch.kernels import srf_decode as kdec
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 KINDS = ("circulant", "skew_circulant", "toeplitz", "hankel", "unstructured",
          "ldr")
 EPILOGUES = ("identity", "relu", "heaviside", "sign", "exp", "cos_sin")
 G, B, N, M = 2, 5, 16, 24
+
+# the reference's jnp oracles, jitted: each compiles once per shape, dtype
+# and static argument instead of dispatching op by op (seconds a call)
+_jspinner = jax.jit(jops.spinner_project, static_argnums=(0, 3),
+                    static_argnames=("epilogue", "y_scale", "out_scale",
+                                     "grouped", "use_pallas"))
+_jfwht_ref = jax.jit(jref.fwht_ref, static_argnums=1)
+_jcirc_ref = jax.jit(jref.circulant_project_ref, static_argnums=(2, 3))
 
 
 def _inputs(kind, seed=0):
@@ -65,7 +77,8 @@ def _far_from_step(y_identity, *arrays):
 
 def _jax(kind, params, x, epi, use_pallas):
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    return np.asarray(jops.spinner_project(
+    fn = jops.spinner_project if use_pallas else _jspinner
+    return np.asarray(fn(
         kind, jp, jnp.asarray(x), M, epilogue=epi, y_scale=0.8,
         out_scale=M ** -0.5, grouped=True, use_pallas=use_pallas))
 
@@ -487,7 +500,7 @@ def test_plain_fwht_matches_reference(b, n, dtype, normalized):
     assert got.dtype == tx.dtype and got.shape == (b, n)
     s = 1.0 if normalized else n ** -0.5
     for want in (jops.fwht(jx, normalized, use_pallas=True),
-                 jref.fwht_ref(jx, normalized)):
+                 _jfwht_ref(jx, normalized)):
         np.testing.assert_allclose(_f32(got) * s, _f32(want) * s,
                                    **_tol(dtype))
 
@@ -521,11 +534,11 @@ def test_plain_circulant_project_matches_reference(nb, n, b, m, epilogue,
     got = ops.circulant_project(tg, tx, m, epilogue, tsq)
     assert got.dtype == tx.dtype
     assert got.shape == (b, 2 * m if epilogue == "cos_sin" else m)
-    y = _f32(jref.circulant_project_ref(jg.astype(jnp.float32),
-                                        jx.astype(jnp.float32), m))
+    y = _f32(_jcirc_ref(jg.astype(jnp.float32), jx.astype(jnp.float32),
+                        m))
     for want in (jops.circulant_project(jg, jx, m, epilogue, jsq,
                                         use_pallas=True),
-                 jref.circulant_project_ref(jg, jx, m, epilogue, jsq)):
+                 _jcirc_ref(jg, jx, m, epilogue, jsq)):
         g, w = _f32(got), _f32(want)
         if epilogue == "exp":
             g, w = np.log(g + 1e-9), np.log(w + 1e-9)

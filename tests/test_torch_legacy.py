@@ -51,6 +51,10 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import Engine, PagedConfig, Request, SchedConfig
 from repro_torch.serving import sampler
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 
 def _legacy_modules():
     with warnings.catch_warnings():
@@ -70,6 +74,11 @@ CELLS = {"full": ({}, False), "int8": ({"kv_cache_dtype": "int8"}, False),
          "srf": ({"attn_impl": "srf"}, False),
          "seeded": ({"attn_impl": "srf"}, True)}
 _MODELS = {}
+# the reference's init, prefill and decode, jitted (cfg static): each
+# compiles once per config and shape instead of dispatching op by op
+_jinit = jax.jit(jT.init, static_argnums=1)
+_jprefill = jax.jit(jT.prefill, static_argnums=1)
+_jdecode = jax.jit(jT.decode_step, static_argnums=1)
 
 
 def _models(cell):
@@ -80,7 +89,7 @@ def _models(cell):
         cfg = registry.reduced("qwen3-4b", n_layers=2, **over)
         if seeded:
             jcfg, cfg = _seeded(jcfg), _seeded(cfg)
-        jparams = jT.init(jax.random.PRNGKey(0), jcfg)
+        jparams = _jinit(jax.random.PRNGKey(0), jcfg)
         params = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
                                          cfg, device="cpu")
         _MODELS[cell] = (jcfg, jparams, cfg, params)
@@ -155,7 +164,7 @@ def test_prefill_decode_logits_match_reference(cell):
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 19))
     jcache = jT.init_serve_cache(jcfg, 2, 19)
     cache = T.init_serve_cache(cfg, 2, 19, device="cpu")
-    jl, jcache = jT.prefill(jparams, jcfg, {"tokens": jnp.asarray(
+    jl, jcache = _jprefill(jparams, jcfg, {"tokens": jnp.asarray(
         toks[:, :16])}, jcache)
     got, cache = T.prefill(params, cfg, {"tokens": torch.from_numpy(
         toks[:, :16])}, cache)
@@ -163,7 +172,7 @@ def test_prefill_decode_logits_match_reference(cell):
     assert cache["pos"] == 16 and cache["segments"][0]["idx"] == 16
     for i in range(3):
         step = toks[:, 16 + i:17 + i]
-        jl, jcache = jT.decode_step(jparams, jcfg, jcache, jnp.asarray(step))
+        jl, jcache = _jdecode(jparams, jcfg, jcache, jnp.asarray(step))
         got, cache = T.decode_step(params, cfg, cache, torch.from_numpy(step))
         pairs.append((got, jl))
     assert cache["pos"] == 19 and cache["segments"][0]["idx"] == 19
@@ -183,19 +192,19 @@ def test_srf_state_cast_to_v_dtype_and_decoded_in_its_own():
                              dtype="bfloat16")
     cfg = registry.reduced("qwen3-4b", n_layers=2, attn_impl="srf",
                            dtype="bfloat16")
-    jparams = jT.init(jax.random.PRNGKey(0), jcfg)
+    jparams = _jinit(jax.random.PRNGKey(0), jcfg)
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                      device="cpu")
     toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 12))
     jcache = jT.init_serve_cache(jcfg, 2, 12)
     cache = T.init_serve_cache(cfg, 2, 12, device="cpu")
-    jl, jcache = jT.prefill(jparams, jcfg, {"tokens": jnp.asarray(
+    jl, jcache = _jprefill(jparams, jcfg, {"tokens": jnp.asarray(
         toks[:, :10])}, jcache)
     got, cache = T.prefill(params, cfg, {"tokens": torch.from_numpy(
         toks[:, :10])}, cache)
     for _ in range(2):
         nxt = toks[:, 10 + _:11 + _]
-        jl, jcache = jT.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt))
+        jl, jcache = _jdecode(jparams, jcfg, jcache, jnp.asarray(nxt))
         got, cache = T.decode_step(params, cfg, cache, torch.from_numpy(nxt))
     seg = cache["segments"][0]
     assert seg["s"].dtype == seg["z"].dtype == torch.bfloat16

@@ -34,6 +34,10 @@ from repro_torch.core import (coherence, estimators, features, pmodel,
                               spinner, transforms)
 from repro_torch.obs import quality
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 FNAMES = ("identity", "heaviside", "sign", "relu", "trig", "softmax")
 
 

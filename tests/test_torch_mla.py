@@ -41,6 +41,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.serving import Engine, PagedConfig, Request, paged_cache
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 ARCH = "deepseek-v2-lite-16b"
 ATTN_RTOL = 1e-5       # of the largest |output| of one attention layer
 LOGIT_RTOL = 1e-4      # of the largest |logit|, through the layers

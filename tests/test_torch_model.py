@@ -28,6 +28,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.serving import paged_cache
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-3, atol=1e-4)
 
 
@@ -233,17 +237,15 @@ def test_paged_srf_bf16_matches_reference_kernels(monkeypatch, c):
 
 
 def test_other_families_raise_not_implemented():
-    """The families still to port (enc-dec, vision) raise; the SSD,
-    hybrid, MoE and MLA families (ported) resolve to the reference's
-    plans."""
-    for arch, over in (("seamless-m4t-large-v2", {"attn_impl": "srf"}),
-                       ("seamless-m4t-large-v2", {}),
-                       ("qwen2-vl-2b", {"attn_impl": "srf"}),
-                       ("qwen2-vl-2b", {})):
-        cfg = registry.reduced(arch, **over)
-        with pytest.raises(NotImplementedError):
-            paged_cache.plan_for(cfg)
-    for arch, over, name in (("hymba-1.5b", {}, "kv+ssd"),
+    """Every family resolves to the reference's plan (enc-dec adds its
+    memory pool); what stays unported, tensor-parallel attention, still
+    raises."""
+    for arch, over, name in (("seamless-m4t-large-v2",
+                              {"attn_impl": "srf"}, "srf+mem"),
+                             ("seamless-m4t-large-v2", {}, "kv+mem"),
+                             ("qwen2-vl-2b", {"attn_impl": "srf"}, "srf"),
+                             ("qwen2-vl-2b", {}, "kv"),
+                             ("hymba-1.5b", {}, "kv+ssd"),
                              ("mamba2-2.7b", {}, "ssd"),
                              ("moonshot-v1-16b-a3b", {}, "kv"),
                              ("deepseek-v2-lite-16b", {}, "mla"),
@@ -251,6 +253,12 @@ def test_other_families_raise_not_implemented():
                               "srf")):
         assert paged_cache.plan_for(registry.reduced(arch, **over)).name \
             == name == jcache.plan_for(jregistry.reduced(arch, **over)).name
+    cfg = registry.reduced("seamless-m4t-large-v2")
+    lp = T.init(cfg, seed=0, device="cpu")["segments"][0]
+    x = torch.zeros(1, 3, cfg.d_model)
+    with pytest.raises(NotImplementedError):
+        A.cross_attention({k: v[0] for k, v in lp["cross"].items()}, cfg,
+                          x, x, tp_axis="model")
 
 
 def _kv_pages(pools, key):

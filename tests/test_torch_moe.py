@@ -41,6 +41,10 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serving import Engine, PagedConfig, Request, paged_cache
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 ARCH = "moonshot-v1-16b-a3b"
 MOE_ARCHS = [ARCH, "deepseek-v2-lite-16b"]
 OUT_RTOL = 1e-5        # of the largest |output| (f32, other sum orders)

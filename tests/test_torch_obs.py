@@ -33,6 +33,10 @@ from repro_torch.obs import MetricsRegistry, SpanRecorder, profiling
 from repro_torch.obs.export import chrome_trace, dump_chrome_trace
 from repro_torch.serving import Engine, Request
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 

@@ -14,6 +14,7 @@ import itertools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import serving as jserving
 from repro.configs import registry as jregistry
@@ -27,6 +28,10 @@ from repro_torch.serving import (Engine, FTConfig, PagedConfig,
                                  PrefixConfig, Request, Router,
                                  RouterConfig, SchedConfig)
 from repro_torch.serving.chaos import ChaosEngine, ChaosPlan
+
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
 
 _models = {}
 
@@ -433,6 +438,62 @@ def test_can_place_verdicts_match_reference():
     assert not got[(3, 10, "bf16")] and not got[(3, 10, "page 4")]
     assert not got[(3, 10, "short")] and got[(None, 10, "int8")]
     assert not got[(None, 30, "short")]
+
+
+def test_pool_signature_refuses_other_memory_rows():
+    """Enc-dec replicas whose pools agree in every paged and slot leaf
+    but whose memory rows differ (enc_len 16 against 8): the signatures
+    differ only in the memory pool's row, so a snapshot-carrying
+    sequence (its snapshot holds the encoded memory) may not move, a
+    fresh one may; the verdicts and signatures equal the reference's."""
+    import dataclasses
+    from repro.serving.mesh.router import Router as JRouter
+
+    jbase = jregistry.reduced("seamless-m4t-large-v2", n_layers=2)
+    jparams = jax.jit(jT.init, static_argnums=1)(jax.random.PRNGKey(0),
+                                                 jbase)
+
+    def verdicts(port):
+        reg = registry if port else jregistry
+        base = reg.reduced("seamless-m4t-large-v2", n_layers=2)
+        if port:
+            params = convert.params_from_jax(jax.tree.map(
+                np.asarray, jparams), base, device="cpu")
+            mk = lambda c: Engine(c, params, sched=SchedConfig(  # noqa
+                max_batch=2, prefill_batch=2, prefill_chunk=8, page_size=8,
+                num_pages=17, table_width=8), device="cpu")
+            rt, req = Router, Request
+        else:
+            params = jparams
+            mk = lambda c: jserving.Engine(  # noqa: E731
+                c, params, sched=jserving.SchedConfig(
+                    max_batch=2, prefill_batch=2, prefill_chunk=8,
+                    page_size=8, num_pages=17, table_width=8))
+            rt, req = JRouter, jserving.Request
+        engs = {"same": mk(base), "short memory": mk(
+            dataclasses.replace(base, enc_len=8))}
+        e0 = mk(base)
+        router = rt([e0])
+        sigs = {k: router._pool_signature(e) == router._pool_signature(e0)
+                for k, e in engs.items()}
+        out = {}
+        for snap in (False, True):
+            seq = e0.sched.submit(req(uid=len(out), prompt=np.ones(
+                10, np.int32), max_new=4, enc_emb=np.zeros(
+                    (base.enc_len, 160), np.float32)))
+            e0.sched.waiting.remove(seq)
+            if snap:
+                seq.snapshot = object()
+                seq.snapshot_pages = [1, 2]
+            for k, e in engs.items():
+                out[(snap, k)] = router._can_place(e0, e, seq)
+        return sigs, out
+
+    sigs, got = verdicts(True)
+    assert (sigs, got) == verdicts(False)
+    assert sigs == {"same": True, "short memory": False}
+    assert got == {(False, "same"): True, (False, "short memory"): True,
+                   (True, "same"): True, (True, "short memory"): False}
 
 
 def _preempt_then_migrate(side):

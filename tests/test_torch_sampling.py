@@ -27,6 +27,10 @@ from repro_torch.kernels import seedgen
 from repro_torch.launch import serve
 from repro_torch.serving import Engine, Request, sampler
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 
 def _w(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.int64))

@@ -41,6 +41,10 @@ from repro_torch.kernels import ops, seedgen
 from repro_torch.kernels import spinner as kspin
 from repro_torch.serving import Engine, Request
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 KERNEL_KINDS = ("circulant", "skew_circulant", "toeplitz", "hankel",
                 "unstructured")
 G, B, N, M = 3, 5, 16, 40

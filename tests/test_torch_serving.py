@@ -34,6 +34,10 @@ from repro_torch.serving import (BlockAllocator, ChunkConfig, Engine,
 from repro_torch.serving.prefix import (ChunkPolicy, PrefixCache, RadixTrie,
                                         cow)
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -444,16 +448,20 @@ def test_chunk_policy_decode_cadence_and_budget():
 
 
 def test_unported_requests_are_refused(models):
-    """What the port does not serve yet is refused: enc-dec requests and
-    mesh-sharded pools. Sampled requests, embed seeds and live quality
+    """What the port does not serve yet is refused: mesh-sharded pools;
+    an enc-dec engine refuses a request without encoder features, as the
+    reference's does. Sampled requests, embed seeds and live quality
     probes are served (``test_torch_sampling``, ``test_torch_seeded``,
-    the quality tests below)."""
+    the quality tests below; enc-dec in ``test_torch_encdec``)."""
     _, _, cfg, params = models
     eng = Engine(cfg, params, batch_slots=2, max_len=64, device="cpu")
     prompt = np.arange(3, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        eng.submit(Request(uid=0, prompt=prompt,
-                           enc_emb=np.zeros((4, 8), np.float32)))
+    from repro_torch.models import transformer as T
+    ecfg = registry.reduced("seamless-m4t-large-v2")
+    enc_eng = Engine(ecfg, T.init(ecfg, seed=0, device="cpu"),
+                     batch_slots=2, max_len=64, device="cpu")
+    with pytest.raises(ValueError, match="enc-dec"):
+        enc_eng.submit(Request(uid=0, prompt=prompt))
     eng.submit(Request(uid=1, prompt=prompt, temperature=0.8))
     eng.submit(Request(uid=2, prompt=prompt, embed_seed=7))
     Engine(cfg, params, device="cpu", quality_every=64)
@@ -576,7 +584,8 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.launch.train, repro_torch.launch.profile_train, "
             "repro_torch.serving.chaos, repro_torch.serving.mesh, "
-            "repro_torch.models.ssm, repro_torch.models.moe; "
+            "repro_torch.models.ssm, repro_torch.models.moe, "
+            "repro_torch.models.frontends, repro_torch.data.synth; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -22,6 +22,10 @@ from repro.models import ssm as jS
 from repro_torch.configs import registry
 from repro_torch.models import ssm as S
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 STATE_RTOL = 1e-5
 
 

@@ -16,6 +16,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import serving as jserving
 from repro.configs import registry as jregistry
@@ -27,6 +28,10 @@ from repro_torch.launch import serve
 from repro_torch.obs import spans
 from repro_torch.obs.report import Reporter
 from repro_torch.serving import Engine, Request, SchedConfig
+
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 TENANT = ("tenant_prefill_tokens_total", "tenant_decode_tokens_total",

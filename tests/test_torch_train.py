@@ -48,6 +48,10 @@ from repro_torch.optim import adamw, schedule
 from repro_torch.optim import compression as C
 from repro_torch.train.trainer import CrashInjected, Trainer, TrainerConfig
 
+# one intra-op thread: the suite's pytest-xdist workers share the
+# cores, and oversubscribed OpenMP pools spin against each other
+torch.set_num_threads(1)
+
 GRAD_RTOL = 1e-4
 GRAD_ATOL_SHARE = 1e-5
 
@@ -284,15 +288,29 @@ def test_unported_modes_and_kinds_raise():
     lp = tree_lib.unbind(params["segments"][0], cfg.n_layers)[0]
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError):
-        A.attention(lp["attn"], cfg, x, pos, "encoder")
+    with pytest.raises(NotImplementedError):        # until the mesh
+        A.attention(lp["attn"], cfg, x, pos, "paged", {"tp_axis": "model"})
     for mode in ("prefill", "decode"):          # ported: they need a cache
         with pytest.raises(ValueError, match="needs a cache"):
             A.attention(lp["attn"], cfg, x, pos, mode)
-    with pytest.raises(NotImplementedError):
-        T.layer_apply(lp, cfg, "dense_cross", x, pos)
-    with pytest.raises(NotImplementedError):
-        T.run_segment(params["segments"][0], cfg, "dense", x, pos, "encoder")
+    with pytest.raises(ValueError):
+        A.attention(lp["attn"], cfg, x, pos, "cross")
+    with pytest.raises(ValueError):
+        T.layer_apply(lp, cfg, "cross", x, pos)
+    with pytest.raises(ValueError):
+        T.run_segment(params["segments"][0], cfg, "dense", x, pos, "paged")
+    # ported: the encoder mode runs, bidirectional (a later token moves
+    # an earlier row's output; under "train" it cannot)
+    x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    y = x.clone()
+    y[:, -1] += 1.0
+    for mode, moved in (("encoder", True), ("train", False)):
+        a = T.run_segment(params["segments"][0], cfg, "dense", x, pos,
+                          mode)[0]
+        b = T.run_segment(params["segments"][0], cfg, "dense", y, pos,
+                          mode)[0]
+        assert bool((a[:, 0] != b[:, 0]).any()) == moved
 
 
 def test_forward_counts_every_spinner_call_once_per_pass():
