@@ -10,8 +10,11 @@ two replicas, and through the serve CLI with kernel timing and a Chrome
 trace, serves full-width mamba2-2.7b (SSD) and hymba-1.5b (hybrid),
 the three other dense configs, moonshot-v1-16b-a3b (MoE),
 deepseek-v2-lite-16b (MLA with MoE), qwen2-vl-2b (vision) and
-seamless-m4t-large-v2 (enc-dec), then trains full-width qwen3-4b with
-SRF and with full attention, and qwen2-vl-2b with both.
+seamless-m4t-large-v2 (enc-dec), serves head-sharded over a mesh of the
+card repeated (``Engine(mesh=...)`` at TP 2, the router over sharded
+replicas), then trains full-width qwen3-4b with SRF and with full
+attention, qwen2-vl-2b with both and with the compressed cross-pod
+gradient mean (``Trainer(mesh=...)``).
 
     python3 chip_smoke.py
 
@@ -101,6 +104,13 @@ result line):
      on the encoder-memory pool (a 2 MiB page of 1024 x 1024 bf16 a
      slot, R=8, M=1), bit-equal to the plain version and to
      ``pool[tables]``; paged_gather_dequant_kv on int8 rows of 1024.
+   * kernels 1-5 at the shapes one shard of qwen3-4b served at TP 2
+     launches (``phase_mesh_kernels``): the spinner at G=4 kv heads (query
+     B=32, key B=8), the seeded spinner at the shard's seeds (G=32, query
+     B=4, key B=1), srf_decode at (B=8, H=16, dv=128), paged_gather on
+     rows of D=4*128=512 (qwen3-4b, 36 pools; seamless's 8*64, 24 pools)
+     and paged_gather_dequant_kv on int8 rows of 512; the gathers
+     bit-equal and timed beside ``pool[tables]``.
    Times: CUDA events over back-to-back launches queued behind a device
    sleep, median of 5 repeats (3 for the circulant); the gathers cycle
    through 36 layer pools, as a decode step does, so pages come from HBM.
@@ -261,6 +271,24 @@ result line):
    copy's prefill too); encode ms a request and the cross attention's
    device ms a step printed beside tok/s, TTFT p50, peak memory and the
    memory pool's bytes.
+   The mesh, on meshes of the card repeated (``launch.mesh``; every
+   sharded path and every kernel at its per-shard shapes, no memory
+   saved): ``phase_reduced_mesh`` runs the reference's FAM matrix (kv,
+   srf, mla, ssd, hybrid, encdec; f32, 2 layers, 16 requests through a
+   router of 2 replicas x TP 2): tokens == the unsharded card engine's
+   == the CPU's, ``pool_bytes_per_device`` against ``pool_bytes`` as the
+   reference's test relates them, each shard's launches exact; a tight
+   TP 2 pool's preemption, int8 pages at TP 2 == unsharded == CPU, and
+   migration between sharded replicas (a preempted sequence with its
+   snapshot, a fresh backlog). ``phase_serve_mesh``: full-width qwen3-4b
+   at TP 2 and at TP 1 beside it, 8 x (128 + 32), full KV, int8 pages,
+   SRF, seeded SRF with embed seeds: exact launches (every shard's: 144
+   gathers a step, 72 int8 K-and-V gathers, the spinner 144 a step plus
+   the probe's, srf_decode 72 a decode step), half the pools a position,
+   first-token logits within ``MESH_LOGIT_TOL`` of TP 1's, tok/s, TTFT
+   and token agreement printed; the FT router over 2 replicas x TP 2
+   with replica 1 raising at its step 12 (1 quarantine, 0 failed);
+   seamless-m4t-large-v2 at TP 2, full KV.
 5. Train (after freeing the serving memory). Full-width, full-depth
    qwen3-4b (bf16, remat full, B = 8, seq = 64, the training launcher's
    defaults), random weights, 5 steps of ``launch.steps.make_train_step``
@@ -282,6 +310,11 @@ result line):
    Then full-width qwen2-vl-2b (``phase_train_vlm``): 3 steps at B = 2,
    seq = 2048 (a 1024-patch vision prefix, M-RoPE over ``pos3``) with SRF
    attention and 3 with full attention, checked as qwen3-4b's are.
+   Then ``Trainer(mesh=...)`` with ``compress_dp`` on a (pod 2) mesh of
+   the card repeated (``phase_train_compressed``): reduced qwen3-4b, 5
+   steps, losses card == CPU within rtol 1e-4; full-width qwen2-vl-2b,
+   3 compressed steps beside the plain ones: step ms, peak memory,
+   ``compression.wire_bytes``' ratio.
 6. Print the card (nvidia-smi name, power limit), one JSON line with a
    record per kernel, and the result line. The spinner records carry
    their training fields (``train_*``: the training run's launches and
@@ -301,7 +334,10 @@ result line):
    time at those configs' shapes and their launches in their serve runs
    (the spinner also ``*_key`` and ``seamless_encoder*``, paged_gather
    ``seamless_memory_*``: the memory gather), and the spinner its
-   launches in qwen2-vl's SRF training (``qwen2vl_train_*``).
+   launches in qwen2-vl's SRF training (``qwen2vl_train_*``). Rows 1-5
+   carry ``tp2_*`` fields: the kernel at its TP 2 shard shape and its
+   launches in the TP 2 serve runs (paged_gather also
+   ``tp2_seamless_*`` and ``tp2_router_*``).
    ``library_ms`` is ``pool[tables]`` for paged_gather, ``x @ H_n`` for fwht, ``x @ A.T``
    for circulant_project, and null for the others: no single
    PyTorch call computes f(A·D1·H·D0·x) with a regenerated structured A
@@ -2284,7 +2320,7 @@ def _share(a, b):
     return same / sum(map(len, a.values()))
 
 
-def _router_run(label, args, cfg, params, chaos=None):
+def _router_run(label, args, cfg, params, chaos=None, meshes=None):
     """``args``' requests through ``launch.serve.router`` (2 replicas of
     ``args.slots`` slots, ``FTConfig()`` on wall clocks, one registry),
     with ``chaos`` (``KIND@STEP:REPLICA``) if given, and without pressure
@@ -2294,7 +2330,7 @@ def _router_run(label, args, cfg, params, chaos=None):
     reset just before and read just after. Records the tokens at the
     quarantine and the round and time at which the last rescued or
     replayed request finished. Then ``heal()``, ``revive(1)`` and the
-    leak check."""
+    leak check. ``meshes``: one mesh a replica (``Engine(mesh=)``)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.obs import MetricsRegistry
@@ -2302,7 +2338,7 @@ def _router_run(label, args, cfg, params, chaos=None):
     a = copy.copy(args)
     a.replicas, a.ft, a.chaos = 2, True, chaos
     reg = MetricsRegistry()
-    router = serve.router(a, cfg, params, metrics=reg)
+    router = serve.router(a, cfg, params, metrics=reg, meshes=meshes)
     router.cfg = RouterConfig(migrate=False)
     reqs = serve.requests(a, cfg)
     by_uid = {r.uid: r for r in reqs}
@@ -3236,10 +3272,14 @@ def _reduced_new_families():
 
 
 def _pool_bytes(eng):
-    """(slot-domain bytes, paged-domain bytes) of an engine's pools."""
+    """(slot-domain bytes, paged-domain bytes) of an engine's pools
+    (global, for a sharded engine)."""
+    from repro_torch.serving import paged_cache
+    pools = paged_cache.global_view(eng.pools)
+
     def total(part):
         return sum(t.numel() * t.element_size()
-                   for seg in eng.pools[part] if seg is not None
+                   for seg in pools[part] if seg is not None
                    for t in _leaves(seg))
     return total("slot"), total("paged")
 
@@ -3827,6 +3867,444 @@ def phase_serve_encdec():
 
 
 # ---------------------------------------------------------------------------
+# the mesh: head-sharded paged serving on a mesh of the one card repeated
+# ---------------------------------------------------------------------------
+
+# qwen3-4b at TP 2 (a shard: 16 q / 4 kv heads of 128, a group of 4):
+# 8 requests, KV rows of 4 x 128 = 512, SRF m = 256; seamless at TP 2 (a
+# shard: 8 heads of 64): KV rows of 8 x 64 = 512
+MESH = dict(tp=2, rows=8, kv_heads=4, group=4, hd=128, m=256, q_heads=16,
+            layers=36, sm_layers=24, pages=257, page=16, width=16)
+
+
+def _card_meshes(replicas, tp=MESH["tp"]):
+    """``replicas`` ('data', 'model') meshes of ``tp`` positions, every
+    position the one card (``launch.mesh.make_serving_meshes`` over
+    ``cuda:0`` repeated)."""
+    from repro_torch.launch import mesh as mesh_lib
+    return mesh_lib.make_serving_meshes(
+        replicas, tp, devices=[torch.device("cuda", 0)] * (replicas * tp))
+
+
+def _seeded_case(label, gsz, bsz, n, m, dtype, epi, gen):
+    """One seeded-spinner shape against its plain version, timed beside it
+    and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spinner as kspin
+    x = (torch.randn((gsz, bsz, n), generator=gen, device="cuda")
+         * n ** -0.25).to(dtype)
+    seeds = torch.randint(0, 2 ** 32, (gsz,), generator=gen, device="cuda",
+                          dtype=torch.int64)
+    kw = dict(use_hd=True, epilogue=epi, out_scale=m ** -0.5)
+    err = check_exp(f"{label} {str(dtype)[6:]} (G={gsz}, B={bsz}, n={n}, "
+                    f"m={m}, {epi})",
+                    kspin.spinner_project_seeded_cuda("circulant", seeds, x,
+                                                      m, **kw),
+                    ref.spinner_project_seeded_ref("circulant", seeds, x, m,
+                                                   **kw), dtype, epi)
+    k_ms = device_ms(lambda: kspin.spinner_project_seeded_cuda(
+        "circulant", seeds, x, m, **kw))
+    p_ms = device_ms(lambda: ref.spinner_project_seeded_ref(
+        "circulant", seeds, x, m, **kw), launches=10, repeats=3)
+    b_ms, b_by = seeded_bound("circulant", gsz, bsz, n, m, x.element_size(),
+                              m)
+    log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound {b_ms:.6f} "
+        f"ms ({b_by})")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_mesh_kernels(gen):
+    """Kernels 1-5 at the per-shard shapes of qwen3-4b served at TP 2
+    (``MESH``), which each shard launches on its own heads: the spinner at
+    G = 4 kv heads (decode query B = 8 requests x a group of 4 = 32,
+    identity; decode key B = 8, exp), the seeded spinner at the local
+    seeds (G = 4 kv heads x 8 requests = 32 groups; query B = 4, key B =
+    1), srf_decode at (B = 8, H = 16, m = 256, dv = 128), paged_gather on
+    bf16 rows of D = 4 x 128 = 512 (36 layer pools cycled; seamless's D =
+    8 x 64 = 512, 24 pools) and paged_gather_dequant_kv on int8 rows of
+    512. Each against its plain version (phase 2's tolerance; the gathers
+    bit-equal, also to ``pool[tables]``), timed beside it, its bound and
+    (the gathers) ``pool[tables]``. Returns {kernel: record}."""
+    h = MESH
+    bf = torch.bfloat16
+    out = {}
+    g, n, m, r = h["kv_heads"], h["hd"], h["m"], h["rows"]
+    out["spinner"] = _spinner_case("TP 2 shard spinner decode query", g,
+                                   r * h["group"], n, m, bf, "identity",
+                                   True, gen)
+    out["spinner key"] = _spinner_case("TP 2 shard spinner decode key", g, r,
+                                       n, m, bf, "exp", True, gen)
+    out["seeded_spinner"] = _seeded_case(
+        "TP 2 shard seeded spinner decode query", g * r, h["group"], n, m,
+        bf, "identity", gen)
+    out["seeded_spinner key"] = _seeded_case(
+        "TP 2 shard seeded spinner decode key", g * r, 1, n, m, bf, "exp",
+        gen)
+    out["srf_decode"] = _srf_decode_case("TP 2 shard", r, h["q_heads"], m, n,
+                                         gen)
+    npg, pg, w = h["pages"], h["page"], h["width"]
+    d = g * n
+    out["paged_gather"] = _gather_case("qwen3-4b TP 2 shard K", h["layers"],
+                                       npg, pg, d, r, w, gen)
+    out["seamless paged_gather"] = _gather_case(
+        "seamless TP 2 shard K", h["sm_layers"], npg, pg, d, r, w, gen)
+    out["paged_gather_dequant"] = _dequant_kv_case(
+        "qwen3-4b TP 2 shard", h["layers"], npg, pg, d, r, w, gen)
+    torch.cuda.empty_cache()
+    return out
+
+
+# the reference's FAM matrix (tests/test_mesh_serving.py): (family, arch,
+# overrides); the MoE-free configs, f32, 2 layers
+MESH_FAMS = [("kv", "qwen3-4b", {}), ("srf", "qwen3-4b", {"attn_impl": "srf"}),
+             ("mla", "deepseek-v2-lite-16b", CF8), ("ssd", "mamba2-2.7b", {}),
+             ("hybrid", "hymba-1.5b", {}),
+             ("encdec", "seamless-m4t-large-v2", {})]
+
+
+def _mesh_work(cfg, n=16, seed=0):
+    """The reference's FAM traffic: ``n`` requests of 2-19 prompt tokens
+    and 3-7 new (enc-dec: each with its own features)."""
+    from repro_torch.models import frontends
+    rng = np.random.default_rng(seed)
+    spec = [(int(rng.integers(2, 20)), int(rng.integers(3, 8)))
+            for _ in range(n)]
+    prompts = [rng.integers(0, cfg.vocab, pl).astype(np.int32)
+               for pl, _ in spec]
+    encs = [frontends.synthetic_audio_features(rng, cfg)
+            if cfg.is_encdec else None for _ in spec]
+    return [(p, mn, e) for (_, mn), p, e in zip(spec, prompts, encs)]
+
+
+def _mesh_serve(eng, work):
+    """{uid: tokens} of ``work`` served by ``eng`` (an engine or router)."""
+    from repro_torch.serving import Request
+    for i, (p, mn, e) in enumerate(work):
+        eng.submit(Request(uid=i, prompt=p.copy(), max_new=mn, enc_emb=e))
+    return {r.uid: list(r.out_tokens) for r in eng.run()}
+
+
+def _mesh_launches(label, fam, cfg, counts, engines, tp):
+    """The sharded path's launches summed over ``engines``' steps: each
+    shard gathers its own K and V (2 x TP a layer a step; enc-dec plus the
+    replicated memory, 1 a step), int8 pages one dequant launch a shard
+    and layer, SRF srf_decode TP a layer a decode step and the spinner at
+    least 2 x TP a layer a step; MLA latents and SSD degrade (2 gathers a
+    layer a step, nothing)."""
+    steps = sum(_steps(e) for e in engines)
+    dsteps = sum(int(e.stats["decode_steps"]) for e in engines)
+    n = cfg.n_layers
+    want = {"kv": {"paged_gather": (2 * tp * n * steps, True)},
+            "int8": {"paged_gather_dequant_kv": (tp * n * steps, True),
+                     "paged_gather": (0, True)},
+            "srf": {"spinner": (2 * tp * n * steps, False),
+                    "srf_decode": (tp * n * dsteps, True)},
+            "mla": {"paged_gather": (2 * n * steps, True)},
+            "ssd": {},
+            "hybrid": {"paged_gather": (2 * tp * n * steps, True)},
+            "encdec": {"paged_gather": ((2 * tp * n + 1) * steps, True)}}[fam]
+    _expect_launches(f"{label} ({steps} steps)", counts, want)
+    return steps
+
+
+def phase_reduced_mesh():
+    """The reference's mesh-serving cells on the card, f32, 2 layers, on
+    meshes of the card repeated: (1) the FAM matrix (kv, srf, mla, ssd,
+    hybrid, encdec): 16 requests through a router of 2 replicas x TP 2
+    give the unsharded card engine's tokens and the CPU's, both replicas
+    serve, ``pool_bytes_per_device`` * TP == ``pool_bytes`` for kv and srf,
+    strictly between for hybrid and enc-dec, equal for the degraded MLA
+    and SSD, the launches of ``_mesh_launches``; (2) a tight TP 2 pool
+    preempts and gives a roomy unsharded engine's tokens, card == CPU;
+    (3) int8 pages at TP 2 == int8 unsharded == CPU; (4) a preempted
+    sequence migrates with its snapshot between sharded replicas, and a
+    single-slot sharded replica's fresh backlog drains through another
+    sharded one, tokens unchanged."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.serving import (Engine, PagedConfig, Router,
+                                     RouterConfig, SchedConfig)
+    from repro_torch.serving.mesh import shard
+    for fam, arch, over in MESH_FAMS:
+        cfg = registry.reduced(arch, n_layers=2, **over)
+        params = model_lib.init(cfg, seed=3, device="cpu")
+        work = _mesh_work(cfg)
+        cpu = _mesh_serve(Engine(cfg, params, batch_slots=8, max_len=64,
+                                 device="cpu"), work)
+        cparams = _to(params, "cuda")
+        single = Engine(cfg, cparams, batch_slots=8, max_len=64,
+                        device="cuda")
+        want = _mesh_serve(single, work)
+        meshes = _card_meshes(2)
+        router = Router([Engine(cfg, cparams, batch_slots=8, max_len=64,
+                                mesh=m) for m in meshes])
+        ops.reset_counts()
+        got = _mesh_serve(router, work)
+        counts = ops.launch_counts()
+        if not (got == want == cpu) or len(got) != 16:
+            raise AssertionError(f"mesh {fam}: router x TP 2 tokens, "
+                                 f"unsharded card tokens and CPU tokens "
+                                 f"differ")
+        if not all(e.stats["requests"] for e in router.engines):
+            raise AssertionError(f"mesh {fam}: a replica served nothing")
+        tp = shard.paged_tp(cfg, meshes[0])
+        pbd = router.engines[0].cache_report()["pool_bytes_per_device"]
+        pb = single.cache_report()["pool_bytes"]
+        ok = {"hybrid": tp == 2 and pb / tp < pbd < pb,
+              "encdec": tp == 2 and pb / tp < pbd < pb,
+              "kv": tp == 2 and pbd * tp == pb,
+              "srf": tp == 2 and pbd * tp == pb}.get(fam, tp == 1
+                                                     and pbd == pb)
+        if not ok:
+            raise AssertionError(f"mesh {fam}: tp {tp}, pool bytes per "
+                                 f"device {pbd} against {pb}")
+        steps = _mesh_launches(f"mesh {fam}", fam, cfg, counts,
+                               router.engines, tp)
+        log(f"  mesh {fam} ({arch}, TP {tp}): 2 replicas x TP 2 tokens == "
+            f"unsharded card == CPU ({sum(map(len, got.values()))} tokens, "
+            f"{steps} steps, replicas served "
+            f"{[int(e.stats['requests']) for e in router.engines]}); pool "
+            f"bytes per device {pbd} of {pb}; launches {counts}")
+    cfg = registry.reduced("qwen3-4b", n_layers=2)
+    params = model_lib.init(cfg, seed=3, device="cpu")
+    cparams = _to(params, "cuda")
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(0, cfg.vocab, 3).astype(np.int32), 10, None)
+            for _ in range(4)]
+    geo = dict(max_batch=4, prefill_batch=2, prefill_chunk=4, page_size=4,
+               table_width=4)
+
+    def eng(n, mesh=None, device="cuda", p=cparams, **kw):
+        return Engine(cfg, p, sched=SchedConfig(num_pages=n, **geo),
+                      device=device, mesh=mesh, **kw)
+    roomy = _mesh_serve(eng(33), work)
+    tight = eng(9, _card_meshes(1)[0])
+    got = _mesh_serve(tight, work)
+    cpu = _mesh_serve(eng(33, device="cpu", p=params), work)
+    if tight.stats["preemptions"] == 0 or not (got == roomy == cpu):
+        raise AssertionError(f"mesh preemption: {tight.stats['preemptions']}"
+                             f" preemptions, tokens equal "
+                             f"{got == roomy}, card == CPU {roomy == cpu}")
+    pc = PagedConfig(quantize_kv=True)
+    iw = _mesh_work(cfg, n=6, seed=3)
+    q1 = _mesh_serve(Engine(cfg, cparams, batch_slots=4, max_len=32,
+                            paged=pc, device="cuda"), iw)
+    ops.reset_counts()
+    q2e = Engine(cfg, cparams, batch_slots=4, max_len=32, paged=pc,
+                 mesh=_card_meshes(1)[0])
+    q2 = _mesh_serve(q2e, iw)
+    _mesh_launches("mesh int8", "int8", cfg, ops.launch_counts(), [q2e], 2)
+    qc = _mesh_serve(Engine(cfg, params, batch_slots=4, max_len=32,
+                            paged=pc, device="cpu"), iw)
+    if not (q1 == q2 == qc):
+        raise AssertionError("mesh int8: TP 2, unsharded and CPU int8 "
+                             "tokens differ")
+    meshes = _card_meshes(2)
+    e0, e1 = eng(9, meshes[0]), eng(33, meshes[1])
+    router = Router([e0, e1], RouterConfig(migrate=True))
+    from repro_torch.serving import Request
+    reqs = [Request(uid=i, prompt=p.copy(), max_new=mn)
+            for i, (p, mn, _) in enumerate(work)]
+    for r in reqs:
+        e0.submit(r)
+        router.home[r.uid] = 0
+    router.run()
+    restored = [ev["uid"] for ev in e1.metrics.events
+                if ev["event"] == "restored"]
+    migrated = {r.uid: list(r.out_tokens) for r in reqs}
+    if not restored or migrated != roomy or not router.stats["migrations"]:
+        raise AssertionError(f"mesh preempt-then-migrate: restored "
+                             f"{restored}, tokens equal {migrated == roomy}")
+    slot1 = SchedConfig(max_batch=1, prefill_batch=1, prefill_chunk=4,
+                        page_size=4, num_pages=5, table_width=4)
+    f0 = Engine(cfg, cparams, sched=slot1, mesh=meshes[0])
+    f1 = Engine(cfg, cparams, batch_slots=4, max_len=16, mesh=meshes[1])
+    fr = Router([f0, f1])
+    for i, (p, mn, _) in enumerate(work):
+        f0.submit(Request(uid=i, prompt=p.copy(), max_new=mn))
+        fr.home[i] = 0
+    fresh = {r.uid: list(r.out_tokens) for r in fr.run()}
+    if fresh != roomy or not fr.stats["migrations"]:
+        raise AssertionError("mesh fresh migration: tokens differ or no "
+                             "migration")
+    log(f"  mesh qwen3-4b: tight TP 2 pool {int(tight.stats['preemptions'])}"
+        f" preemptions, tokens == roomy unsharded == CPU; int8 TP 2 == int8 "
+        f"unsharded == CPU; preempt-then-migrate between TP 2 replicas: "
+        f"{int(router.stats['migrations'])} migrations, restored {restored}; "
+        f"fresh backlog {int(fr.stats['migrations'])} migrations; tokens "
+        f"unchanged")
+
+
+# first-token logits of the TP 2 engine against the TP 1 engine on the
+# same requests, as a share of the row's largest |logit|. cuBLAS picks
+# its algorithm by shape, so x @ wq[:, shard] need not give the columns
+# of x @ wq bit for bit; the first card run measured 0 in all four cells
+# (every first-token row bit-equal, every generated token equal). The
+# limit sits below one bf16 spacing of the row's largest (2^-8).
+MESH_LOGIT_TOL = 2e-3
+MESH_RUNS = (("full KV", "full", False, False),
+             ("int8 pages", "full", True, False),
+             ("SRF", "srf", False, False),
+             ("seeded SRF", "srf", False, True))
+
+
+def _warm_mesh(a, cfg, params, mesh):
+    """``serve.warm`` on an engine of its own over ``mesh`` (None: the
+    plain engine): 2 requests of 16 + 2 tokens."""
+    from repro_torch.launch import serve
+    w = copy.copy(a)
+    w.requests, w.prompt_len, w.max_new, w.seed = 2, 16, 2, a.seed + 1
+    serve.serve(w, eng=serve.engine(w, cfg, params, mesh=mesh))
+
+
+def _mesh_path(label, cfg, res, tp, probes=None):
+    """The launches of one full-width run at TP ``tp`` (every shard's own):
+    full KV paged_gather 2 x TP a layer a step, int8 pages one
+    ``paged_gather_dequant_kv`` a shard and layer a step, SRF the spinner
+    (materialized or seeded) 2 x TP a layer a step plus the quality
+    probe's and srf_decode TP a layer a decode step; nothing else."""
+    n, steps, dsteps = cfg.n_layers, res["steps"], res["decode_steps"]
+    if label == "full KV":
+        want = {"paged_gather": (2 * tp * n * steps, True)}
+    elif label == "int8 pages":
+        want = {"paged_gather_dequant_kv": (tp * n * steps, True)}
+    else:
+        key = "spinner_seeded" if label == "seeded SRF" else "spinner"
+        if probes.calls != 1:
+            raise AssertionError(f"{label} TP {tp}: {probes.calls} quality "
+                                 f"samples")
+        want = {key: (2 * tp * n * steps + probes.spinner, True),
+                "srf_decode": (tp * n * dsteps, True)}
+        if key == "spinner_seeded":
+            want["spinner"] = (0, True)
+    want.setdefault("spinner", (0, True))
+    want.setdefault("srf_decode", (0, True))
+    _expect_launches(f"{label} TP {tp}", res["counts"], want)
+
+
+def phase_serve_mesh():
+    """Full-width qwen3-4b (bf16, random weights) through ``Engine(mesh=)``
+    at TP 2 on a mesh of the card repeated, and through the plain engine
+    (TP 1) beside it on the same params and requests, 8 greedy requests
+    of 128 + 32 tokens, 8 slots: full KV, int8 pages, SRF and seeded SRF
+    (embed seeds on uids 4-7, odd uids sampled: ``_personalize``). Each
+    run: every request done with 32 tokens, finite rows, exact launches
+    (``_mesh_path``); TP 2 holds half the pools a position; the
+    first-token logits of TP 2 and TP 1 within ``MESH_LOGIT_TOL``; tok/s,
+    TTFT p50, peak and the share of equal tokens printed. Then the FT
+    router over 2 replicas x TP 2 (4 slots each, 8 requests, wall clocks,
+    no migration) with replica 1 raising at its step 12: one quarantine,
+    no failed request. Then seamless-m4t-large-v2 at TP 2, full KV.
+    Returns {run: {tp: result}}."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as model_lib
+    mesh = _card_meshes(1)[0]
+    out = {}
+    built = None
+    for label, attn, quant, seeded in MESH_RUNS:
+        a = serve_args(attn, quantize_kv=quant, **TRAFFIC)
+        if built is None or built[0] != (attn, seeded):
+            params = built = None
+            _free()
+            t0 = time.perf_counter()
+            if seeded:
+                cfg = _seeded(registry.get("qwen3-4b", attn_impl="srf"))
+                params = model_lib.init(cfg, seed=a.seed, device="cuda")
+            else:
+                cfg, params = serve.build(a)
+            torch.cuda.synchronize()
+            _describe(cfg, params, t0)
+            built = ((attn, seeded), cfg, params)
+        _, cfg, params = built
+        runs, rows = {}, {}
+        for tp in (1, 2):
+            m = mesh if tp == 2 else None
+            _warm_mesh(a, cfg, params, m)
+            eng = serve.engine(a, cfg, params, mesh=m)
+            rec = first_logits(eng)
+            reqs = serve.requests(a, cfg)
+            if seeded:
+                reqs = _personalize(reqs)
+            with count_probes() as probes:
+                res = _family_run(f"qwen3-4b {label} TP {tp}", a, cfg,
+                                  params, eng=eng, reqs=reqs)
+            _mesh_path(label, cfg, res, tp, probes)
+            rep = eng.cache_report()
+            res.update(pool_bytes=rep["pool_bytes"],
+                       pool_bytes_per_device=rep["pool_bytes_per_device"])
+            runs[tp], rows[tp] = res, rec.rows
+            del eng
+            _free()
+        pbd, pb = runs[2]["pool_bytes_per_device"], runs[1]["pool_bytes"]
+        # int8 pages: the values halve, the per-token scales replicate
+        if not (pb / 2 < pbd < pb if quant else pbd * 2 == pb):
+            raise AssertionError(f"{label}: TP 2 holds {pbd} B a position "
+                                 f"of {pb}")
+        gap = max(float((rows[1][u] - rows[2][u]).abs().max()
+                        / rows[1][u].abs().max()) for u in rows[1])
+        toks = [{r.uid: r.out_tokens for r in runs[tp]["done"]}
+                for tp in (1, 2)]
+        same = _share(toks[1], toks[0])
+        first_same = sum(toks[0][u][0] == toks[1][u][0] for u in toks[0])
+        log(f"    {label}: TP 2 {runs[2]['tok_s']:.2f} tok/s against TP 1 "
+            f"{runs[1]['tok_s']:.2f} ({runs[2]['tok_s'] / runs[1]['tok_s']:.3f}"
+            f"x); TTFT p50 {runs[2]['ttft_s']['p50']:.4f} against "
+            f"{runs[1]['ttft_s']['p50']:.4f} s; pool bytes per position "
+            f"{runs[2]['pool_bytes_per_device']} of "
+            f"{runs[1]['pool_bytes']}; first-token logits {gap:.3e} of the "
+            f"row's largest (limit {MESH_LOGIT_TOL}); first tokens "
+            f"equal {first_same}/8, generated tokens {same:.3f}")
+        if not gap <= MESH_LOGIT_TOL:
+            raise AssertionError(f"{label}: TP 2 first-token logits "
+                                 f"{gap:.4f} of the largest from TP 1's")
+        for r in runs.values():
+            r.pop("done")
+        out[label] = dict(runs=runs, logit_gap=gap, agreement=same,
+                          first_equal=first_same)
+    params = built = None
+    _free()
+    a = serve_args("full", **dict(ROUTER_TRAFFIC, requests=8))
+    cfg, params = _build(a)
+    c = _router_run(f"full KV router 2 x TP 2 raise@{CHAOS_STEP}:1", a, cfg,
+                    params, chaos=f"raise@{CHAOS_STEP}:1",
+                    meshes=_card_meshes(2))
+    cnt = c["counters"]
+    if c["kill"].get("replica") != 1 or cnt["quarantined"] != 1 or \
+            cnt["failed"]:
+        raise AssertionError(f"mesh router: kill {c['kill'].get('replica')}"
+                             f", counters {cnt}")
+    _expect_launches("mesh router", c["counts"], {
+        "paged_gather": (2 * 2 * cfg.n_layers * c["steps"], True),
+        "spinner": (0, True), "srf_decode": (0, True)})
+    log(f"  full KV router, 2 replicas x TP 2 of 4 slots, 8 requests, "
+        f"replica 1 raise@{CHAOS_STEP}: {c['tok_s']:.2f} tok/s, TTFT p50 "
+        f"{c['ttft_s']['p50']:.4f} s, counters {cnt}, {c['steps']} steps, "
+        f"peak {c['peak']:.2f} GiB; revived, no leaks")
+    out["router"] = {k: c[k] for k in ("tok_s", "ttft_s", "counters",
+                                       "steps", "counts")}
+    del params
+    _free()
+    arch = "seamless-m4t-large-v2"
+    a = serve_args("full", arch=arch, **FAMILY_TRAFFIC)
+    cfg, params = _build(a)
+    _warm_mesh(a, cfg, params, mesh)
+    eng = serve.engine(a, cfg, params, mesh=mesh)
+    res = _family_run(f"{arch} full KV TP 2", a, cfg, params, eng=eng)
+    _mesh_launches(f"{arch} TP 2", "encdec", cfg, res["counts"], [eng], 2)
+    rep = eng.cache_report()
+    log(f"    pool bytes per position {rep['pool_bytes_per_device']} of "
+        f"{rep['pool_bytes']} (memory pool {rep['memory_pool_bytes']}, "
+        f"replicated)")
+    res.pop("done")
+    out["seamless"] = res
+    del eng, params
+    _free()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train
 # ---------------------------------------------------------------------------
 
@@ -3989,6 +4467,96 @@ def phase_train_vlm():
     return out
 
 
+def phase_train_compressed(train_vlm):
+    """``Trainer(mesh=...)`` with ``compress_dp`` (grad step, the
+    structured-JL compressed mean over the mesh's ``pod`` axis, AdamW, the
+    error state carried) on a (pod 2, data 1, model 1) mesh of the card
+    repeated: reduced qwen3-4b (f32, 2 layers), 5 steps from the same
+    params on the card and on the CPU, losses within rtol 1e-4; then
+    full-width qwen2-vl-2b (bf16, full attention, B = 2 x 2048, remat
+    full), 3 compressed steps of the Trainer's step beside
+    ``phase_train_vlm``'s plain ones: step ms, peak memory and
+    ``compression.wire_bytes``' ratio printed. Returns the record."""
+    from repro_torch.configs import registry
+    from repro_torch.data.loader import device_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.profile_train import step_rates, timed
+    from repro_torch.models import transformer as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compression as comp_lib
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def pods(device):
+        return mesh_lib.make_mesh((2, 1, 1), ("pod", "data", "model"),
+                                  devices=[torch.device(device)] * 2)
+    cfg = registry.reduced("qwen3-4b", n_layers=2)
+    base = model_lib.init(cfg, seed=3, device="cpu")
+    losses = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cpu", "cuda"):
+            tr = Trainer(cfg, TrainerConfig(
+                num_steps=5, batch=4, seq=32, log_every=1, ckpt_every=100,
+                ckpt_dir=os.path.join(tmp, device), device=device,
+                compress_dp=True, hyper=steps.TrainHyper(
+                    lr=1e-2, warmup=2, total_steps=5)),
+                mesh=pods("cuda:0" if device == "cuda" else "cpu"))
+            tr.params = model_lib.requires_grad(_to(base, device, copy=True))
+            tr.opt_state = adamw.init(tr.params)
+            tr.err = comp_lib.init_error(tr.params)
+            losses[device] = [r["loss"] for r in tr.train()["log"]]
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"compressed training: card losses "
+                                 f"{losses['cuda']} != CPU {losses['cpu']}")
+    log(f"  reduced qwen3-4b, Trainer(mesh=pod 2) compress_dp, 5 steps: "
+        f"card losses {[round(x, 6) for x in losses['cuda']]} == CPU "
+        f"{[round(x, 6) for x in losses['cpu']]} within rtol 1e-4")
+    v = VLM_TRAIN
+    cfg = registry.get(v["arch"], attn_impl="full")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, TrainerConfig(
+            num_steps=v["n_steps"], batch=v["batch_size"], seq=v["seq"],
+            ckpt_dir=tmp, device="cuda", compress_dp=True,
+            hyper=steps.TrainHyper(lr=3e-4, warmup=1,
+                                   total_steps=v["n_steps"])),
+            mesh=pods("cuda:0"))
+        torch.cuda.synchronize()
+        _describe(cfg, tr.params, t0)
+        raw, comp = comp_lib.wire_bytes(tr.params, tr.tcfg.compression)
+        it = iter(tr.loader.reset(0))
+        torch.cuda.reset_peak_memory_stats()
+        times, ls = [], []
+        for i in range(v["n_steps"]):
+            step_i, host = next(it)
+            batch = device_batch(host, "cuda")
+            (tr.params, tr.opt_state, m), sec = timed(
+                tr._step_fn, tr.params, tr.opt_state, i, batch)
+            times.append(sec)
+            ls.append(float(m["loss"]))
+        tr.loader.stop()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        err_bytes = sum(t.numel() * t.element_size()
+                        for t in _leaves(tr.err))
+        del tr, m
+        _free()
+    if not all(math.isfinite(x) for x in ls):
+        raise AssertionError(f"compressed qwen2-vl-2b: losses {ls}")
+    rates = step_rates(cfg, v["batch_size"], v["seq"],
+                       statistics.median(times[1:]))
+    plain = train_vlm["full"]
+    log(f"  qwen2-vl-2b full attention, compressed pod mean (pod 2 on one "
+        f"card): losses {[round(x, 4) for x in ls]}, step "
+        f"{rates['step_ms']:.1f} ms (median of steps 2-{v['n_steps']}; "
+        f"first {1e3 * times[0]:.1f}) against plain {plain['step_ms']:.1f} "
+        f"ms; peak {peak:.2f} GiB against {plain['peak_gib']:.2f}; error "
+        f"state {err_bytes} B; wire bytes {raw} -> {comp} "
+        f"({raw / comp:.3f}x)")
+    return dict(losses=ls, peak_gib=peak, wire_raw=raw, wire_comp=comp,
+                err_bytes=err_bytes, **rates)
+
+
 def phase_train_resume():
     """The reference test ``tests/test_trainer_ft.py``'s crash-and-resume
     on the card, under deterministic algorithms: reduced qwen3-4b (2
@@ -4103,7 +4671,7 @@ def _record(name, source, replaces, launches, rec, shape):
     extra = {k: v for k, v in rec.items() if k.startswith((
         "one_pool_", "two_single_", "train_", "dispatch_", "router_",
         "hymba_", "dense_", "moonshot_", "deepseek_", "qwen2vl_",
-        "seamless_"))}
+        "seamless_", "tp2_"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -4142,6 +4710,7 @@ def main() -> int:
     hymba_k = phase_hymba_kernels(gen)
     moe_k = phase_moe_mla_kernels(gen)
     vlm_k = phase_vlm_encdec_kernels(gen)
+    mesh_k = phase_mesh_kernels(gen)
 
     log("phase 3: the kernel-estimation library")
     phase_estimators(gen)
@@ -4179,10 +4748,14 @@ def main() -> int:
     mla = phase_serve_mla()
     vlm = phase_serve_vlm()
     encdec = phase_serve_encdec()
+    _free()
+    phase_reduced_mesh()
+    mesh = phase_serve_mesh()
 
     log("phase 5: train")
     train = phase_train_full()
     train_vlm = phase_train_vlm()
+    phase_train_compressed(train_vlm)
     phase_train_resume()
     phase_train_agreement()
 
@@ -4268,6 +4841,15 @@ def main() -> int:
         "(128 + 32), each with its own 1024 x 160 features"
     vl_g = mg + ", D=2*128, 28 layer pools cycled, bf16"
     sm_g = mg + ", D=16*64, 24 layer pools cycled"
+    tp2_of = "full-width qwen3-4b at TP 2 on a mesh of the card repeated " \
+        "(every shard's launches), 8 requests x (128 + 32)"
+
+    def tp2(prefix, key, runs, kernel, shape):
+        """The kernel at its TP 2 shard shape (``phase_mesh_kernels``)
+        and its launches in the TP 2 serve runs (``phase_serve_mesh``)."""
+        return family(prefix, mesh_k[key],
+                      {run: (mesh[run]["runs"][2], kernel) for run in runs},
+                      shape, tp2_of)
     kernels = [
         _record("spinner", src + "spinner.cu",
                 "src/repro/kernels/spinner.py:111", srf["spinner"],
@@ -4321,7 +4903,12 @@ def main() -> int:
                           vlm_k["seamless encoder key"],
                           {"SRF": (encdec["SRF"], "spinner")},
                           "encoder key: G=16, B=1024, n=64, m=256, HD, "
-                          "bf16, exp", sm_of)},
+                          "bf16, exp", sm_of),
+                 **tp2("tp2", "spinner", ("SRF",), "spinner",
+                       "decode query: G=4 kv heads of a shard, B=32, n=128, "
+                       "m=256, HD, bf16, identity"),
+                 **tp2("tp2_key", "spinner key", ("SRF",), "spinner",
+                       "decode key: G=4, B=8, n=128, m=256, HD, bf16, exp")},
                 "decode query: G=8, B=32, n=128, m=256, bf16, identity"),
         _record("srf_decode", src + "srf_decode.cu",
                 "src/repro/kernels/srf_decode.py:26", srf["srf_decode"],
@@ -4340,7 +4927,10 @@ def main() -> int:
                           "B=8, H=12, m=256, dv=128, f32", vl_of),
                  **family("seamless", vlm_k["seamless srf_decode"],
                           {"SRF": (encdec["SRF"], "srf_decode")},
-                          "B=8, H=16, m=256, dv=64, f32", sm_of)},
+                          "B=8, H=16, m=256, dv=64, f32", sm_of),
+                 **tp2("tp2", "srf_decode", ("SRF", "seeded SRF"),
+                       "srf_decode", "B=8, H=16 q heads of a shard, m=256, "
+                       "dv=128, f32")},
                 "B=8, H=32, m=256, dv=128, f32"),
         _record("paged_gather", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:28",
@@ -4382,7 +4972,21 @@ def main() -> int:
                           "(enc_len), D=1024 (d_model), R=8 distinct slots, M=1 (a 2 MiB "
                           "page through a width-1 table), 8 pools cycled, "
                           "bf16", sm_of + " (the memory gather alone: 1 a "
-                          "step)")},
+                          "step)"),
+                 **tp2("tp2", "paged_gather", ("full KV",), "paged_gather",
+                       mg + ", D=4*128 (a shard's kv heads), 36 layer pools "
+                       "cycled, bf16"),
+                 **family("tp2_seamless", mesh_k["seamless paged_gather"],
+                          {"full KV": (mesh["seamless"], "paged_gather")},
+                          mg + ", D=8*64 (a shard's heads), 24 layer pools "
+                          "cycled, bf16", "full-width seamless-m4t-large-v2 "
+                          "at TP 2, 8 requests x (128 + 32): K, V of each "
+                          "shard and the replicated memory"),
+                 "tp2_router_launches": mesh["router"]["counts"][
+                     "paged_gather"],
+                 "tp2_router_launches_of": "full-width full-KV router, 2 "
+                                           "replicas x TP 2, 8 requests, "
+                                           "replica 1 raising at step 12"},
                 decode + ", bf16"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
@@ -4406,7 +5010,10 @@ def main() -> int:
                           {"int8 pages": (encdec["int8 pages"],
                                           "paged_gather_dequant_kv")},
                           sm_g + ", int8 -> bf16, K and V in one launch",
-                          sm_of)},
+                          sm_of),
+                 **tp2("tp2", "paged_gather_dequant", ("int8 pages",),
+                       "paged_gather_dequant_kv", mg + ", D=4*128, 36 layer "
+                       "pools cycled, int8 -> bf16, K and V in one launch")},
                 decode + ", int8 -> bf16, a layer's K and V in one launch "
                 "(paged_gather_dequant_kv, as the int8 serve run launches "
                 "it); plain_ms: two plain calls; one_pool_*: the "
@@ -4418,7 +5025,14 @@ def main() -> int:
                  **train_extra("seeded spinner",
                                train["srf seeded"]["counts"],
                                "spinner_seeded", f"full-width seeded-SRF "
-                               f"training, {TRAIN_STEPS} steps")},
+                               f"training, {TRAIN_STEPS} steps"),
+                 **tp2("tp2", "seeded_spinner", ("seeded SRF",),
+                       "spinner_seeded", "decode query: G=32 (a shard's 4 kv "
+                       "heads x 8 requests), B=4, n=128, m=256, bf16, "
+                       "identity"),
+                 **tp2("tp2_key", "seeded_spinner key", ("seeded SRF",),
+                       "spinner_seeded", "decode key: G=32, B=1, n=128, "
+                       "m=256, bf16, exp")},
                 "decode query: G=64 (8 kv heads x 8 requests), B=4, n=128, "
                 "m=256, bf16, identity"),
         _record("fwht", src + "fwht.cu", "src/repro/kernels/fwht.py:25",

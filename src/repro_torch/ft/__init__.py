@@ -1,2 +1,2 @@
 """Fault tolerance of training (port of ``repro.ft``): the straggler
-watchdog. ``ft.elastic`` comes with the mesh slice."""
+watchdog and elastic resharding (``ft.elastic``)."""

@@ -9,7 +9,7 @@ over engine replicas (``--replicas``), or the legacy per-slot engine
         --max-len 128 --seed 0] [--temperature 0 --top-k 0 --top-p 1] \
         [--policy fcfs|priority] [--deadline S] \
         [--quality-every 64 --quality-tol 0.5] [--legacy] \
-        [--replicas 1 --ft --chaos KIND@STEP[:REPLICA]] \
+        [--replicas 1 --model-parallel 1 --ft --chaos KIND@STEP[:REPLICA]] \
         [--metrics --metrics-every 2 --metrics-out FILE] \
         [--kernel-timing] [--trace-out FILE] [--reduced] [--device cuda]
 
@@ -50,7 +50,12 @@ rescue and replay of the quarantined replica's requests,
 ``serving/ft.py``), and ``--chaos KIND@STEP[:REPLICA]`` injects one
 scripted fault (``raise``, ``hang``, ``reject`` or ``oom``; replica
 default: the last) through the test-only harness ``serving/chaos.py``.
-``--model-parallel`` above 1 is a usage error until the mesh slice.
+``--model-parallel W`` (W > 1) serves through the router over
+``--replicas`` mesh-sharded engines (``Engine(mesh=...)``), one
+('data', 'model') mesh of W devices each from
+``launch.mesh.make_serving_meshes``: the visible cards, or with
+``--device cpu`` CPU positions. Too few cards raise ``ValueError``, as
+in the reference.
 
 Telemetry: the engine (every replica, and the router) records into one
 ``obs.MetricsRegistry``.
@@ -82,6 +87,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import registry
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import frontends
 from repro_torch.models import transformer as model_lib
 from repro_torch.obs import export as trace_export
@@ -140,8 +146,8 @@ def parser() -> argparse.ArgumentParser:
                     help="router-managed engine replicas (all on "
                          "--device)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model-axis TP width per replica (above 1: not "
-                         "ported yet, a usage error)")
+                    help="model-axis TP width per replica (mesh-sharded "
+                         "engines behind the router)")
     ap.add_argument("--ft", action="store_true",
                     help="fault-tolerant router: replica health watchdog "
                          "+ failover with request rescue (multi-replica)")
@@ -214,10 +220,11 @@ def prefix_config(args) -> Optional[PrefixConfig]:
                         chunk=ChunkConfig(chunk_tokens=args.chunk_tokens))
 
 
-def engine(args, cfg, params, metrics=None, spans=None):
+def engine(args, cfg, params, metrics=None, spans=None, mesh=None):
     """The paged engine the arguments ask for (recording into
-    ``metrics`` and ``spans`` when given), or with ``args.legacy`` the
-    legacy per-slot engine (which records neither)."""
+    ``metrics`` and ``spans`` when given; sharded over ``mesh`` when
+    given), or with ``args.legacy`` the legacy per-slot engine (which
+    records neither)."""
     if args.legacy:
         from repro_torch.serving import legacy
         return legacy.Engine(cfg, params, batch_slots=args.slots,
@@ -229,12 +236,14 @@ def engine(args, cfg, params, metrics=None, spans=None):
                   prefix=prefix_config(args),
                   quality_every=args.quality_every,
                   quality_tol=args.quality_tol, metrics=metrics,
-                  spans=spans)
+                  spans=spans, mesh=mesh)
 
 
-def router(args, cfg, params, metrics=None, recorders=None, rep=None):
+def router(args, cfg, params, metrics=None, recorders=None, rep=None,
+           meshes=None):
     """``args.replicas`` paged engines (engine i seeded ``args.seed`` + i,
-    recording into ``recorders[i]`` when given) behind a ``Router`` that
+    sharded over ``meshes[i]`` when given, recording into
+    ``recorders[i]`` when given) behind a ``Router`` that
     records into ``metrics`` and, past the replicas' recorders, into one
     recorder of its own; with ``args.ft`` fault-tolerant, and with
     ``args.chaos`` one replica wrapped in the test-only fault injector
@@ -244,7 +253,8 @@ def router(args, cfg, params, metrics=None, recorders=None, rep=None):
         a = copy.copy(args)
         a.seed = args.seed + i
         engines.append(engine(a, cfg, params, metrics=metrics,
-                              spans=recorders[i] if recorders else None))
+                              spans=recorders[i] if recorders else None,
+                              mesh=meshes[i] if meshes else None))
     if args.chaos:
         from repro_torch.serving.chaos import ChaosEngine, ChaosPlan
         spec, _, rep_s = args.chaos.partition(":")
@@ -316,10 +326,12 @@ def warm(args, cfg, params) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        ap.error("--model-parallel above 1 needs a mesh, which is not "
-                 "ported yet")
-    routed = args.replicas > 1 and not args.legacy
+    routed = (args.replicas > 1 or args.model_parallel > 1) \
+        and not args.legacy
+    meshes = (mesh_lib.make_serving_meshes(args.replicas,
+                                           args.model_parallel,
+                                           device=args.device)
+              if routed and args.model_parallel > 1 else None)
     rep = Reporter()
     metrics = obs.MetricsRegistry()
     tracing = args.trace_out is not None and not args.legacy
@@ -332,7 +344,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg, params = build(args)
         if routed:
             eng = router(args, cfg, params, metrics=metrics,
-                         recorders=recorders, rep=rep)
+                         recorders=recorders, rep=rep, meshes=meshes)
         else:
             eng = engine(args, cfg, params, metrics=metrics,
                          spans=recorders[0] if tracing else None)

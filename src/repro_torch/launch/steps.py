@@ -1,7 +1,6 @@
-"""Step factories: port of ``repro.launch.steps`` but the paged and
-mesh factories (``TrainHyper``, ``make_train_step``,
-``make_grad_step``, ``make_prefill_step``, ``make_serve_step``,
-``make_encode_step``). Each
+"""Step factories: port of ``repro.launch.steps`` (``TrainHyper``,
+``make_train_step``, ``make_grad_step``, ``make_prefill_step``,
+``make_serve_step``, ``make_encode_step``, ``make_paged_step``). Each
 step is one eager function. A training step: forward and loss,
 ``torch.autograd.grad`` over the float params, the schedule, AdamW. The
 serve steps drive the legacy engine's per-slot cache.
@@ -88,6 +87,63 @@ def make_encode_step(cfg):
     def encode_step(params, enc_emb):
         return model.encode_memory(params, cfg, enc_emb)
     return encode_step
+
+
+def make_paged_step(cfg, mesh=None, paged=None, params_sds=None):
+    """Batched paged serving step (decode: C = 1; chunked prefill: C =
+    chunk): (params, pools, tokens (B, C), positions (B, C), q_valid
+    (B, C), tables (B, M), slots (B,), embed_seeds=None) -> (logits (B,
+    C, V_padded), pools), ``transformer.paged_step``; the pools are
+    updated in place. ``embed_seeds`` (B,): seeded SRF's per-request
+    projection seeds.
+
+    ``mesh``: mesh-sharded serving. When the family's head counts divide
+    the mesh's model axis (``serving.mesh.shard.paged_tp``), the step
+    takes the ``ShardedTree`` s of ``shard.place_params`` and
+    ``paged_cache.init_pools(mesh=)``: q/k/v column-parallel, pools the
+    local head blocks, the body under the shard-local config with the
+    model axis as ``tp_axis`` (attention stitches the head outputs
+    before the replicated wo, so greedy tokens equal the unsharded
+    engine's). Families that degrade to replication (MLA latents, SSD,
+    indivisible heads) run the plain body on the mesh's home device.
+    ``paged`` (its int8 scale leaves) and ``params_sds`` (any tree of
+    the params' shapes) give the layouts the step checks its inputs
+    against at its first call."""
+    def plain(params, pools, tokens, positions, q_valid, tables, slots,
+              embed_seeds=None):
+        return model.paged_step(params, cfg, pools, tokens, positions,
+                                q_valid, tables, slots,
+                                embed_seeds=embed_seeds)
+    if mesh is None:
+        return plain
+    from repro_torch.distributed import collectives
+    from repro_torch.serving.mesh import shard as mesh_shard
+    tp = mesh_shard.paged_tp(cfg, mesh)
+    if tp <= 1:
+        return plain                    # replication degradation
+    cfg_local = mesh_shard.local_cfg(cfg, tp)
+    axis = collectives.axis_of(mesh, "model")
+    want = {"pools": mesh_shard.pool_specs(cfg, mesh, paged)}
+    if params_sds is not None:
+        want["params"] = mesh_shard.serving_param_specs(params_sds, cfg,
+                                                        mesh)
+    checked = []
+
+    def sharded(params, pools, tokens, positions, q_valid, tables, slots,
+                embed_seeds=None):
+        if not checked:
+            got = {"pools": pools.specs, "params": params.specs}
+            for k, spec in want.items():
+                if tree_lib.leaves(spec) != tree_lib.leaves(got[k]):
+                    raise ValueError(f"the {k} are not laid out for this "
+                                     f"mesh step")
+            checked.append(True)
+        logits, _ = model.paged_step(params.parts, cfg_local, pools.parts,
+                                     tokens, positions, q_valid, tables,
+                                     slots, embed_seeds=embed_seeds,
+                                     tp_axis=axis)
+        return logits, pools
+    return sharded
 
 
 def make_serve_step(cfg):

@@ -18,8 +18,9 @@ and f32 AdamW moments, about 53 GB. It runs on the card unless
 Weights are random from ``--seed``; the data is the synthetic stream
 of ``data.synth``. Resumes from the latest committed checkpoint in
 ``--ckpt-dir`` (default: ``repro_torch_ckpt`` in the temporary
-directory). ``--compress-dp`` needs a mesh, which the port does not have
-yet: it is refused with a usage error. All output goes through
+directory). ``--compress-dp`` is accepted and, as in the reference's
+CLI, which builds no mesh, trains plainly (``Trainer(mesh=...)`` runs
+the compressed cross-pod mean). All output goes through
 ``obs.report.Reporter``.
 """
 from __future__ import annotations
@@ -58,7 +59,7 @@ def parser() -> argparse.ArgumentParser:
                     help="seeded SRF projections (needs --attn srf)")
     ap.add_argument("--compress-dp", action="store_true",
                     help="structured-JL compressed cross-pod gradients "
-                         "(needs a mesh: not ported, refused)")
+                         "(no mesh here: trains plainly, as the reference)")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
@@ -76,15 +77,13 @@ def trainer(args) -> Trainer:
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         hyper=TrainHyper(lr=args.lr, warmup=min(50, args.steps // 5 + 1),
                          total_steps=args.steps),
-        device=args.device)
+        compress_dp=args.compress_dp, device=args.device)
     return Trainer(cfg, tcfg)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.compress_dp:
-        ap.error("--compress-dp needs a mesh, which is not ported yet")
     if args.seeded_srf and args.attn != "srf":
         ap.error("--seeded-srf needs --attn srf")
     if args.device == "cuda" and not torch.cuda.is_available():

@@ -59,8 +59,19 @@ prefill of a batch with ``pos3``); the serving paths get none and use
 encoder's bidirectional attention (softmax, or SRF's
 ``attention_noncausal``); ``cross_attention`` and
 ``paged_cross_attention`` attend an enc-dec decoder layer to the
-encoder memory. Not ported yet (it raises NotImplementedError): mesh
-tensor parallelism (``tp_axis``).
+encoder memory.
+
+Mesh tensor parallelism (``cache["tp_axis"]`` in paged mode, the
+``tp_axis`` of ``cross_attention``; a ``distributed.collectives.Axis``):
+``p`` and the pools are then per-shard lists (one tree a position of the
+axis) and ``cfg`` the shard-local config (``serving.mesh.shard.local_cfg``).
+Each shard projects, caches and attends its own heads through its own
+column-parallel wq / wk / wv and pools (the kernels run at the local
+shapes), the head outputs are stitched in shard order
+(``collectives.stitch_heads``) and the replicated wo contracts them on
+the home device, in the single-device order. Int8 pages take one scale
+a token over ALL heads: the row maxima are the max over the shards'
+(``collectives.pmax``), so every shard stores the same scale.
 
 Unlike the reference, which returns new pools and caches, every cached
 path writes IN PLACE and ``attention`` returns the output alone: the
@@ -82,14 +93,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import srf_attention as srf
 from repro_torch.core.srf_attention import SRFConfig
 from repro_torch.core.transforms import is_pow2
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops as kops
 
 from . import layers
-
-NOT_IN_SLICE = ("not ported yet: the PyTorch port runs every family of "
-                "the registry on one card; the mesh (tensor parallelism, "
-                "sharded pools) is still to come (ROADMAP.md, item 4)")
-
 
 def v_dim(cfg) -> int:
     """Width of a head's value (the SRF state's dv)."""
@@ -300,12 +307,19 @@ def _paged_hist_dq_kv(pool: Dict[str, torch.Tensor], tables: torch.Tensor,
     return k.view(shape), v.view(shape)
 
 
-def _quantize_paged_kv(x: torch.Tensor):
+def _row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, hd) chunk rows -> (B, C) f32 max|x| over heads and dims."""
+    return x.float().abs().amax(dim=(-2, -1))
+
+
+def _quantize_paged_kv(x: torch.Tensor, mx: Optional[torch.Tensor] = None):
     """(B, C, Hkv, hd) chunk rows -> (int8 rows, (B, C, 1) f32 scales):
     one scale per cached token, max|x| / 127 floored at 1e-8, values
-    rounded half to even and clipped to +-127."""
+    rounded half to even and clipped to +-127. ``mx`` (B, C): the row
+    maxima over every head, where ``x`` holds one shard's heads."""
     xf = x.float()
-    mx = xf.abs().amax(dim=(-2, -1))
+    if mx is None:
+        mx = _row_absmax(x)
     s = torch.clamp(mx / 127.0, min=1e-8)[..., None]           # (B, C, 1)
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
     return q.to(torch.int8), s
@@ -333,18 +347,22 @@ def _paged_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _paged_full(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                positions: torch.Tensor, ctx: Dict) -> torch.Tensor:
+                positions: torch.Tensor, ctx: Dict,
+                absmax: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
     """Full-KV paged path: scatter the chunk's k/v into the pages (in
     place), gather the whole table width (M*P columns), attend. Decode
     (C=1) and chunked prefill alike; bf16/f32 pools, or int8 pools
     (detected by their scale leaves) with the dequant fused into the
-    gather."""
+    gather. ``absmax``: the k and v row maxima over all heads (a
+    shard's call under tensor parallelism)."""
     pool, tables, q_valid = ctx["pool"], ctx["tables"], ctx["q_valid"]
     kt = k.transpose(1, 2)                             # (B, C, Hkv, hd)
     vt = v.transpose(1, 2)
     if "k_scale" in pool:
-        for name, rows in (("k", kt), ("v", vt)):
-            qr, sc = _quantize_paged_kv(rows)
+        for j, (name, rows) in enumerate((("k", kt), ("v", vt))):
+            qr, sc = _quantize_paged_kv(
+                rows, None if absmax is None else absmax[j])
             _paged_scatter(pool[name], qr, tables, positions, q_valid)
             _paged_scatter(pool[f"{name}_scale"], sc, tables, positions,
                            q_valid)
@@ -470,33 +488,10 @@ def _feature_maps(sc: SRFConfig, p, cache: Optional[Dict],
             srf.feature_map_folded(sc, folded, k, is_query=False))
 
 
-def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
-              cache: Optional[Dict] = None,
-              pos3: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """GQA or MLA attention: (B, L, d) -> (B, L, d).
-
-    ``mode="paged"``: one serving step; ``cache["pool"]`` is the layer's
-    KV page pool (full), latent page pool (MLA) or slot pool (srf),
-    updated in place.
-    ``mode="train"``: causal attention over the whole sequence, no cache
-    (full softmax, or SRF's causal linear attention); ``"encoder"``: the
-    same, bidirectional (softmax, or ``srf.attention_noncausal``).
-    ``mode="prefill"`` / ``"decode"``: the prompt, or one new token, of
-    every request of a batch against ``cache`` (``init_cache``), which
-    is written in place and its ``idx`` advanced.
-    ``pos3`` (3, B, L): the (t, h, w) position rows of an M-RoPE config
-    (``layers.apply_m_rope``); without it, or for another config, 1-D
-    RoPE at ``positions``."""
-    if mode not in ("paged", "train", "encoder", "prefill", "decode"):
-        raise ValueError(f"attention mode {mode!r}")
-    if mode not in ("train", "encoder") and cache is None:
-        raise ValueError(f"attention mode {mode!r} needs a cache")
-    if cache is not None and cache.get("tp_axis"):
-        raise NotImplementedError(f"tensor-parallel attention (tp_axis) is "
-                                  f"{NOT_IN_SLICE}")
-    if cfg.is_mla:
-        return _merge_heads(_mla_attention(p, cfg, x, positions, mode,
-                                           cache)) @ p["wo"]
+def _qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor,
+         pos3: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Roped, normed per-head q (B, Hq, L, hd), k, v (B, Hkv, L, hd)."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -514,16 +509,12 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     else:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    if cfg.attn_impl != "srf":
-        scale = 1.0 / math.sqrt(cfg.head_dim)
-        if mode in ("train", "encoder"):
-            out = _softmax_attn(q, k, v, scale, causal=mode == "train")
-        elif mode == "paged":
-            out = _paged_full(cfg, q, k, v, positions, cache)
-        else:
-            out = _full_cached(q, k, v, scale, mode, cache)
-        return _merge_heads(out) @ p["wo"]
+    return q, k, v
 
+
+def _srf_heads(p, cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mode: str, cache: Optional[Dict]) -> torch.Tensor:
+    """SRF attention of roped q, k, v in every mode -> (B, Hq, L, dv)."""
     sc = srf_cfg(cfg)
     g = cfg.n_heads // cfg.n_kv_heads
     b, hq, l, hd = q.shape
@@ -533,15 +524,95 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
     phi_k = _repeat_kv(phi_k, g)
     vr = _repeat_kv(v, g)
     if mode == "train":
-        out = srf.attention_causal(sc, phi_q, phi_k, vr)
-    elif mode == "encoder":
-        out = srf.attention_noncausal(phi_q, phi_k, vr)
+        return srf.attention_causal(sc, phi_q, phi_k, vr)
+    if mode == "encoder":
+        return srf.attention_noncausal(phi_q, phi_k, vr)
+    if mode == "paged":
+        return _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k, vr,
+                          cache["q_valid"])
+    return _srf_cached(sc, phi_q, phi_k, vr, mode, cache)
+
+
+def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, mode: str,
+              cache: Optional[Dict] = None,
+              pos3: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA or MLA attention: (B, L, d) -> (B, L, d).
+
+    ``mode="paged"``: one serving step; ``cache["pool"]`` is the layer's
+    KV page pool (full), latent page pool (MLA) or slot pool (srf),
+    updated in place; with ``cache["tp_axis"]``, per-shard lists of
+    params and pools (module docstring).
+    ``mode="train"``: causal attention over the whole sequence, no cache
+    (full softmax, or SRF's causal linear attention); ``"encoder"``: the
+    same, bidirectional (softmax, or ``srf.attention_noncausal``).
+    ``mode="prefill"`` / ``"decode"``: the prompt, or one new token, of
+    every request of a batch against ``cache`` (``init_cache``), which
+    is written in place and its ``idx`` advanced.
+    ``pos3`` (3, B, L): the (t, h, w) position rows of an M-RoPE config
+    (``layers.apply_m_rope``); without it, or for another config, 1-D
+    RoPE at ``positions``."""
+    if mode not in ("paged", "train", "encoder", "prefill", "decode"):
+        raise ValueError(f"attention mode {mode!r}")
+    if mode not in ("train", "encoder") and cache is None:
+        raise ValueError(f"attention mode {mode!r} needs a cache")
+    if cache is not None and cache.get("tp_axis") is not None:
+        if mode != "paged":
+            raise ValueError(f"tensor-parallel attention (tp_axis) serves "
+                             f"the paged step only, not mode {mode!r}")
+        return _attention_tp(p, cfg, x, positions, cache)
+    if cfg.is_mla:
+        return _merge_heads(_mla_attention(p, cfg, x, positions, mode,
+                                           cache)) @ p["wo"]
+    q, k, v = _qkv(p, cfg, x, positions, pos3)
+    if cfg.attn_impl == "srf":
+        return _merge_heads(_srf_heads(p, cfg, q, k, v, mode, cache)) \
+            @ p["wo"]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if mode in ("train", "encoder"):
+        out = _softmax_attn(q, k, v, scale, causal=mode == "train")
     elif mode == "paged":
-        out = _paged_srf(cache["pool"], cache["slots"], phi_q, phi_k, vr,
-                         cache["q_valid"])
+        out = _paged_full(cfg, q, k, v, positions, cache)
     else:
-        out = _srf_cached(sc, phi_q, phi_k, vr, mode, cache)
+        out = _full_cached(q, k, v, scale, mode, cache)
     return _merge_heads(out) @ p["wo"]
+
+
+def _attention_tp(ps, cfg, x: torch.Tensor, positions: torch.Tensor,
+                  ctx: Dict) -> torch.Tensor:
+    """The paged step's attention over a mesh axis: each shard's heads
+    through its own params and pools (``ps``, ``ctx["pool"]`` and
+    ``ctx["srf_folded"]`` are per-shard lists; the rest of ``ctx``, x
+    and positions replicated), the head outputs stitched in shard order
+    and contracted with the replicated wo on the home device."""
+    axis = ctx["tp_axis"]
+    run = collectives.axis_shard_map
+    xs = collectives.broadcast(x, axis)
+    rest = collectives.broadcast(
+        {"positions": positions, "tables": ctx["tables"],
+         "slots": ctx["slots"], "q_valid": ctx["q_valid"]}, axis)
+    folded = ctx.get("srf_folded") or [None] * axis.size
+    ctxs = [{**r, "pool": pool, **({} if f is None else {"srf_folded": f})}
+            for r, pool, f in zip(rest, ctx["pool"], folded)]
+    if cfg.is_mla:
+        heads = run(lambda p, xx, c: _mla_attention(
+            p, cfg, xx, c["positions"], "paged", c), axis)(ps, xs, ctxs)
+    else:
+        qkv = run(lambda p, xx, c: _qkv(p, cfg, xx, c["positions"]),
+                  axis)(ps, xs, ctxs)
+        if cfg.attn_impl == "srf":
+            heads = run(lambda p, t, c: _srf_heads(p, cfg, *t, "paged", c),
+                        axis)(ps, qkv, ctxs)
+        else:
+            absmax = [None] * axis.size
+            if "k_scale" in ctxs[0]["pool"]:
+                kmax = collectives.pmax(
+                    [_row_absmax(k.transpose(1, 2)) for _, k, _ in qkv], axis)
+                vmax = collectives.pmax(
+                    [_row_absmax(v.transpose(1, 2)) for _, _, v in qkv], axis)
+                absmax = collectives.broadcast((kmax, vmax), axis)
+            heads = run(lambda t, c, am: _paged_full(
+                cfg, *t, c["positions"], c, am), axis)(qkv, ctxs, absmax)
+    return _merge_heads(collectives.stitch_heads(heads, axis)) @ ps[0]["wo"]
 
 
 def _mla_qkv(p, cfg, x: torch.Tensor, c: torch.Tensor, kpe: torch.Tensor,
@@ -627,23 +698,37 @@ def cross_attn_init(gen: torch.Generator, cfg, dtype, device=None,
             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
 
 
-def cross_attention(p, cfg, x: torch.Tensor, memory: torch.Tensor,
-                    tp_axis: Optional[str] = None) -> torch.Tensor:
-    """Exact softmax cross attention of x (B, L, d) over the encoder
-    memory (B, E, d): keys and values are ``memory @ wk`` and ``memory
-    @ wv``, recomputed at every call, as in the reference."""
-    if tp_axis:
-        raise NotImplementedError(f"tensor-parallel attention (tp_axis) is "
-                                  f"{NOT_IN_SLICE}")
+def _cross_heads(p, cfg, x: torch.Tensor, memory: torch.Tensor
+                 ) -> torch.Tensor:
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     k = _split_heads(memory @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(memory @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
-    out = _softmax_attn(q, k, v, 1.0 / math.sqrt(cfg.head_dim), causal=False)
-    return _merge_heads(out) @ p["wo"]
+    return _softmax_attn(q, k, v, 1.0 / math.sqrt(cfg.head_dim),
+                         causal=False)
+
+
+def cross_attention(p, cfg, x: torch.Tensor, memory: torch.Tensor,
+                    tp_axis: Optional[collectives.Axis] = None
+                    ) -> torch.Tensor:
+    """Exact softmax cross attention of x (B, L, d) over the encoder
+    memory (B, E, d): keys and values are ``memory @ wk`` and ``memory
+    @ wv``, recomputed at every call, as in the reference. With
+    ``tp_axis``, ``p`` is a per-shard list (column-parallel wq / wk /
+    wv, ``cfg`` shard-local): each shard attends its heads, stitched
+    before the replicated wo."""
+    if tp_axis is None:
+        return _merge_heads(_cross_heads(p, cfg, x, memory)) @ p["wo"]
+    heads = collectives.axis_shard_map(
+        lambda pp, xx, mm: _cross_heads(pp, cfg, xx, mm), tp_axis)(
+        p, collectives.broadcast(x, tp_axis),
+        collectives.broadcast(memory, tp_axis))
+    return _merge_heads(collectives.stitch_heads(heads, tp_axis)) \
+        @ p[0]["wo"]
 
 
 def paged_cross_attention(p, cfg, x: torch.Tensor, memory: torch.Tensor,
-                          tp_axis: Optional[str] = None) -> torch.Tensor:
+                          tp_axis: Optional[collectives.Axis] = None
+                          ) -> torch.Tensor:
     """Cross attention of the paged engine's step: ``memory`` holds the
     batch rows' encoder memories, gathered from the read-only memory
     pool. The same math as :func:`cross_attention`, row by row."""

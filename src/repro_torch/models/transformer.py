@@ -435,8 +435,8 @@ def decode_step(params, cfg, cache: Dict, tokens: torch.Tensor
 def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
                positions: torch.Tensor, q_valid: torch.Tensor,
                tables: torch.Tensor, slots: torch.Tensor,
-               embed_seeds: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Dict]:
+               embed_seeds: Optional[torch.Tensor] = None,
+               tp_axis=None) -> Tuple[torch.Tensor, Dict]:
     """One batched step against the pooled caches (serving hot path).
 
     tokens: (B, C) int — C = 1 for batched decode, C = prefill chunk for
@@ -460,38 +460,61 @@ def paged_step(params, cfg, pools: Dict, tokens: torch.Tensor,
     Every layer's seeds are folded with them once per step (one batched
     threefry, not one per layer), and each SRF layer's feature maps run
     on its folded seeds.
+
+    ``tp_axis`` (a ``distributed.collectives.Axis``): the step of a
+    model-axis-sharded engine (``launch.steps.make_paged_step(mesh=)``).
+    ``params`` and ``pools`` are then lists, one plain tree a position
+    of the axis (``ShardedTree.parts``), and ``cfg`` is the shard-local
+    config (``serving.mesh.shard.local_cfg``): self and cross attention
+    run per shard on the local heads, pools and folded seeds and stitch
+    their head outputs before the replicated wo; everything else (embed,
+    norms, MLP or experts, a hybrid layer's SSD part, the enc-dec
+    memory, the logits) runs once on the axis's home device, with the
+    first position's replicated leaves. A pure-SSM stack raises
+    ``ValueError``: its pools always replicate.
     """
+    tp = tp_axis is not None
+    if tp and any(kind == "ssm" for kind, _ in segments(cfg)):
+        raise ValueError("tp_axis is not supported for pure ssm stacks")
+    shards = params if tp else [params]
+    spools = pools if tp else [pools]
+    home = shards[0]
     dt = dtype_of(cfg)
-    x = hooks.constrain(layers.embed(params["embed"], tokens).to(dt),
+    x = hooks.constrain(layers.embed(home["embed"], tokens).to(dt),
                         "activation")
     memory = None
-    if pools.get("memory") is not None:
-        memory = attention._paged_hist(pools["memory"],
+    if spools[0].get("memory") is not None:
+        memory = attention._paged_hist(spools[0]["memory"],
                                        slots[:, None]).to(dt)
-    for seg_params, pseg, sseg, (kind, count) in zip(
-            params["segments"], pools["paged"], pools["slot"],
-            segments(cfg)):
+    for si, (kind, count) in enumerate(segments(cfg)):
+        segp = [sh["segments"][si] for sh in shards]
+        pseg = [sp["paged"][si] for sp in spools]
+        sseg = [sp["slot"][si] for sp in spools]
         folded = None
         if embed_seeds is not None and cfg.attn_impl == "srf" \
-                and "attn" in seg_params:
+                and "attn" in segp[0]:
             if not cfg.srf.seeded:
                 raise ValueError("embed_seeds requires SRFConfig.seeded="
                                  "True")
-            folded = srf.fold_embed(seg_params["attn"]["srf"], embed_seeds)
+            folded = [srf.fold_embed(sp["attn"]["srf"],
+                                     embed_seeds.to(sp["attn"]["srf"][0]
+                                                    ["seed"].device))
+                      for sp in segp]
         for i in range(count):
-            x = _paged_layer(tree_index(seg_params, i), cfg, kind, x,
-                             positions, q_valid,
-                             None if pseg is None else tree_index(pseg, i),
-                             None if sseg is None else tree_index(sseg, i),
-                             tables, slots,
-                             None if folded is None
-                             else tree_index(folded, i), memory)
-    return _logits(params, cfg, x), pools
+            def at(trees):
+                out = [None if t is None else tree_index(t, i)
+                       for t in trees]
+                return out if tp else out[0]
+            x = _paged_layer(at(segp), cfg, kind, x, positions, q_valid,
+                             at(pseg), at(sseg), tables, slots,
+                             None if folded is None else at(folded), memory,
+                             tp_axis)
+    return _logits(home, cfg, x), pools
 
 
 def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
                  lpaged, lslot, tables, slots,
-                 srf_folded=None, memory=None) -> torch.Tensor:
+                 srf_folded=None, memory=None, tp_axis=None) -> torch.Tensor:
     """Single-layer paged step (``layer_apply`` for serving); the
     attention pool (``lslot["attn"]`` for SRF, ``lpaged["attn"]`` for
     full KV or MLA latents) and the SSD pool (``lslot["ssm"]``) are
@@ -499,28 +522,35 @@ def _paged_layer(p, cfg, kind: str, x: torch.Tensor, positions, q_valid,
     step's embed seeds (seeded SRF). A moe layer routes with
     ``valid=q_valid``: padded chunk rows take no expert capacity; a
     dense_cross layer cross-attends to ``memory`` (the rows' gathered
-    encoder memories)."""
-    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    encoder memories). With ``tp_axis``, ``p``, ``lpaged``, ``lslot``
+    and ``srf_folded`` are per-shard lists (``paged_step``)."""
+    tp = tp_axis is not None
+    ps, lps, lss = (p, lpaged, lslot) if tp else ([p], [lpaged], [lslot])
+    h = layers.rmsnorm(ps[0]["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
         return x + ssm.paged_ssm_step(p["ssm"], cfg, h, q_valid,
                                       lslot["ssm"], slots)
-    attn_pools = lslot if cfg.attn_impl == "srf" else lpaged
-    ctx = {"pool": attn_pools["attn"], "tables": tables, "slots": slots,
-           "q_valid": q_valid}
+    attn_pools = lss if cfg.attn_impl == "srf" else lps
+    pool = [ap["attn"] for ap in attn_pools]
+    ctx = {"pool": pool if tp else pool[0], "tables": tables,
+           "slots": slots, "q_valid": q_valid}
     if srf_folded is not None:
         ctx["srf_folded"] = srf_folded
-    a = attention.attention(p["attn"], cfg, h, positions, "paged", ctx)
+    if tp:
+        ctx["tp_axis"] = tp_axis
+    a = attention.attention([sp["attn"] for sp in ps] if tp else p["attn"],
+                            cfg, h, positions, "paged", ctx)
     if kind == "hybrid":
-        s = ssm.paged_ssm_step(p["ssm"], cfg, h, q_valid, lslot["ssm"],
-                               slots)
-        x = x + _fuse(p, cfg, a, s)
+        s = ssm.paged_ssm_step(ps[0]["ssm"], cfg, h, q_valid,
+                               lss[0]["ssm"], slots)
+        x = x + _fuse(ps[0], cfg, a, s)
     else:
         x = x + a
     if kind == "dense_cross" and memory is not None:
         x = x + attention.paged_cross_attention(
-            p["cross"], cfg, layers.rmsnorm(p["ln_x"], x, cfg.norm_eps),
-            memory)
-    h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+            [sp["cross"] for sp in ps] if tp else p["cross"], cfg,
+            layers.rmsnorm(ps[0]["ln_x"], x, cfg.norm_eps), memory, tp_axis)
+    h2 = layers.rmsnorm(ps[0]["ln2"], x, cfg.norm_eps)
     if kind == "moe":
-        return x + moe.moe_apply(p["moe"], cfg, h2, valid=q_valid)[0]
-    return x + layers.mlp(p["mlp"], h2)
+        return x + moe.moe_apply(ps[0]["moe"], cfg, h2, valid=q_valid)[0]
+    return x + layers.mlp(ps[0]["mlp"], h2)

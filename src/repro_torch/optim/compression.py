@@ -16,8 +16,8 @@ The generators are drawn as the reference draws them:
 ``jax.random.normal`` under the key ``fold_in(fold_in(PRNGKey(seed),
 leaf index), step)``, through the port's threefry (``kernels.seedgen``:
 the same bits; the normals through ``torch.erfinv``, within a few ulp of
-XLA's). The reduction across pods that consumes the sketches
-(``distributed.collectives.compressed_pod_mean``) is not ported yet.
+XLA's). The reduction across pods that consumes the sketches is
+``distributed.collectives.compressed_pod_mean``.
 """
 from __future__ import annotations
 

@@ -56,10 +56,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.collectives import ShardedTree
 from repro_torch.kernels import seedgen
 from repro_torch.launch import steps as step_lib
-from repro_torch.models import attention as attn_lib
-from repro_torch.models import transformer as model_lib
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import quality as obs_quality
 from repro_torch.obs import spans as obs_spans
@@ -175,11 +174,9 @@ class Engine:
                  quality_every: int = 64,
                  quality_tol: float = obs_quality.DRIFT_TOL,
                  spans: Optional[obs_spans.SpanRecorder] = None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh-sharded serving is "
-                                      f"{attn_lib.NOT_IN_SLICE}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None else torch.device(device)
         self.plan = paged_cache.plan_for(cfg)
         self.paged = paged or paged_cache.PagedConfig()
         self.metrics = metrics if metrics is not None \
@@ -197,7 +194,13 @@ class Engine:
                                             sched.page_size,
                                             num_slots=self.sched.num_slots,
                                             device=self.device,
-                                            paged=self.paged)
+                                            paged=self.paged, mesh=mesh)
+        self._step = step_lib.make_paged_step(cfg, mesh=mesh,
+                                              paged=self.paged,
+                                              params_sds=params)
+        if mesh is not None:
+            from .mesh import shard as mesh_shard
+            params = mesh_shard.place_params(params, cfg, mesh)
         self.params = params
         # stateless sampling: the base key never advances; row noise is
         # keyed by fold_in(fold_in(base, uid), position)
@@ -321,7 +324,8 @@ class Engine:
         if self._steps_since_quality < self._quality_every:
             return
         self._steps_since_quality = 0
-        stats = obs_quality.srf_quality_probe(self.cfg, self.params)
+        params, head = self._probe_at(0)
+        stats = obs_quality.srf_quality_probe(self.cfg, params, head=head)
         if not stats:
             return
         gq = self.metrics.gauge("srf_quality", "live embedding row "
@@ -331,6 +335,22 @@ class Engine:
         if obs_quality.moments_drifted(stats, self._quality_tol):
             self.metrics.event("quality_drift", engine=self.engine_id,
                                tol=self._quality_tol, **stats)
+
+    def _home_params(self):
+        """The params the replicated work reads (the encoder's)."""
+        p = self.params
+        return p.parts[0] if isinstance(p, ShardedTree) else p
+
+    def _probe_at(self, head: int):
+        """(params, head) that hold P-model ``head`` of the quality probe:
+        the engine's params, or the shard holding that head and its
+        index there."""
+        p = self.params
+        if not isinstance(p, ShardedTree):
+            return p, head
+        n_pm = self.cfg.n_heads if self.cfg.is_mla else self.cfg.n_kv_heads
+        local = n_pm // p.tp
+        return p.parts[head // local], head % local
 
     # -- public API ---------------------------------------------------------
 
@@ -478,8 +498,8 @@ class Engine:
         (batch 1, the legacy engine's prefill computation) and write the
         memories into their slots of the memory pool in ONE batched
         in-place write."""
-        mem = self.pools["memory"]
-        rows = [self._encode(self.params, torch.as_tensor(
+        mem = paged_cache.home(self.pools)["memory"]
+        rows = [self._encode(self._home_params(), torch.as_tensor(
             np.asarray(s.req.enc_emb), device=self.device)[None])[0]
             for s in seqs]
         idx = torch.as_tensor([s.slot for s in seqs], dtype=torch.long,
@@ -519,8 +539,8 @@ class Engine:
         es = None
         if self._seeded_srf:
             es = torch.from_numpy(self._embed_seeds(seqs)).to(dev)
-        logits, self.pools = model_lib.paged_step(
-            self.params, self.cfg, self.pools,
+        logits, self.pools = self._step(
+            self.params, self.pools,
             torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
             torch.from_numpy(qv).to(dev), torch.from_numpy(tables).to(dev),
             torch.from_numpy(slots).to(dev), embed_seeds=es)

@@ -1,8 +1,8 @@
 """Request router over paged-serving engine replicas.
 
 Port of ``repro.serving.mesh.router``. Each replica is one
-:class:`~repro_torch.serving.engine.Engine`; in the port every replica
-lives on the one card (mesh-sharded replicas come with the mesh slice).
+:class:`~repro_torch.serving.engine.Engine`, plain or mesh-sharded
+(``Engine(mesh=...)``, one mesh a replica: ``launch.mesh.make_serving_meshes``).
 The router is host-side control plane, the scheduler/engine split one
 level up: engines own device state, the router decides which engine a
 request lives on.
@@ -44,6 +44,7 @@ from repro_torch.obs import spans as obs_spans
 from repro_torch.obs import trace as obs_trace
 
 from .. import ft as ft_lib
+from .. import paged_cache
 from ..engine import Engine, Request
 from ..scheduler import Sequence, tenant_of
 
@@ -250,20 +251,23 @@ class Router:
     @staticmethod
     def _pool_signature(eng: Engine):
         """Per domain and segment, the sorted (leaf path, dtype, row
-        shape) of every pool leaf: all that a snapshot's scatter must
-        agree on except the pools' page and slot counts. Leaves are
-        (layers, pages or slots, ...), so the row shape drops axis 1.
-        An enc-dec engine adds its memory pool's (dtype, row shape): the
-        snapshot carries the request's encoded memory."""
+        shape) of every pool leaf, in GLOBAL shapes: all that a
+        snapshot's scatter must agree on except the pools' page and slot
+        counts. Leaves are (layers, pages or slots, ...), so the row
+        shape drops axis 1. A snapshot holds global rows, so sharded and
+        unsharded replicas of one geometry take each other's. An enc-dec
+        engine adds its memory pool's (dtype, row shape): the snapshot
+        carries the request's encoded memory."""
         def seg_sig(seg):
             if seg is None:
                 return None
             return tuple(sorted(
                 (path, str(a.dtype), tuple(a.shape[:1] + a.shape[2:]))
                 for path, a in tree_lib.leaves_with_path(seg)))
-        sig = tuple(tuple(seg_sig(s) for s in eng.pools[dom])
+        pools = paged_cache.global_view(eng.pools)
+        sig = tuple(tuple(seg_sig(s) for s in pools[dom])
                     for dom in ("paged", "slot"))
-        mem = eng.pools.get("memory")
+        mem = pools.get("memory")
         if mem is not None:
             sig += ((str(mem.dtype), tuple(mem.shape[1:])),)
         return sig

@@ -42,6 +42,15 @@ is one preallocated tensor per leaf (every layer allocated on its own,
 never a broadcast view) that the model step and the helpers below update
 IN PLACE; the helpers return the same container for the reference's
 call shape.
+
+Mesh-sharded pools (``init_pools(..., mesh=)``, the layout of
+``serving.mesh.shard``) are a ``distributed.collectives.ShardedTree``:
+one container a position of the mesh's ``model`` axis. Every helper
+takes either form: COW copies and zeroing reach every shard's block
+(and each replicated tensor once), and a snapshot holds GLOBAL rows
+(the head blocks stitched in shard order), so it restores on a replica
+of another TP width. ``pool_bytes`` counts the global pools,
+``pool_bytes_per_device`` what one mesh position holds.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.collectives import ShardedTree
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as model_lib
@@ -241,13 +251,25 @@ def plan_for(cfg) -> PoolPlan:
 
 
 def init_pools(cfg, num_pages: int, page_size: int, num_slots: int = 0,
-               device="cuda", paged: Optional[PagedConfig] = None) -> Dict:
+               device="cuda", paged: Optional[PagedConfig] = None,
+               mesh=None):
     """The full pool container (layout in the module docstring) on
     ``device``: ``num_pages`` sizes the paged domain, ``num_slots`` the
     slot domain (and the enc-dec memory pool: one contiguous row a
     slot, so a slot's memory is one page for paged_gather). Each
     segment's leaves carry a leading layer axis and are allocated whole
-    (torch.zeros), so no two layers share storage."""
+    (torch.zeros), so no two layers share storage.
+
+    ``mesh``: lay the pools out on the mesh's ``model`` axis instead
+    (``serving.mesh.shard.place_pools``: a ``ShardedTree``, or the plain
+    container on the mesh's home device when the layout degrades to
+    replication); ``device`` is then unused. The page tables stay
+    host-side either way."""
+    if mesh is not None:
+        from repro_torch.serving.mesh import shard as mesh_shard
+        meta = init_pools(cfg, num_pages, page_size, num_slots, "meta",
+                          paged)
+        return mesh_shard.place_pools(meta, cfg, mesh, paged)
     plan = plan_for(cfg)
     if plan.needs_slot:
         num_slots = max(num_slots, 2)
@@ -267,6 +289,52 @@ def init_pools(cfg, num_pages: int, page_size: int, num_slots: int = 0,
             (num_slots, cfg.enc_len, cfg.d_model),
             dtype=model_lib.dtype_of(cfg), device=device)
     return pools
+
+
+def home(pools) -> Dict:
+    """The container the replicated part of a step reads: the pools
+    themselves, or a sharded layout's first position's."""
+    return pools.parts[0] if isinstance(pools, ShardedTree) else pools
+
+
+def global_view(pools) -> Dict:
+    """The pools with their GLOBAL shapes and dtypes: the pools
+    themselves, or ``meta`` tensors standing for a sharded layout's
+    global leaves (what the router's pool signature compares)."""
+    if not isinstance(pools, ShardedTree):
+        return pools
+    from repro_torch.serving.mesh import shard as mesh_shard
+    return _zip_containers(
+        lambda spec, *parts: torch.empty(
+            mesh_shard.global_shape(parts[0].shape, spec, len(parts)),
+            dtype=parts[0].dtype, device="meta"),
+        pools.specs, *pools.parts)
+
+
+def _zip_containers(fn, specs, *parts):
+    """``fn(spec, leaf of each part)`` over the container's leaves."""
+    def seg_map(spec_segs, *segs):
+        return [None if sp is None else
+                {c: {k: fn(sp[c][k], *(s[c][k] for s in ss))
+                     for k in sp[c]} for c in sp}
+                for sp, ss in zip(spec_segs, zip(*segs))]
+    out = {part: seg_map(specs[part], *(p[part] for p in parts))
+           for part in ("paged", "slot")}
+    if "memory" in specs:
+        out["memory"] = fn(specs["memory"], *(p["memory"] for p in parts))
+    return out
+
+
+def _unique(tensors) -> Iterator[torch.Tensor]:
+    seen = set()
+    for a in tensors:
+        if id(a) not in seen:
+            seen.add(id(a))
+            yield a
+
+
+def _containers(pools) -> List[Dict]:
+    return pools.parts if isinstance(pools, ShardedTree) else [pools]
 
 
 def _leaves(segs) -> Iterator[torch.Tensor]:
@@ -301,11 +369,8 @@ def _index(ids: List[int], a: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(list(ids), dtype=torch.long, device=a.device)
 
 
-def _slice_pools(pools: Dict, page_ids: List[int],
-                 slot_ids: List[int]) -> Dict:
-    """Device copies of the given pages and slots of every pool, and of
-    the slots' memory rows (advanced indexing gathers into fresh
-    tensors)."""
+def _slice_one(pools: Dict, page_ids: List[int],
+               slot_ids: List[int]) -> Dict:
     out = {"paged": _map_segs(pools["paged"],
                               lambda a: a[:, _index(page_ids, a)]),
            "slot": _map_segs(pools["slot"],
@@ -313,6 +378,19 @@ def _slice_pools(pools: Dict, page_ids: List[int],
     if "memory" in pools:
         out["memory"] = pools["memory"][_index(slot_ids, pools["memory"])]
     return out
+
+
+def _slice_pools(pools, page_ids: List[int], slot_ids: List[int]) -> Dict:
+    """Device copies of the given pages and slots of every pool, and of
+    the slots' memory rows (advanced indexing gathers into fresh
+    tensors); a sharded layout's rows are stitched into global rows."""
+    if not isinstance(pools, ShardedTree):
+        return _slice_one(pools, page_ids, slot_ids)
+    from repro_torch.serving.mesh import shard as mesh_shard
+    per = [_slice_one(p, page_ids, slot_ids) for p in pools.parts]
+    return _zip_containers(
+        lambda spec, *parts: mesh_shard.global_rows(list(parts), spec),
+        pools.specs, *per)
 
 
 class PendingSnapshot:
@@ -376,28 +454,25 @@ def pool_page_rows(pools: Dict, page_ids: List[int],
                           lambda a: a.cpu())
 
 
-def zero_slot_rows(pools: Dict, slot_ids: List[int],
-                   zero_memory: bool = True) -> Dict:
+def zero_slot_rows(pools, slot_ids: List[int],
+                   zero_memory: bool = True):
     """Reset the given slots of every constant-state pool (and of the
-    memory pool) to zero, in place: SRF and SSD states are running
-    accumulators (and the SSD conv tail a window of past inputs), so a
-    re-issued slot must not carry the previous request's state.
-    ``zero_memory=False`` leaves the memory rows, which the engine's
-    encoder is about to overwrite whole."""
-    for a in _leaves(pools["slot"]):
+    memory pool) to zero, in place, on every shard: SRF and SSD states
+    are running accumulators (and the SSD conv tail a window of past
+    inputs), so a re-issued slot must not carry the previous request's
+    state. ``zero_memory=False`` leaves the memory rows, which the
+    engine's encoder is about to overwrite whole."""
+    cs = _containers(pools)
+    for a in _unique(a for c in cs for a in _leaves(c["slot"])):
         a[:, _index(slot_ids, a)] = 0
-    if zero_memory and "memory" in pools:
-        pools["memory"][_index(slot_ids, pools["memory"])] = 0
+    if zero_memory and "memory" in cs[0]:
+        for mem in _unique(c["memory"] for c in cs):
+            mem[_index(slot_ids, mem)] = 0
     return pools
 
 
-def restore_page_rows(pools: Dict, page_ids: List[int], slot_ids: List[int],
-                      snap) -> Dict:
-    """Inverse of the snapshot: write saved rows back into (freshly
-    allocated) pages and slots, in place. Takes the host form of
-    :func:`pool_page_rows` or a :class:`PendingSnapshot`."""
-    if isinstance(snap, PendingSnapshot):
-        snap = snap.to_host()
+def _restore_one(pools: Dict, page_ids: List[int], slot_ids: List[int],
+                 snap: Dict) -> None:
     for part, ids in (("paged", page_ids), ("slot", slot_ids)):
         for seg, sseg in zip(pools[part], snap[part]):
             if seg is None:
@@ -408,34 +483,55 @@ def restore_page_rows(pools: Dict, page_ids: List[int], slot_ids: List[int],
     if "memory" in pools:
         mem = pools["memory"]
         mem[_index(slot_ids, mem)] = snap["memory"].to(mem.device, mem.dtype)
+
+
+def restore_page_rows(pools, page_ids: List[int], slot_ids: List[int],
+                      snap):
+    """Inverse of the snapshot: write saved rows back into (freshly
+    allocated) pages and slots, in place. Takes the host form of
+    :func:`pool_page_rows` or a :class:`PendingSnapshot`; its rows are
+    global, so a sharded layout takes each position's block of them."""
+    if isinstance(snap, PendingSnapshot):
+        snap = snap.to_host()
+    if not isinstance(pools, ShardedTree):
+        _restore_one(pools, page_ids, slot_ids, snap)
+        return pools
+    from repro_torch.serving.mesh import shard as mesh_shard
+    blocks = _zip_containers(
+        lambda spec, x: mesh_shard.split_rows(x, spec, pools.tp),
+        pools.specs, snap)
+    for i, part in enumerate(pools.parts):
+        _restore_one(part, page_ids, slot_ids,
+                     _zip_containers(lambda spec, b: b[i], pools.specs,
+                                     blocks))
     return pools
 
 
-def copy_page_rows(pools: Dict, src_ids: List[int],
-                   dst_ids: List[int]) -> Dict:
-    """COW fork: copy page rows ``src -> dst`` in every paged-domain pool,
-    in place. ``a[:, src]`` gathers every source into a fresh tensor
-    before any write lands, so a destination that recycles a page freed
-    in the same round never clobbers a source. (The reference pads the id
-    lists to power-of-two buckets so that jax compiles few shapes; eager
-    PyTorch compiles nothing, so there is no padding here.) Slot pools
-    never fork."""
+def copy_page_rows(pools, src_ids: List[int], dst_ids: List[int]):
+    """COW fork: copy page rows ``src -> dst`` in every paged-domain pool
+    of every shard, in place. ``a[:, src]`` gathers every source into a
+    fresh tensor before any write lands, so a destination that recycles
+    a page freed in the same round never clobbers a source. (The
+    reference pads the id lists to power-of-two buckets so that jax
+    compiles few shapes; eager PyTorch compiles nothing, so there is no
+    padding here.) Slot pools never fork."""
     if not src_ids:
         return pools
-    for a in _leaves(pools["paged"]):
+    for a in _unique(a for c in _containers(pools)
+                     for a in _leaves(c["paged"])):
         a[:, _index(dst_ids, a)] = a[:, _index(src_ids, a)]
     return pools
 
 
-def page_bytes(pools: Dict) -> int:
+def page_bytes(pools) -> int:
     """Device bytes ONE paged-domain page occupies across all layers and
-    segments (the prefix cache's byte-budget unit): leaves are shaped
-    (L, num_pages, ...)."""
+    segments, globally (the prefix cache's byte-budget unit): leaves are
+    shaped (L, num_pages, ...)."""
     return sum(a.numel() // a.shape[1] * a.element_size()
-               for a in _leaves(pools["paged"]))
+               for a in _leaves(global_view(pools)["paged"]))
 
 
-def apply_moves(pools: Dict, moves: Dict[int, int]) -> Dict:
+def apply_moves(pools, moves: Dict[int, int]):
     """Apply a defrag plan {old: new} to every paged-domain pool, in
     place (slots never fragment)."""
     if moves:
@@ -443,18 +539,21 @@ def apply_moves(pools: Dict, moves: Dict[int, int]) -> Dict:
     return pools
 
 
-def pool_bytes(pools: Dict) -> int:
-    """Bytes of every pool, the memory pool included."""
-    return sum(a.numel() * a.element_size() for a in _all_leaves(pools))
+def pool_bytes(pools) -> int:
+    """Bytes of every pool, the memory pool included (global: a sharded
+    leaf counts all its blocks)."""
+    return sum(a.numel() * a.element_size()
+               for a in _all_leaves(global_view(pools)))
 
 
-def memory_bytes(pools: Dict) -> int:
+def memory_bytes(pools) -> int:
     """Bytes of the enc-dec memory pool (0 without one)."""
-    mem = pools.get("memory")
+    mem = home(pools).get("memory")
     return 0 if mem is None else mem.numel() * mem.element_size()
 
 
-def pool_bytes_per_device(pools: Dict) -> int:
-    """Bytes one device holds: every pool, since the port serves on one
-    card (the reference's mesh-sharded pools are not ported)."""
-    return pool_bytes(pools)
+def pool_bytes_per_device(pools) -> int:
+    """Bytes one mesh position holds: its block of every sharded leaf and
+    every replicated leaf whole (all pools, without a mesh). On a mesh
+    of one card repeated, the card holds the positions' sum."""
+    return sum(a.numel() * a.element_size() for a in _all_leaves(home(pools)))

@@ -2,7 +2,8 @@
 
 Wires together the model step (``launch/steps.py``), AdamW, the
 schedule, the sharded data loader, the checkpoint manager
-(atomic/async/auto-resume) and the straggler watchdog.
+(atomic/async/auto-resume), the straggler watchdog and, with a mesh,
+compressed cross-pod data parallelism (``distributed/collectives``).
 
 Failure model: the process can die at ANY step (the ``crash_at`` hook
 raises after that step's save would have happened); a restarted Trainer
@@ -10,9 +11,14 @@ resumes from the latest committed checkpoint and, because the data
 stream is a function of (seed, step, shard), replays the same batches.
 
 Runs on ``TrainerConfig.device`` (the card unless told otherwise).
-Compressed cross-pod data parallelism needs a mesh, which is not ported
-yet: ``Trainer(mesh=...)`` raises, and without a mesh ``compress_dp`` is
-ignored, as in the reference.
+``Trainer(mesh=...)`` with ``compress_dp`` runs each step as grad step ->
+``collectives.compressed_pod_mean`` over the mesh's ``pod`` axis ->
+AdamW, carrying the error-feedback state across steps (f32, the size of
+the params; not checkpointed, as in the reference, so a resumed run
+restarts it at zero). The gradients are the whole batch's, replicated
+over the pods, as in the reference's single-controller trainer. Without
+a mesh, ``compress_dp`` is ignored and training is plain, as in the
+reference; a mesh without ``compress_dp`` trains plainly too.
 """
 from __future__ import annotations
 
@@ -23,12 +29,14 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.distributed import collectives
 from repro_torch.data import synth
 from repro_torch.data.loader import ShardedLoader, device_batch
 from repro_torch.ft.straggler import StragglerWatchdog
 from repro_torch.launch import steps as step_lib
 from repro_torch.models import transformer as model_lib
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, schedule
+from repro_torch.optim import compression as comp_lib
 
 
 @dataclass
@@ -44,6 +52,8 @@ class TrainerConfig:
     log_every: int = 10
     hyper: step_lib.TrainHyper = field(default_factory=step_lib.TrainHyper)
     compress_dp: bool = False       # needs a mesh; ignored without one
+    compression: comp_lib.CompressionConfig = field(
+        default_factory=comp_lib.CompressionConfig)
     device: str = "cuda"
 
 
@@ -54,10 +64,6 @@ class CrashInjected(RuntimeError):
 class Trainer:
     def __init__(self, cfg, tcfg: TrainerConfig, mesh=None,
                  crash_at: Optional[int] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the mesh and the compressed pod mean "
-                "are not ported yet (ROADMAP.md)")
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = mesh
@@ -74,13 +80,41 @@ class Trainer:
             self.cfg, seed=self.tcfg.seed, device=self.tcfg.device))
         self.opt_state = adamw.init(self.params)
         self.step = 0
-        self._step_fn = step_lib.make_train_step(self.cfg, self.tcfg.hyper)
+        if self.tcfg.compress_dp and self.mesh is not None:
+            if self.cfg.attn_impl == "srf" and self.cfg.srf.seeded:
+                raise ValueError("compress_dp: seeded SRF's integer seeds "
+                                 "have no gradient to compress")
+            self.err = comp_lib.init_error(self.params)
+            self._step_fn = self._compressed_step()
+        else:
+            self.err = None
+            self._step_fn = step_lib.make_train_step(self.cfg,
+                                                     self.tcfg.hyper)
 
         def make_batch(step, shard):
             return synth.full_batch(self.cfg, self.tcfg.batch,
                                     self.tcfg.seq, step,
                                     seed=self.tcfg.seed, shard=shard)
         self.loader = ShardedLoader(make_batch)
+
+    def _compressed_step(self):
+        """grad step -> compressed pod mean -> AdamW; the error state is
+        carried on ``self.err``."""
+        hyper = self.tcfg.hyper
+        grad_fn = step_lib.make_grad_step(self.cfg, hyper.aux_weight)
+
+        def cstep(params, opt_state, step_idx, batch):
+            grads, metrics = grad_fn(params, batch)
+            grads, self.err = collectives.compressed_pod_mean(
+                grads, self.err, self.mesh, self.tcfg.compression,
+                step=step_idx)
+            lr = schedule.warmup_cosine(step_idx, hyper.lr, hyper.warmup,
+                                        hyper.total_steps,
+                                        device=metrics["loss"].device)
+            params, opt_state, stats = adamw.update(grads, opt_state,
+                                                    params, lr, hyper.adam)
+            return params, opt_state, {**metrics, **stats, "lr": lr}
+        return cstep
 
     # -------------- resume --------------
 

@@ -647,8 +647,18 @@ def test_cli_replicas_ft_chaos(capsys, tmp_path):
 
 
 def test_cli_model_parallel_is_a_usage_error(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
-                    "--model-parallel", "2"])
-    assert e.value.code == 2
-    assert "--model-parallel" in capsys.readouterr().err
+    """``--model-parallel`` builds its meshes from the visible cards, as
+    the reference does from its devices: too few raise ``ValueError``
+    before any weight is drawn; with ``--device cpu`` the positions are
+    CPU ones and the sharded replicas serve."""
+    need = 2 * 2
+    if torch.cuda.device_count() >= need:
+        pytest.skip("enough cards for 2 replicas x model=2")
+    with pytest.raises(ValueError, match=f"need {need} devices"):
+        serve.main(["--arch", "qwen3-4b", "--reduced", "--replicas", "2",
+                    "--model-parallel", "2", "--requests", "2"])
+    assert serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                       "--model-parallel", "2", "--requests", "2",
+                       "--max-new", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "engine=router" in out and "'pool_bytes_per_device'" in out

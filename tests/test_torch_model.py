@@ -238,8 +238,10 @@ def test_paged_srf_bf16_matches_reference_kernels(monkeypatch, c):
 
 def test_other_families_raise_not_implemented():
     """Every family resolves to the reference's plan (enc-dec adds its
-    memory pool); what stays unported, tensor-parallel attention, still
-    raises."""
+    memory pool); tensor-parallel cross attention, the last path that
+    raised, now runs: per-shard column-parallel wq / wk / wv over a mesh
+    axis of two CPU positions, stitched before the replicated wo, equals
+    the unsharded cross attention bit for bit (f32)."""
     for arch, over, name in (("seamless-m4t-large-v2",
                               {"attn_impl": "srf"}, "srf+mem"),
                              ("seamless-m4t-large-v2", {}, "kv+mem"),
@@ -253,12 +255,24 @@ def test_other_families_raise_not_implemented():
                               "srf")):
         assert paged_cache.plan_for(registry.reduced(arch, **over)).name \
             == name == jcache.plan_for(jregistry.reduced(arch, **over)).name
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serving.mesh import shard
     cfg = registry.reduced("seamless-m4t-large-v2")
     lp = T.init(cfg, seed=0, device="cpu")["segments"][0]
-    x = torch.zeros(1, 3, cfg.d_model)
-    with pytest.raises(NotImplementedError):
-        A.cross_attention({k: v[0] for k, v in lp["cross"].items()}, cfg,
-                          x, x, tp_axis="model")
+    cross = {k: v[0] for k, v in lp["cross"].items()}
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, cfg.d_model, generator=gen)
+    mem = torch.randn(2, 5, cfg.d_model, generator=gen)
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), device="cpu")
+    placed = shard.place_params({"segments": [{"cross": lp["cross"]}]}, cfg,
+                                mesh)
+    got = A.cross_attention([{k: v[0] for k, v in
+                              p["segments"][0]["cross"].items()}
+                             for p in placed.parts],
+                            shard.local_cfg(cfg, 2), x, mem,
+                            tp_axis=collectives.axis_of(mesh, "model"))
+    assert torch.equal(got, A.cross_attention(cross, cfg, x, mem))
 
 
 def _kv_pages(pools, key):

@@ -448,9 +448,9 @@ def test_chunk_policy_decode_cadence_and_budget():
 
 
 def test_unported_requests_are_refused(models):
-    """What the port does not serve yet is refused: mesh-sharded pools;
-    an enc-dec engine refuses a request without encoder features, as the
-    reference's does. Sampled requests, embed seeds and live quality
+    """An enc-dec engine refuses a request without encoder features, as
+    the reference's does; a mesh-sharded engine (two CPU positions)
+    holds half the kv pools a position. Sampled requests, embed seeds and live quality
     probes are served (``test_torch_sampling``, ``test_torch_seeded``,
     the quality tests below; enc-dec in ``test_torch_encdec``)."""
     _, _, cfg, params = models
@@ -465,8 +465,12 @@ def test_unported_requests_are_refused(models):
     eng.submit(Request(uid=1, prompt=prompt, temperature=0.8))
     eng.submit(Request(uid=2, prompt=prompt, embed_seed=7))
     Engine(cfg, params, device="cpu", quality_every=64)
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, params, device="cpu", mesh=object())
+    from repro_torch.launch import mesh as mesh_lib
+    sharded = Engine(cfg, params, device="cpu", mesh=mesh_lib.make_mesh(
+        (1, 2), ("data", "model"), device="cpu"))
+    rep = sharded.cache_report()
+    assert rep["pool_bytes_per_device"] * 2 == rep["pool_bytes"] \
+        == Engine(cfg, params, device="cpu").cache_report()["pool_bytes"]
 
 
 def _quality(eng):
@@ -584,6 +588,9 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.launch.train, repro_torch.launch.profile_train, "
             "repro_torch.serving.chaos, repro_torch.serving.mesh, "
+            "repro_torch.serving.mesh.shard, repro_torch.launch.mesh, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.collectives, repro_torch.ft.elastic, "
             "repro_torch.models.ssm, repro_torch.models.moe, "
             "repro_torch.models.frontends, repro_torch.data.synth; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -288,8 +288,10 @@ def test_unported_modes_and_kinds_raise():
     lp = tree_lib.unbind(params["segments"][0], cfg.n_layers)[0]
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError):        # until the mesh
-        A.attention(lp["attn"], cfg, x, pos, "paged", {"tp_axis": "model"})
+    from repro_torch.distributed import collectives
+    axis = collectives.Axis("model", (torch.device("cpu"),) * 2)
+    with pytest.raises(ValueError, match="paged step only"):
+        A.attention(lp["attn"], cfg, x, pos, "prefill", {"tp_axis": axis})
     for mode in ("prefill", "decode"):          # ported: they need a cache
         with pytest.raises(ValueError, match="needs a cache"):
             A.attention(lp["attn"], cfg, x, pos, mode)
@@ -618,12 +620,28 @@ def test_crash_resume_is_bit_exact(tmp_path, attn):
 
 
 def test_trainer_mesh_raises_and_compress_dp_without_mesh_runs(tmp_path):
+    """``Trainer(mesh=...)`` trains (the compressed pod mean with
+    ``compress_dp``, ``tests/test_torch_mesh.py`` holds it to the
+    reference); a seeded-SRF config has integer seeds and no gradient to
+    compress, which raises; without a mesh ``compress_dp`` trains
+    plainly, as in the reference."""
+    from repro_torch.launch import mesh as mesh_lib
     cfg = registry.reduced("qwen3-4b", n_layers=2)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, _tcfg(tmp_path / "m"), mesh=object())
+    mesh = mesh_lib.make_mesh((2, 1, 1), ("pod", "data", "model"),
+                              device="cpu")
+    out = Trainer(cfg, _tcfg(tmp_path / "m", num_steps=2, compress_dp=True),
+                  mesh=mesh).train()
+    assert out["final_step"] == 2
+    seeded = registry.reduced("qwen3-4b", n_layers=2, attn_impl="srf")
+    seeded = dataclasses.replace(seeded, srf=dataclasses.replace(
+        seeded.srf, seeded=True))
+    with pytest.raises(ValueError, match="seeded SRF"):
+        Trainer(seeded, _tcfg(tmp_path / "s", compress_dp=True), mesh=mesh)
+    plain = Trainer(cfg, _tcfg(tmp_path / "p", num_steps=6)).train()
     out = Trainer(cfg, _tcfg(tmp_path, num_steps=6,
                              compress_dp=True)).train()
     assert out["final_step"] == 6
+    assert out["log"] == plain["log"]
 
 
 @pytest.mark.parametrize("attn", ["full", "srf"])
@@ -815,11 +833,19 @@ def test_train_cli_needs_a_card_unless_told():
 @pytest.mark.parametrize("argv", [["--compress-dp"], ["--seeded-srf"],
                                   ["--attn", "full", "--seeded-srf"]])
 def test_train_cli_refuses_what_it_cannot_run(argv, tmp_path):
-    """``--compress-dp`` needs a mesh (not ported); ``--seeded-srf`` needs
-    SRF attention. Both are usage errors, not silently ignored."""
+    """``--seeded-srf`` needs SRF attention: a usage error, not silently
+    ignored. ``--compress-dp`` is accepted and, as in the reference's
+    CLI (which builds no mesh), trains plainly."""
+    cli = ["--arch", "qwen3-4b", "--reduced", "--device", "cpu", "--steps",
+           "1", "--ckpt-dir", str(tmp_path), *argv]
+    if argv == ["--compress-dp"]:
+        tr = train_cli.trainer(train_cli.parser().parse_args(cli))
+        assert tr.tcfg.compress_dp and tr.mesh is None and tr.err is None
+        assert train_cli.main(cli) == 0
+        assert any(tmp_path.iterdir())
+        return
     with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
-                        "--steps", "1", "--ckpt-dir", str(tmp_path), *argv])
+        train_cli.main(cli)
     assert not any(tmp_path.iterdir())
 
 
