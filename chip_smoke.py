@@ -14,7 +14,9 @@ seamless-m4t-large-v2 (enc-dec), serves head-sharded over a mesh of the
 card repeated (``Engine(mesh=...)`` at TP 2, the router over sharded
 replicas), then trains full-width qwen3-4b with SRF and with full
 attention, qwen2-vl-2b with both and with the compressed cross-pod
-gradient mean (``Trainer(mesh=...)``).
+gradient mean (``Trainer(mesh=...)``), and ends with the dry run: its
+smokes and the five ``examples/torch_*.py`` on the card, the 40-cell
+cost analysis on meta, and the analysis held to a real step.
 
     python3 chip_smoke.py
 
@@ -315,7 +317,25 @@ result line):
    steps, losses card == CPU within rtol 1e-4; full-width qwen2-vl-2b,
    3 compressed steps beside the plain ones: step ms, peak memory,
    ``compression.wire_bytes``' ratio.
-6. Print the card (nvidia-smi name, power limit), one JSON line with a
+6. The dry run (``launch/dryrun.py`` over ``launch/cost_analysis.py``).
+   Its 40 single-pod cells (10 configs x train_4k, prefill_32k,
+   decode_32k, long_500k, full width on meta) run from the start of the
+   script in ``GRID_WORKERS`` spawned CPU processes at the lowest
+   priority, beside the card's phases. (a) The five smokes on
+   ``cuda:0`` (pipeline, serve_mesh, serve_chaos, serve_prefix,
+   serve_seeded; each ``ok``, its path's kernels launched) and the five
+   examples on the card at their defaults (quickstart and kernel_approx
+   launch the spinner, serve_lm full KV paged_gather and SRF the spinner
+   and srf_decode, train_lm's loss falls). (b) One line per cell
+   (flops, bytes, t_roofline, bottleneck, peak_bytes, fits_hbm: analysis
+   over datasheet peaks, not card timings), the records in
+   ``chiprun_out/chip_smoke/dryrun_grid.jsonl``; a cell not ``ok`` fails.
+   (c) Full-width qwen3-4b's train step (phase 5's: B = 8, seq 64) and a
+   decode step (B = 8, a 4096-position cache) analyzed on meta and
+   around the real step on the card: flops equal; the predicted peak
+   beside ``torch.cuda.max_memory_allocated``, ``t_roofline`` beside the
+   step's CUDA-event time, and the card's ``total_memory``.
+7. Print the card (nvidia-smi name, power limit), one JSON line with a
    record per kernel, and the result line. The spinner records carry
    their training fields (``train_*``: the training run's launches and
    plain backward calls, and the kernel at the training shapes), and
@@ -488,6 +508,15 @@ def bound(byts: float, ops: float):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def kernel_bound(name, *args, **kw):
+    """``bound`` of a kernel's function, its operations and bytes by
+    ``kernels/cost.py`` (the counts the cost analysis of a step adds for
+    the kernel too)."""
+    from repro_torch.kernels import cost
+    ops, byts = getattr(cost, name)(*args, **kw)
+    return bound(byts, ops)
+
+
 def spinner_bound(kind, gsz, bsz, n, m, itemsize, gen_elems, width,
                   use_hd=True):
     """x read once, generator and diagonals read once, output written
@@ -495,13 +524,10 @@ def spinner_bound(kind, gsz, bsz, n, m, itemsize, gen_elems, width,
     (it regenerates A and takes B*m*n multiply-adds): per row, the fast
     structured matvec's count (``structured.flops_fast``, an FFT product)
     plus the HD butterfly's n*log2(n) adds (none without HD, nor the two
-    diagonals)."""
-    from repro_torch.core import structured
-    hd = 2 * n if use_hd else 0
-    byts = itemsize * gsz * (bsz * n + gen_elems + hd + bsz * width)
-    ops = gsz * bsz * (structured.flops_fast(kind, m, n)
-                       + (n * math.log2(n) if use_hd else 0))
-    return bound(byts, ops)
+    diagonals). ``kernels/cost.spinner``, which the cost analysis of a
+    step counts the kernel by too."""
+    return kernel_bound("spinner", kind, gsz, bsz, n, m, itemsize, gen_elems,
+                        width, use_hd)
 
 
 LIBRARY = (1, 8192, 1024, 4096)        # G, B, n, m: one estimate's call
@@ -607,30 +633,14 @@ def phase_spinner(gen):
     return records
 
 
-# operations counted per generated value in the seeded spinner's bound:
-# one threefry2x32 call is 20 rounds of (add, rotate = 2 shifts + or,
-# xor) plus 5 key injections of 3 adds: 115 integer operations; the
-# Box-Muller step adds 2 mantissa fills (3 each), 2 subtractions, a
-# multiply and log, sqrt and cos, counted as 10 each: 40. A sign is one
-# cipher call and a compare.
-OPS_PER_NORMAL = 115 + 40
-OPS_PER_SIGN = 115 + 1
-
-
 def seeded_bound(kind, gsz, bsz, n, m, itemsize, width):
     """x read once, the output written once, and each group's 8-byte seed
     (the port's int64 word; the reference reads a 4-byte uint32).
     Operations: the spinner's rule (``spinner_bound``) plus drawing each
     group's generator (its canonical size: nb*n for circulant, n+m-1 for
-    toeplitz/hankel, m*n dense) and 2n signs once."""
-    from repro_torch.core import structured
-    gen_elems = {"circulant": -(-m // n) * n, "skew_circulant": -(-m // n) * n,
-                 "toeplitz": n + m - 1, "hankel": n + m - 1,
-                 "unstructured": m * n}[kind]
-    byts = itemsize * gsz * bsz * (n + width) + 8 * gsz
-    ops = gsz * bsz * (structured.flops_fast(kind, m, n) + n * math.log2(n))
-    ops += gsz * (gen_elems * OPS_PER_NORMAL + 2 * n * OPS_PER_SIGN)
-    return bound(byts, ops)
+    toeplitz/hankel, m*n dense) and 2n signs once
+    (``kernels/cost.seeded``: ``OPS_PER_NORMAL``, ``OPS_PER_SIGN``)."""
+    return kernel_bound("seeded", kind, gsz, bsz, n, m, itemsize, width)
 
 
 def _materialized_twin(kind, seeds, x, m, epi, y_scale, out_scale):
@@ -881,7 +891,8 @@ def phase_sampler(gen):
 
 
 def phase_srf_decode(gen):
-    from repro_torch.kernels import ref, srf_decode as kdec
+    from repro_torch.kernels import ref
+    kdec = _kernel_module("srf_decode")
     b, h, m, dv = 8, 32, 256, 128
     dev = "cuda"
     phi = lambda: torch.rand((b, h, m), generator=gen, device=dev) / 16  # noqa
@@ -908,9 +919,7 @@ def phase_srf_decode(gen):
     k_ms = device_ms(lambda: kdec.srf_decode_cuda(s2, z2, pq, pk, v))
     p_ms = device_ms(lambda: ref.srf_decode_ref(s, z, pq, pk, v),
                      launches=20, repeats=3)
-    byts = 4 * (2 * b * h * m * dv + 2 * b * h * m + 2 * b * h * m
-                + 2 * b * h * dv)
-    b_ms, b_by = bound(byts, 4.0 * b * h * m * dv + 4.0 * b * h * m)
+    b_ms, b_by = kernel_bound("srf_decode", b, h, m, dv)
     log(f"    kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
         f"bound {b_ms:.5f} ms ({b_by})")
     return dict(err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
@@ -937,7 +946,8 @@ def _cycle(fn, pools):
 def _dequant_exact(label, kq, ks, vq, vs, t):
     """paged_gather_dequant on the K pool and paged_gather_dequant_kv on
     both, int8 -> bf16 and f32, bit-equal to the plain version."""
-    from repro_torch.kernels import paged_gather as kpg, ref
+    from repro_torch.kernels import ref
+    kpg = _kernel_module("paged_gather")
     for odt in (torch.bfloat16, torch.float32):
         want_k = ref.paged_gather_dequant_ref(kq, ks, t, odt)
         want_v = ref.paged_gather_dequant_ref(vq, vs, t, odt)
@@ -964,7 +974,7 @@ def _dequant_paths(gen):
     alignment at the decode widths (the vector and scalar paths of the
     same kernel), a page of 64 rows (64 KB, cut into ring stages), and
     rows of 32768 int8 longer than a stage (cut within the row)."""
-    from repro_torch.kernels import paged_gather as kpg
+    kpg = _kernel_module("paged_gather")
     dev = "cuda"
     cases = [("decode widths", 257, 16, 1024, 8, 16),
              ("page of 64 rows", 65, 64, 1024, 4, 8),
@@ -1005,7 +1015,8 @@ def phase_paged_gather(gen):
     paths (``_dequant_paths``). Times at the decode and prefill shapes:
     the int8 gather for one pool, and for K and V in one launch beside
     two single-pool launches (how the attention gathered them before)."""
-    from repro_torch.kernels import paged_gather as kpg, ref
+    from repro_torch.kernels import ref
+    kpg = _kernel_module("paged_gather")
     dev = "cuda"
     shapes = [("decode", 257, 16, 1024, 8, 16),
               ("prefill", 2049, 16, 1024, 32, 64),
@@ -1040,7 +1051,7 @@ def phase_paged_gather(gen):
         g_plain = device_ms(_cycle(lambda a: ref.paged_gather_ref(a, tables),
                                    pools))
         g_lib = device_ms(_cycle(lambda a: a[tables], pools))
-        g_b, g_by = bound(2 * rows * d * 2, 0)
+        g_b, g_by = kernel_bound("gather", rows, d, 2)
         del pools
         qpools = _layer_pools(2 * nl, n, p, d, torch.int8, gen)
         scs = [torch.rand((n, p, 1), generator=gen, device=dev) / 127
@@ -1062,9 +1073,8 @@ def phase_paged_gather(gen):
             for q, sc in a], layers))
         del qpools, scs, layers
         # one pool: int8 pages and f32 scales read once, bf16 written once
-        one_b, one_by = bound(rows * d + 4 * rows + 2 * rows * d, rows * d)
-        kv_b, kv_by = bound(2 * (rows * d + 4 * rows + 2 * rows * d),
-                            2 * rows * d)
+        one_b, one_by = kernel_bound("gather_dequant", rows, d, 2)
+        kv_b, kv_by = kernel_bound("gather_dequant", rows, d, 2, pools=2)
         log(f"    {label} paged_gather bf16: kernel {g_ms:.5f} ms  plain "
             f"{g_plain:.5f} ms  pool[tables] {g_lib:.5f} ms  bound "
             f"{g_b:.5f} ms ({g_by})")
@@ -1119,9 +1129,12 @@ FWHT_TEST = [(1, 8), (4, 64), (16, 128), (5, 512), (300, 32)]
 FWHT_REAL = [(8192, 1024), (4096, 16384)]
 
 
-def _fwht_module():
-    import importlib          # ``repro_torch.kernels`` re-exports op fwht
-    return importlib.import_module("repro_torch.kernels.fwht")
+def _kernel_module(name):
+    """A CUDA wrapper module of ``repro_torch.kernels``: the package
+    re-exports the ops ``fwht``, ``paged_gather`` and ``srf_decode`` over
+    the modules of the same names."""
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def phase_fwht(gen):
@@ -1133,7 +1146,7 @@ def phase_fwht(gen):
     Hadamard (the one PyTorch call computing the same function)."""
     from repro_torch.core import transforms
     from repro_torch.kernels import ops, ref
-    kfwht = _fwht_module()
+    kfwht = _kernel_module("fwht")
     dev, errs, equal, cases = "cuda", [], 0, 0
     for b, n in FWHT_TEST + FWHT_REAL:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1167,7 +1180,7 @@ def phase_fwht(gen):
     k_ms = device_ms(lambda: kfwht.fwht_cuda(x))
     p_ms = device_ms(lambda: ref.fwht_ref(x), launches=20, repeats=3)
     lib_ms = device_ms(lambda: x @ h)
-    b_ms, b_by = bound(2 * 4 * b * n, b * n * math.log2(n) + b * n)
+    b_ms, b_by = kernel_bound("fwht", b, n, 4)
     big = xs[(*FWHT_REAL[1], torch.float32)]
     big_ms = device_ms(lambda: kfwht.fwht_cuda(big), launches=20)
     big_b, _ = bound(2 * 4 * big.numel(), 0)
@@ -1203,7 +1216,6 @@ def phase_circulant(gen):
     launches); times at the real shape, identity, f32 and bf16: the
     kernel, the bound, and ``x @ A.T`` on the plain version's own
     materialized A in the same dtype; the plain version in f32."""
-    from repro_torch.core import structured
     from repro_torch.kernels import circulant as kcirc, ops, ref
     flips, near, cases, errs = 0, 0, 0, []
     for nb, n, b, m in CIRC_TEST + [CIRC_REAL]:
@@ -1250,8 +1262,7 @@ def phase_circulant(gen):
                          launches=10, repeats=3)
         lib_ms = device_ms(lambda: x @ a.T, launches=10, repeats=3)
         size = x.element_size()
-        b_ms, b_by = bound(size * (b * n + nb * n + b * m),
-                           b * structured.flops_fast("circulant", m, n))
+        b_ms, b_by = kernel_bound("circulant", b, n, nb, m, size, m)
         times[dt] = (k_ms, lib_ms, b_ms, b_by)
         log(f"    real shape {str(dt)[6:]} identity: kernel {k_ms:.4f} ms  "
             f"x @ A.T {lib_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by}); the "
@@ -2757,7 +2768,8 @@ def _gather_case(label, n_layers, npg, pg, d, r, w, gen, tables=None):
     alignment; timed cycling through ``n_layers`` layer pools beside the
     plain version, ``pool[tables]`` and the bound. ``tables``: (R, M)
     page ids (default: drawn from 1..N-1)."""
-    from repro_torch.kernels import paged_gather as kpg, ref
+    from repro_torch.kernels import ref
+    kpg = _kernel_module("paged_gather")
     if tables is None:
         tables = torch.randint(1, npg, (r, w), generator=gen,
                                device="cuda")
@@ -2777,7 +2789,7 @@ def _gather_case(label, n_layers, npg, pg, d, r, w, gen, tables=None):
     g_plain = device_ms(_cycle(lambda a: ref.paged_gather_ref(a, tables),
                                pools))
     g_lib = device_ms(_cycle(lambda a: a[tables], pools))
-    g_b, g_by = bound(2 * rows * d * 2, 0)
+    g_b, g_by = kernel_bound("gather", rows, d, 2)
     log(f"    kernel {g_ms:.5f} ms  plain {g_plain:.5f} ms  pool[tables] "
         f"{g_lib:.5f} ms  bound {g_b:.5f} ms ({g_by})")
     del pools
@@ -2853,7 +2865,7 @@ def _srf_decode_case(label, b, hq, m, dv, gen):
     """srf_decode at (B, H, m, dv), f32, against its plain version, timed
     beside it and its bound."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels import srf_decode as kdec
+    kdec = _kernel_module("srf_decode")
     dev = "cuda"
     phi = lambda: torch.rand((b, hq, m), generator=gen, device=dev) / 16  # noqa
     s = torch.randn((b, hq, m, dv), generator=gen, device=dev) * 4
@@ -2869,9 +2881,7 @@ def _srf_decode_case(label, b, hq, m, dv, gen):
     k_ms = device_ms(lambda: kdec.srf_decode_cuda(s2, z2, pq, pk, v))
     p_ms = device_ms(lambda: ref.srf_decode_ref(s, z, pq, pk, v),
                      launches=20, repeats=3)
-    byts = 4 * (2 * b * hq * m * dv + 2 * b * hq * m + 2 * b * hq * m
-                + 2 * b * hq * dv)
-    b_ms, b_by = bound(byts, 4.0 * b * hq * m * dv + 4.0 * b * hq * m)
+    b_ms, b_by = kernel_bound("srf_decode", b, hq, m, dv)
     log(f"    kernel {k_ms:.5f} ms  plain {p_ms:.4f} ms  bound {b_ms:.5f} "
         f"ms ({b_by})")
     return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
@@ -2881,7 +2891,8 @@ def _dequant_kv_case(label, nl, npg, pg, d, r, w, gen):
     """paged_gather_dequant_kv (int8 -> bf16, a layer's K and V in one
     launch) on rows of D, bit-equal to the plain version, timed cycling
     through ``nl`` layers' pools beside two plain calls and the bound."""
-    from repro_torch.kernels import paged_gather as kpg, ref
+    from repro_torch.kernels import ref
+    kpg = _kernel_module("paged_gather")
     dev = "cuda"
     tables = torch.randint(1, npg, (r, w), generator=gen, device=dev)
     q = _layer_pools(2 * nl, npg, pg, d, torch.int8, gen)
@@ -2898,8 +2909,7 @@ def _dequant_kv_case(label, nl, npg, pg, d, r, w, gen):
         ref.paged_gather_dequant_ref(qq, ss, tables, bf) for qq, ss in a],
         pairs))
     rows = r * w * pg
-    kv_b, kv_by = bound(2 * (rows * d + 4 * rows + 2 * rows * d),
-                        2 * rows * d)
+    kv_b, kv_by = kernel_bound("gather_dequant", rows, d, 2, pools=2)
     log(f"    {label} paged_gather_dequant_kv int8->bf16: kernel "
         f"{kv_ms:.5f} ms ({100 * kv_b / kv_ms:.0f}% of bound)  plain "
         f"{kv_plain:.5f} ms  bound {kv_b:.5f} ms ({kv_by})")
@@ -4651,6 +4661,232 @@ def phase_train_agreement():
         f"{losses['cpu']} within rtol 1e-4; launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the dry run (launch/dryrun.py over launch/cost_analysis.py)
+# ---------------------------------------------------------------------------
+
+GRID_WORKERS = 4
+DECODE_CACHE = 4096      # phase 6 (c): the decode step's cache positions
+
+
+def _grid_init(src):
+    """A grid worker: the lowest CPU priority (the card's phases run beside
+    it on the host), one intra-op thread, the checkout's package."""
+    os.nice(19)
+    torch.set_num_threads(1)
+    sys.path.insert(0, src)
+
+
+def _grid_cell(cell):
+    from repro_torch.launch import dryrun
+    return dryrun.run_cell(*cell)
+
+
+def start_grid():
+    """The 40 single-pod cells at full width on meta (``dryrun.run_cell``),
+    in ``GRID_WORKERS`` spawned CPU processes that run beside the card's
+    phases and make no CUDA context: -> (pool, async result). The
+    slowest first (train cells, then the SSD and hybrid families)."""
+    import multiprocessing
+    from repro_torch.configs import registry, shapes
+    slow = ("mamba2-2.7b", "hymba-1.5b")
+    cells = sorted(((a, s) for a in registry.ARCHS for s in shapes.SHAPES),
+                   key=lambda c: (shapes.SHAPES[c[1]].step != "train",
+                                  c[0] not in slow))
+    pool = multiprocessing.get_context("spawn").Pool(
+        GRID_WORKERS, _grid_init, (str(ROOT / "src"),))
+    return pool, pool.map_async(_grid_cell, cells, chunksize=1)
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _launched(label, counts, need, plain_ok=False):
+    """Print a run's nonzero launch counts; fail unless every kernel in
+    ``need`` launched and (unless ``plain_ok``) no plain route ran on the
+    card."""
+    got = {k: v for k, v in counts.items() if v}
+    log(f"    {label}: launches {got}")
+    missing = [k for k in need if not got.get(k)]
+    plain = [k for k in got if "plain" in k]
+    if missing or (plain and not plain_ok):
+        raise AssertionError(f"{label}: kernels {missing} not launched or "
+                             f"plain routes {plain} on the card: {got}")
+
+
+SMOKE_KERNELS = {"pipeline": ("spinner",), "serve_mesh": ("paged_gather",),
+                 "serve_chaos": ("paged_gather",),
+                 "serve_prefix": ("paged_gather",),
+                 "serve_seeded": ("spinner_seeded", "srf_decode")}
+
+
+def _dryrun_card(out_dir):
+    """(a) The five dry-run smokes on ``cuda:0`` (each ``ok``), then the
+    five ``examples/torch_*.py`` on the card at their defaults (their own
+    output in ``examples.log``), each run's launches printed: every smoke
+    its path's kernels, quickstart and kernel_approx the spinner (ldr's
+    plain route allowed), serve_lm full KV paged_gather and SRF the
+    spinner and srf_decode; train_lm's loss falls."""
+    import contextlib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    for name, fn in dryrun.SMOKES.items():
+        ops.reset_counts()
+        rec = fn(device="cuda:0") if name == "pipeline" \
+            else fn("qwen3-4b", device="cuda:0")
+        counts = ops.launch_counts()
+        log(f"  smoke {name}: ok {rec['ok']} in {rec['total_s']} s")
+        if not rec["ok"]:
+            raise AssertionError(f"dry-run smoke {name} on cuda:0: {rec}")
+        _launched(name, counts, SMOKE_KERNELS[name])
+    with open(out_dir / "examples.log", "w") as f, \
+            tempfile.TemporaryDirectory() as ckpt:
+        runs = [("quickstart", ("spinner",), True,
+                 lambda m: m.main(["--device", "cuda"])),
+                ("kernel_approx", ("spinner",), True,
+                 lambda m: m.main(["--device", "cuda"])),
+                ("serve_lm full KV", ("paged_gather",), False,
+                 lambda m: m.run("full", "cuda")),
+                ("serve_lm SRF", ("spinner", "srf_decode"), False,
+                 lambda m: m.run("srf", "cuda")),
+                ("train_lm", (), False,
+                 lambda m: m.main(["--device", "cuda", "--ckpt-dir", ckpt])),
+                ("grad_compression_demo", (), False,
+                 lambda m: m.main(["--device", "cuda"]))]
+        for label, need, plain_ok, call in runs:
+            mod = _example(label.split()[0])
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(f):
+                out = call(mod)
+            counts = ops.launch_counts()
+            log(f"  example {label}: {time.perf_counter() - t0:.1f} s")
+            _launched(label, counts, need, plain_ok)
+            if label.startswith("serve_lm") and out["done"] != 16:
+                raise AssertionError(f"{label}: {out}")
+            if label == "train_lm":
+                first, last = out["log"][0]["loss"], out["log"][-1]["loss"]
+                log(f"    loss {first:.3f} -> {last:.3f}")
+
+
+def _dryrun_grid(grid, out_dir):
+    """(b) The 40 cells' records from the grid workers: one line each;
+    any cell not ``ok`` fails. Written to ``dryrun_grid.jsonl``."""
+    t0 = time.perf_counter()
+    recs = grid[1].get(timeout=900)
+    log(f"  grid: {len(recs)} cells at full width on meta (analysis over "
+        f"datasheet peaks, not card timings; waited "
+        f"{time.perf_counter() - t0:.1f} s at the end)")
+    with open(out_dir / "dryrun_grid.jsonl", "w") as f:
+        for r in recs:
+            f.write(json.dumps(r, default=float) + "\n")
+            if not r["ok"]:
+                log(f"    {r['arch']} {r['shape']}: FAILED {r['error']}")
+                continue
+            log(f"    {r['arch']} {r['shape']}: flops {r['flops']:.4g}  "
+                f"bytes {r['bytes']:.4g}  t_roofline {r['t_roofline']:.4g} s "
+                f"({r['bottleneck']})  peak_bytes {r['peak_bytes']:.4g}  "
+                f"fits_hbm {r['fits_hbm']}  ({r['run_s']} s)")
+    bad = [(r["arch"], r["shape"]) for r in recs if not r["ok"]]
+    if bad or len(recs) != 40:
+        raise AssertionError(f"dry-run cells not ok: {bad}")
+    return recs
+
+
+def _step_ms(fn, args, calls=3):
+    """Median CUDA-event time of one call of a step (synchronized)."""
+    out = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def _dryrun_against_card():
+    """(c) Full-width qwen3-4b: phase 5's train step (B = 8, seq 64, remat
+    full, f32 moments) and a decode step at B = 8 over a cache of
+    ``DECODE_CACHE`` positions, analyzed on meta and around the real step
+    on the card (after one warm call): the flops must be equal; the
+    predicted peak (argument bytes + the peak of live bytes) beside
+    ``torch.cuda.max_memory_allocated`` over the analyzed call, and
+    ``t_roofline`` beside the step's CUDA-event time (median of 3)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import cost_analysis as H
+    from repro_torch.launch import dryrun
+    cfg = registry.get("qwen3-4b")
+    props = torch.cuda.get_device_properties(0)
+    log(f"  card memory: total_memory {props.total_memory} B "
+        f"({props.total_memory / 2 ** 30:.2f} GiB; dryrun.HBM_PER_CHIP "
+        f"{dryrun.HBM_PER_CHIP}), {_card()}")
+    out = {}
+    for step, b, l in (("train", TRAIN_BATCH, TRAIN_SEQ),
+                       ("decode", 8, DECODE_CACHE)):
+        fn, args = dryrun.step_call(cfg, step, b, l, "meta")
+        meta = H.analyze(fn, *args)
+        del fn, args
+        fn, args = dryrun.step_call(cfg, step, b, l, "cuda")
+        fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with H.Analysis() as a:
+            fn(*args)
+        torch.cuda.synchronize()
+        card = a.result()
+        measured = torch.cuda.max_memory_allocated()
+        ms = _step_ms(fn, args)
+        del fn, args
+        _free()
+        predicted = meta["arg_bytes"] + meta["peak_bytes"]
+        terms = H.roofline_terms(meta)
+        log(f"  {step} (B={b}, {l} positions): flops meta {meta['flops']:.6g}"
+            f" == card {card['flops']:.6g}; bytes meta {meta['bytes']:.6g}, "
+            f"card {card['bytes']:.6g}")
+        log(f"    peak predicted {predicted / 2 ** 30:.3f} GiB (arguments "
+            f"{meta['arg_bytes'] / 2 ** 30:.3f} + live "
+            f"{meta['peak_bytes'] / 2 ** 30:.3f}) vs max_memory_allocated "
+            f"{measured / 2 ** 30:.3f} GiB (ratio "
+            f"{predicted / measured:.3f})")
+        log(f"    t_roofline {1e3 * terms['t_roofline']:.3f} ms "
+            f"({terms['bottleneck']}) vs step {ms:.3f} ms (ratio "
+            f"{1e3 * terms['t_roofline'] / ms:.4f})")
+        if card["flops"] != meta["flops"]:
+            raise AssertionError(f"{step}: meta flops {meta['flops']} != "
+                                 f"card flops {card['flops']}")
+        out[step] = dict(meta=meta, card=card, predicted=predicted,
+                         measured=measured, ms=ms, **terms)
+    return out
+
+
+def phase_dryrun(grid, out_dir):
+    """Phase 6: (a) the smokes and the examples on the card, (b) the cell
+    grid from the workers started at the top, (c) the analysis against
+    the card (``_dryrun_card``, ``_dryrun_grid``, ``_dryrun_against_card``)."""
+    _dryrun_card(out_dir)
+    _free()
+    recs = _dryrun_grid(grid, out_dir)
+    return recs, _dryrun_against_card()
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def _unseeded_pipeline(cfg):
     from repro_torch.models import attention as attn_lib
     return dataclasses.replace(attn_lib.srf_cfg(cfg), seeded=False).pipeline
@@ -4687,7 +4923,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    grid = start_grid()
+    try:
+        return run_phases(build, grid)
+    finally:
+        grid[0].terminate()
+        grid[0].join()
 
+
+def run_phases(build, grid) -> int:
+    """Phases 1-6 and the result lines (``main``'s body, with the grid
+    workers running)."""
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log("phase 1: build")
@@ -4758,11 +5004,12 @@ def main() -> int:
     phase_train_compressed(train_vlm)
     phase_train_resume()
     phase_train_agreement()
+    _free()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    log("phase 6: the dry run")
+    phase_dryrun(grid, out_dir)
+
+    log(_card())
     src = "src/repro_torch/kernels/csrc/"
     decode = "R=8, M=16, P=16, D=8*128, N=257, 36 layer pools cycled"
 

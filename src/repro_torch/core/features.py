@@ -14,12 +14,34 @@ accepted with a ``DeprecationWarning`` and converted to the equivalent
 from __future__ import annotations
 
 import math
-from typing import Callable, Union
+from typing import Callable, Dict, Union
 
 import torch
 
 from . import spinner
 from .spinner import SpinnerPipeline
+
+
+# the paper's pointwise f's as functions of y, derived from the registry in
+# core/spinner.py: identity (JL), heaviside (angular / arc-cosine b=0),
+# sign (E[s1 s2] = 1 - 2 theta/pi), relu (arc-cosine b=1)
+
+def _scalar_f(name: str) -> Callable:
+    fn = spinner.nonlinearity(name).fn
+    return lambda y: fn(y, None)
+
+
+f_identity = _scalar_f("identity")
+f_heaviside = _scalar_f("heaviside")
+f_sign = _scalar_f("sign")
+f_relu = _scalar_f("relu")
+
+F_TABLE: Dict[str, Callable] = {
+    "identity": f_identity,
+    "heaviside": f_heaviside,
+    "sign": f_sign,
+    "relu": f_relu,
+}
 
 
 def _inv_sqrt_m(pipe: SpinnerPipeline) -> float:

@@ -196,3 +196,17 @@ def decode_step(state: Tuple[torch.Tensor, torch.Tensor],
     num = torch.einsum("bhlm,bhmd->bhld", phi_q, s)
     den = torch.einsum("bhlm,bhm->bhl", phi_q, z)
     return (s, z), num / (den[..., None] + eps)
+
+
+def reference_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """Exact softmax attention (the oracle of the SRF quality tests)."""
+    d = q.shape[-1]
+    logits = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(d)
+    if causal:
+        l = q.shape[-2]
+        mask = torch.tril(torch.ones((l, l), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhij,bhjd->bhid", w, v)

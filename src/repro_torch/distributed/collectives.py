@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.obs import cost as _cost
 from repro_torch.optim import compression as C
 
 
@@ -95,6 +96,14 @@ def axis_shard_map(f: Callable, axis: Axis) -> Callable:
     return run
 
 
+def _record(kind: str, t: torch.Tensor) -> None:
+    """Under a cost analysis: one ``kind`` collective of ``t``'s bytes a
+    device (an all-reduce counts x2 there)."""
+    a = _cost.current()
+    if a is not None:
+        a.collective(kind, t.numel() * t.element_size())
+
+
 def stitch_heads(parts: Sequence[torch.Tensor], axis: Axis,
                  head_dim: int = 1) -> torch.Tensor:
     """Concatenate per-shard head blocks into the full head axis, in
@@ -103,17 +112,21 @@ def stitch_heads(parts: Sequence[torch.Tensor], axis: Axis,
     summing a row-parallel wo: the replicated wo then contracts whole
     heads in the single-device order, so greedy tokens equal the
     unsharded engine's (a sum across shards re-associates d_model)."""
-    return torch.cat([p.to(axis.home) for p in parts], dim=head_dim)
+    out = torch.cat([p.to(axis.home) for p in parts], dim=head_dim)
+    _record("all-gather", out)
+    return out
 
 
 def pmax(parts: Sequence[torch.Tensor], axis: Axis) -> torch.Tensor:
     """Elementwise max over the shards, on the home device."""
+    _record("all-reduce", parts[0])
     return functools.reduce(torch.maximum, [p.to(axis.home) for p in parts])
 
 
 def pmean(parts: Sequence[torch.Tensor], axis: Axis) -> torch.Tensor:
     """Mean over the shards: the sum in shard order over the axis size,
     on the home device."""
+    _record("all-reduce", parts[0])
     total = parts[0].to(axis.home)
     for p in parts[1:]:
         total = total + p.to(axis.home)

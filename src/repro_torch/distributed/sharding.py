@@ -14,8 +14,11 @@ A spec (:class:`P`) is the counterpart of ``PartitionSpec``: one entry a
 dim, an axis name, a tuple of names or None. Paths are the port's tree
 paths ("segments/0/attn/wq"), the reference's ``_path_str``. A mesh is
 anything with ``axis_names`` and ``devices.shape`` (``launch.mesh.Mesh``).
-The activation constrainer (``make_constrainer``, ``named``) feeds only
-the dry-run lowering, which is not ported (ROADMAP.md, item 6).
+The activation constrainer (``make_constrainer``) and ``named`` feed the
+dry run (``launch.dryrun``): the port has no partitioner, so a
+constrained activation is returned unchanged and its per-device share
+recorded to the active cost analysis, and ``named`` gives the shard
+shapes the dry run counts per-device bytes by.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import re
 from typing import Dict, Tuple
 
 from repro_torch import tree as tree_lib
+from repro_torch.obs import cost as _cost
 
 
 class P:
@@ -241,3 +245,92 @@ def cache_specs_tree(cache_specs, cfg, mesh) -> Dict:
                 ent[0] = dp
         return P(*ent)
     return tree_lib.map_with_path(f, cache_specs)
+
+
+# --- activation constrainer (models/hooks.py) ---------------------------------
+
+def _width(mesh, entries) -> int:
+    """Devices a spec's entries split a tensor over."""
+    total = 1
+    for e in entries:
+        for name in (e if isinstance(e, tuple) else (e,)):
+            if name is not None:
+                total *= axis_size(mesh, name)
+    return total
+
+
+def make_constrainer(mesh, cfg=None):
+    """``hooks.constrain``'s mesh-aware rules (the reference's): per role,
+    the spec an activation would be laid out by. The port applies no
+    layout: the tensor comes back unchanged, and under a cost analysis
+    its global shape and the devices its spec splits it over are
+    recorded (``Analysis.share``)."""
+    dp = dp_axes(mesh)
+
+    def spec(shape, role: str):
+        nd = len(shape)
+        if role == "activation" and nd >= 2:
+            return [dp] + [None] * (nd - 1) if _fits(shape, 0, mesh, dp) \
+                else None
+        if role == "residual" and nd == 3:
+            # Megatron sequence parallelism: (B, T, d) -> (dp, 'model', -)
+            ent = [None, None, None]
+            if _fits(shape, 0, mesh, dp):
+                ent[0] = dp
+            if _fits(shape, 1, mesh, "model"):
+                ent[1] = "model"
+            return spec(shape, "activation") if ent[1] is None else ent
+        if role == "logits" and nd == 3:
+            ent = [None, None, None]
+            if _fits(shape, 0, mesh, dp):
+                ent[0] = dp
+            if _fits(shape, 2, mesh, "model"):
+                ent[2] = "model"
+            return ent
+        if role == "moe_buf" and nd == 4:
+            # (B groups, E, C, d): groups on dp, experts on model (EP)
+            ent = [None, None, None, None]
+            if _fits(shape, 0, mesh, dp):
+                ent[0] = dp
+            if _fits(shape, 1, mesh, "model"):
+                ent[1] = "model"
+            return ent
+        return None
+
+    def fn(x, role: str):
+        a = _cost.current()
+        if a is not None:
+            ent = spec(tuple(x.shape), role)
+            if ent is not None:
+                a.share(role, x.shape, _width(mesh, ent))
+        return x
+    return fn
+
+
+class NamedSharding:
+    """A spec on a mesh (the counterpart of ``jax.sharding.NamedSharding``):
+    :meth:`shard_shape` is the block one device holds."""
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh, spec: P):
+        self.mesh = mesh
+        self.spec = spec
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        out = list(shape)
+        for dim, e in enumerate(self.spec):
+            if e is not None:
+                w = _width(self.mesh, [e])
+                if out[dim] % w:
+                    raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                     f"divide over {e!r} ({w})")
+                out[dim] //= w
+        return tuple(out)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r})"
+
+
+def named(mesh, tree_specs):
+    """A spec tree's :class:`NamedSharding` s."""
+    return tree_lib.map(lambda s: NamedSharding(mesh, s), tree_specs)

@@ -42,6 +42,14 @@ that name): with ``--kernel-timing`` each dispatch is timed into
 ``kernel_dispatch_seconds{kernel=...}``; otherwise the wrapper only
 calls it. The grad refusals run before it, outside the timed region.
 
+While a cost analysis is active (``launch.cost_analysis``, through
+``obs.cost``), a dispatcher whose call the card's kernel would take adds
+the kernel's operations and bytes by the formulas of ``kernels/cost.py``
+and runs it (off the card: its plain version) unseen by the analysis,
+or, on ``meta``, returns an empty output of the kernel's shape; the
+spinner ops keep their autograd Functions, so the plain backward that
+training runs is counted op by op.
+
 There is no interpret route and no block-size plan cache: block sizes
 are the kernels' own. Launch counts live on the kernel wrappers
 (``spinner.spinner_project_cuda.launches``,
@@ -61,9 +69,11 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core import transforms
+from repro_torch.obs import cost as _cost
 from repro_torch.obs import profiling as _prof
 
 from . import circulant as _circ
+from . import cost as _kcost
 from . import fwht as _fwht
 from . import paged_gather as _pg
 from . import ref as _ref
@@ -116,6 +126,16 @@ def _no_grad_needed(op: str, *tensors: Optional[torch.Tensor]) -> None:
             f"tensors for the differentiable plain version")
 
 
+def _counted(name: str, cost, run, empty, inputs):
+    """``run()``, or under an active cost analysis the kernel's ``cost()``
+    (operations, bytes) recorded and ``run()`` unseen (``empty()`` on
+    meta)."""
+    a = _cost.current()
+    if a is None:
+        return run()
+    return a.kernel(name, *cost(), run, empty, inputs)
+
+
 def fwht(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
     """(..., n) -> (..., n) Walsh-Hadamard transform (Sylvester order, n a
     power of two), scaled by 1/sqrt(n) when ``normalized``; f32
@@ -124,6 +144,15 @@ def fwht(x: torch.Tensor, normalized: bool = True) -> torch.Tensor:
     if not transforms.is_pow2(n):
         raise ValueError(f"fwht needs power-of-two length, got {n}")
     rows = x.reshape(-1, n)
+    if _cost.current() is not None and n <= _fwht.MAX_N:
+        return _counted("fwht", lambda: _kcost.fwht(rows.shape[0], n,
+                                                    x.element_size()),
+                        lambda: _fwht_call(x, rows, n, normalized),
+                        lambda: torch.empty_like(x), (x,))
+    return _fwht_call(x, rows, n, normalized)
+
+
+def _fwht_call(x, rows, n, normalized):
     if x.is_cuda and n <= _fwht.MAX_N:
         _no_grad_needed("fwht", x)
         y = _prof.dispatch("fwht", lambda: _fwht.fwht_cuda(
@@ -150,6 +179,16 @@ def circulant_project(g: torch.Tensor, x: torch.Tensor, m: int,
     nb, n = g.shape
     if nb * n < m:
         raise ValueError(f"generators cover {nb * n} rows < m={m}")
+    width = 2 * m if epilogue == "cos_sin" else m
+    return _counted(
+        "circulant_project",
+        lambda: _kcost.circulant(x.shape[0], n, nb, m, x.element_size(),
+                                 width),
+        lambda: _circulant_call(g, x, m, epilogue, sq),
+        lambda: x.new_empty((x.shape[0], width)), (g, x))
+
+
+def _circulant_call(g, x, m, epilogue, sq):
     if x.is_cuda:
         _no_grad_needed("circulant_project", g, x, sq)
         return _prof.dispatch(
@@ -162,6 +201,15 @@ def circulant_project(g: torch.Tensor, x: torch.Tensor, m: int,
 
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """pool (N, P, D), tables (R, M) -> (R, M*P, D) contiguous history."""
+    _, p, d = pool.shape
+    r, w = tables.shape
+    return _counted("paged_gather",
+                    lambda: _kcost.gather(r * w * p, d, pool.element_size()),
+                    lambda: _paged_gather_call(pool, tables),
+                    lambda: pool.new_empty((r, w * p, d)), (pool, tables))
+
+
+def _paged_gather_call(pool, tables):
     if pool.is_cuda:
         _no_grad_needed("paged_gather", pool)
         return _prof.dispatch("paged_gather",
@@ -175,6 +223,17 @@ def paged_gather_dequant(pool: torch.Tensor, scales: torch.Tensor,
                          out_dtype=torch.float32) -> torch.Tensor:
     """int8 pool (N, P, D) + scales (N, P, 1), tables (R, M) ->
     (R, M*P, D) dequantized history in ``out_dtype``."""
+    _, p, d = pool.shape
+    r, w = tables.shape
+    return _counted(
+        "paged_gather_dequant",
+        lambda: _kcost.gather_dequant(r * w * p, d, out_dtype.itemsize),
+        lambda: _dequant_call(pool, scales, tables, out_dtype),
+        lambda: pool.new_empty((r, w * p, d), dtype=out_dtype),
+        (pool, scales, tables))
+
+
+def _dequant_call(pool, scales, tables, out_dtype):
     if pool.is_cuda:
         _no_grad_needed("paged_gather_dequant", pool, scales)
         return _prof.dispatch(
@@ -191,6 +250,20 @@ def paged_gather_dequant_kv(k_pool: torch.Tensor, k_scales: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A layer's K and V: :func:`paged_gather_dequant` of both int8 pools
     (one shape) through one table, as (k, v); on the card one launch."""
+    _, p, d = k_pool.shape
+    r, w = tables.shape
+    return _counted(
+        "paged_gather_dequant_kv",
+        lambda: _kcost.gather_dequant(r * w * p, d, out_dtype.itemsize,
+                                      pools=2),
+        lambda: _dequant_kv_call(k_pool, k_scales, v_pool, v_scales, tables,
+                                 out_dtype),
+        lambda: tuple(k_pool.new_empty((r, w * p, d), dtype=out_dtype)
+                      for _ in range(2)),
+        (k_pool, k_scales, v_pool, v_scales, tables))
+
+
+def _dequant_kv_call(k_pool, k_scales, v_pool, v_scales, tables, out_dtype):
     if k_pool.is_cuda:
         _no_grad_needed("paged_gather_dequant_kv", k_pool, k_scales, v_pool,
                         v_scales)
@@ -209,6 +282,15 @@ def srf_decode(s: torch.Tensor, z: torch.Tensor, phi_q: torch.Tensor,
     """(s', z', out); see ``kernels.ref.srf_decode_ref`` for shapes. On
     the card s and z are updated in place (the returned s', z' are s, z);
     callers pass state they own and use the returned tensors."""
+    b, h, m, dv = s.shape
+    return _counted(
+        "srf_decode", lambda: _kcost.srf_decode(b, h, m, dv,
+                                                s.element_size()),
+        lambda: _srf_decode_call(s, z, phi_q, phi_k, v, eps),
+        lambda: (s, z, s.new_empty((b, h, dv))), (s, z, phi_q, phi_k, v))
+
+
+def _srf_decode_call(s, z, phi_q, phi_k, v, eps):
     if s.is_cuda:
         _no_grad_needed("srf_decode", s, z, phi_q, phi_k, v)
         return _prof.dispatch("srf_decode", lambda: _dec.srf_decode_cuda(
@@ -222,6 +304,31 @@ def kernel_takes(kind: str, n: int, m: int, use_hd: bool) -> bool:
     return (kind in _spin.KERNEL_KINDS
             and (not use_hd or transforms.is_pow2(n))
             and n <= _spin.MAX_N and n + m - 1 <= (1 << 22))
+
+
+H100_SM_COUNT = 132      # NVIDIA H100 SXM5: the plan's SM count off the card
+PLAN_BN = 128            # csrc/spinner.cu: output columns a block
+
+
+def spinner_plan(kind: str, n: int, m: int, *, use_hd: bool = True,
+                 epilogue: str = "identity", dtype=torch.float32,
+                 budget: Optional[int] = None, seeded: bool = False,
+                 G: int = 1, B: Optional[int] = None,
+                 sm_count: Optional[int] = None) -> Tuple[int, int]:
+    """The spinner kernel's launch plan ``(block_b, block_m)`` = (BM, BN)
+    for G groups of B rows: ``pick_mt`` of ``csrc/spinner.cu`` (BM 128
+    rows where that still gives two blocks an SM, else 32; BN 128
+    columns). The SM count is the card's, or ``sm_count``, or without a
+    card an H100 SXM5's 132. B None plans one 128-row tile. The kind,
+    HD, epilogue, dtype and seeding do not change the plan; ``budget``
+    is the reference's VMEM budget, which a CUDA block does not have
+    (accepted and ignored)."""
+    if sm_count is None:
+        sm_count = (torch.cuda.get_device_properties(0).multi_processor_count
+                    if torch.cuda.is_available() else H100_SM_COUNT)
+    rows = 128 if B is None else B
+    tiles = G * -(-m // PLAN_BN) * -(-rows // 128)
+    return (128 if tiles >= 2 * sm_count else 32), PLAN_BN
 
 
 def spinner_project(kind: str, params: Dict[str, torch.Tensor],
@@ -247,7 +354,8 @@ def spinner_project(kind: str, params: Dict[str, torch.Tensor],
         h = None if h is None else h[None]
         d0 = None if d0 is None else d0[None]
         d1 = None if d1 is None else d1[None]
-    if x.is_cuda and kernel_takes(kind, n, m, d0 is not None):
+    on_card = x.is_cuda or _cost.current() is not None
+    if on_card and kernel_takes(kind, n, m, d0 is not None):
         y = _prof.dispatch("spinner_project", lambda: _SpinnerKernel.apply(
             g, xf, d0, d1, kind, m, epilogue, y_scale, out_scale))
     else:
@@ -286,11 +394,23 @@ class _SpinnerKernel(torch.autograd.Function):
     def forward(ctx, g, x, d0, d1, kind, m, epilogue, y_scale, out_scale):
         ctx.save_for_backward(g, x, d0, d1)
         ctx.conf = (kind, m, epilogue, y_scale, out_scale)
-        return _spin.spinner_project_cuda(
-            kind, g.contiguous(), x.contiguous(), m,
-            d0=None if d0 is None else d0.contiguous(),
-            d1=None if d1 is None else d1.contiguous(),
-            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        if x.is_cuda or _cost.current() is None:
+            run = lambda: _spin.spinner_project_cuda(  # noqa: E731
+                kind, g.contiguous(), x.contiguous(), m,
+                d0=None if d0 is None else d0.contiguous(),
+                d1=None if d1 is None else d1.contiguous(),
+                epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        else:                           # a cost analysis off the card
+            run = lambda: _ref.spinner_project_ref(  # noqa: E731
+                kind, g, x, m, d0=d0, d1=d1, epilogue=epilogue,
+                y_scale=y_scale, out_scale=out_scale)
+        gsz, bsz, n = x.shape
+        width = 2 * m if epilogue == "cos_sin" else m
+        return _counted(
+            "spinner_project",
+            lambda: _kcost.spinner(kind, gsz, bsz, n, m, x.element_size(),
+                                   g[0].numel(), width, d0 is not None),
+            run, lambda: x.new_empty((gsz, bsz, width)), (g, x))
 
     @staticmethod
     def backward(ctx, dy):
@@ -331,7 +451,8 @@ def spinner_project_seeded(kind: str, seeds: Union[int, torch.Tensor],
     xf = _groups(x, grouped)
     sd = torch.as_tensor(seeds, dtype=torch.int64,
                          device=x.device).reshape(xf.shape[0])
-    if x.is_cuda and kernel_takes(kind, n, m, use_hd):
+    on_card = x.is_cuda or _cost.current() is not None
+    if on_card and kernel_takes(kind, n, m, use_hd):
         y = _prof.dispatch(
             "spinner_project_seeded", lambda: _SeededSpinnerKernel.apply(
                 sd, xf, kind, m, r, ldr_nnz, use_hd, epilogue, y_scale,
@@ -363,9 +484,21 @@ class _SeededSpinnerKernel(torch.autograd.Function):
         ctx.save_for_backward(seeds, x)
         ctx.conf = (kind, m, r, ldr_nnz, use_hd, epilogue, y_scale,
                     out_scale)
-        return _spin.spinner_project_seeded_cuda(
-            kind, seeds.contiguous(), x.contiguous(), m, use_hd=use_hd,
-            epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        if x.is_cuda or _cost.current() is None:
+            run = lambda: _spin.spinner_project_seeded_cuda(  # noqa: E731
+                kind, seeds.contiguous(), x.contiguous(), m, use_hd=use_hd,
+                epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        else:                           # a cost analysis off the card
+            run = lambda: _ref.spinner_project_seeded_ref(  # noqa: E731
+                kind, seeds, x, m, r=r, ldr_nnz=ldr_nnz, use_hd=use_hd,
+                epilogue=epilogue, y_scale=y_scale, out_scale=out_scale)
+        gsz, bsz, n = x.shape
+        width = 2 * m if epilogue == "cos_sin" else m
+        return _counted(
+            "spinner_project_seeded",
+            lambda: _kcost.seeded(kind, gsz, bsz, n, m, x.element_size(),
+                                  width, use_hd),
+            run, lambda: x.new_empty((gsz, bsz, width)), (seeds, x))
 
     @staticmethod
     def backward(ctx, dy):

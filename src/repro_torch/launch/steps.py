@@ -146,9 +146,11 @@ def make_paged_step(cfg, mesh=None, paged=None, params_sds=None):
     return sharded
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, greedy: bool = True, temperature: float = 1.0):
     """One decode step: (params, cache, tokens (B, 1)) -> (greedy next
-    tokens (B, 1), logits (B, vocab) of the new position, cache)."""
+    tokens (B, 1), logits (B, vocab) of the new position, cache). The
+    next tokens are the argmax whatever ``greedy`` and ``temperature``
+    say, as in the reference (a caller samples from the logits)."""
     def serve_step(params, cache, tokens):
         logits, cache = model.decode_step(params, cfg, cache, tokens)
         logits = logits[:, -1, : cfg.vocab]

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import itertools
 import json
 import subprocess
@@ -63,7 +64,9 @@ def main() -> int:
         print("sweep_gather: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels import paged_gather as kpg
+    # ``repro_torch.kernels`` re-exports the op ``paged_gather`` over the
+    # module
+    kpg = importlib.import_module("repro_torch.kernels.paged_gather")
     build.build(["paged_gather"])
     default_plan = kpg.dequant_plan
     defaults = {k: getattr(kpg, k) for k in CONSTANTS}

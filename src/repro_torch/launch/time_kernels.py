@@ -38,6 +38,7 @@ and ``tests/test_torch_cuda.py`` do that).
 from __future__ import annotations
 
 import argparse
+import importlib
 import itertools
 import json
 import statistics
@@ -124,7 +125,9 @@ def main() -> int:
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build, circulant as kcirc
-    from repro_torch.kernels import paged_gather as kpg
+    # ``repro_torch.kernels`` re-exports the op ``paged_gather`` over the
+    # module
+    kpg = importlib.import_module("repro_torch.kernels.paged_gather")
     from repro_torch.kernels import spinner as kspin
     t0 = time.perf_counter()
     build.build([{"gather": "paged_gather"}.get(g, g)

@@ -1,2 +1,6 @@
-"""Decoder LM pieces for the paged serving path (dense family, full-KV or
-SRF attention)."""
+"""The model of every family: one config-driven implementation (dense,
+SSD, hybrid, MoE, MLA, vision and enc-dec)."""
+from . import attention, frontends, hooks, layers, moe, ssm, transformer
+
+__all__ = ["attention", "frontends", "hooks", "layers", "moe", "ssm",
+           "transformer"]

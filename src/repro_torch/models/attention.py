@@ -94,6 +94,7 @@ from repro_torch.core import srf_attention as srf
 from repro_torch.core.srf_attention import SRFConfig
 from repro_torch.core.transforms import is_pow2
 from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import stitch_heads  # noqa: F401
 from repro_torch.kernels import ops as kops
 
 from . import layers

@@ -1,9 +1,9 @@
 """Sharding-constraint hook. Models call ``constrain(x, role)`` at a few
 activation boundaries, as in ``repro.models.hooks``; a launcher may
-install another implementation with ``set_constrainer``. The default is
-the identity, so the models import mesh-free (the reference's
-mesh-aware constrainer, ``make_constrainer``, feeds its dry-run
-lowering, which the port has not ported)."""
+install another implementation with ``set_constrainer`` (the dry run
+installs ``distributed.sharding.make_constrainer``, which records each
+constrained activation's per-device share) and restore the identity
+default with ``reset``, so the models import mesh-free."""
 from __future__ import annotations
 
 
@@ -21,3 +21,8 @@ def constrain(x, role: str):
 def set_constrainer(fn) -> None:
     global _fn
     _fn = fn
+
+
+def reset() -> None:
+    global _fn
+    _fn = _identity

@@ -73,9 +73,10 @@ def apply_m_rope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
                          f"head_dim / 2 = {hd // 2}")
     inv = rope_freqs(hd, theta, x.device)
-    sec_id = torch.repeat_interleave(
+    sec_id = torch.repeat_interleave(       # output_size: no host sync
         torch.arange(len(sections), device=x.device),
-        torch.as_tensor(tuple(sections), device=x.device))
+        torch.as_tensor(tuple(sections), device=x.device),
+        output_size=hd // 2)
     pos = positions3.to(x.device)[sec_id]                  # (hd/2, B, L)
     ang = pos.permute(1, 2, 0).float() * inv               # (B, L, hd/2)
     cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]

@@ -98,9 +98,12 @@ def _layer_plan(cfg) -> List[Tuple[str, int, Tuple[str, ...]]]:
 def init(cfg, seed: int = 0, device="cuda") -> Dict:
     """Random params from a seeded ``torch.Generator`` on ``device``
     (same shapes and laws as ``repro.models.transformer.init``; other
-    numbers, since torch and jax draw differently)."""
+    numbers, since torch and jax draw differently). On ``meta`` (shapes
+    and dtypes only) a CPU generator stands in: a generator cannot live
+    on meta, and a CPU one draws onto it."""
     dt = dtype_of(cfg)
-    gen = torch.Generator(device=device)
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device)
     gen.manual_seed(seed)
     d = cfg.d_model
     params: Dict = {"embed": layers.embed_init(gen, cfg.padded_vocab, d, dt,
@@ -318,12 +321,13 @@ def encode_memory(params, cfg, enc_emb: torch.Tensor) -> torch.Tensor:
     return layers.rmsnorm(params["enc_norm"], enc_x, cfg.norm_eps)
 
 
-def embed_inputs(params, cfg, batch: Dict):
+def embed_inputs(params, cfg, batch: Dict, decode: bool = False):
     """-> (x, positions, pos3, memory) of a batch {"tokens", optional
     "positions"; a vision config's "vision_emb" (B, Lv, feat) and
     "pos3" (3, B, Lv + L); an enc-dec config's "enc_emb" (B, E, feat)}:
-    a vision batch's projected patches prefix the token embeddings, and
-    an enc-dec batch's features run through the encoder (``memory``)."""
+    a vision batch's projected patches prefix the token embeddings
+    (not with ``decode``: a decode token has no vision prefix), and an
+    enc-dec batch's features run through the encoder (``memory``)."""
     dt = dtype_of(cfg)
     pos3 = batch.get("pos3")
     memory = None
@@ -331,7 +335,7 @@ def embed_inputs(params, cfg, batch: Dict):
         memory = encode_memory(params, cfg, batch["enc_emb"])
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(dt)
-    if cfg.frontend == "vision_stub" and "vision_emb" in batch:
+    if cfg.frontend == "vision_stub" and not decode and "vision_emb" in batch:
         v = frontends.frontend_apply(params["frontend"], cfg,
                                      batch["vision_emb"]).to(dt)
         x = torch.cat([v, x], dim=1)
@@ -414,10 +418,13 @@ def prefill(params, cfg, batch: Dict, cache: Dict
     return _logits(params, cfg, x[:, -1:]), cache
 
 
-def decode_step(params, cfg, cache: Dict, tokens: torch.Tensor
+def decode_step(params, cfg, cache: Dict, tokens: torch.Tensor,
+                pos3: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache["pos"]`` -> (logits (B, 1,
-    V_padded), cache), the cache written in place."""
+    V_padded), cache), the cache written in place. ``pos3`` (3, B, 1):
+    an M-RoPE config's (t, h, w) position rows of the new token (1-D
+    RoPE at ``cache["pos"]`` without them)."""
     pos = cache["pos"]
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int64,
                            device=tokens.device)
@@ -427,7 +434,7 @@ def decode_step(params, cfg, cache: Dict, tokens: torch.Tensor
     for seg_params, seg_cache, (kind, _) in zip(
             params["segments"], cache["segments"], segments(cfg)):
         x, _, _ = run_segment(seg_params, cfg, kind, x, positions,
-                              "decode", seg_cache, memory=memory)
+                              "decode", seg_cache, pos3, memory)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
 

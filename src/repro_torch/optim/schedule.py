@@ -14,3 +14,7 @@ def warmup_cosine(step, base_lr: float, warmup: int, total: int,
     frac = torch.clamp((step - warmup) / max(1, total - warmup), 0.0, 1.0)
     cos = min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * frac))
     return torch.where(step < warmup, warm, base_lr * cos)
+
+
+def constant(step, base_lr: float, device=None) -> torch.Tensor:
+    return torch.full((), base_lr, dtype=torch.float32, device=device)

@@ -6,7 +6,7 @@ from .blocks import BlockAllocator, BlockTable          # noqa: F401
 from .engine import Engine, Request                     # noqa: F401
 from .ft import FTConfig, ReplicaWatchdog               # noqa: F401
 from .mesh import Router, RouterConfig                  # noqa: F401
-from .paged_cache import (PagedConfig, PoolPlan, init_pools,  # noqa: F401
-                          plan_for)
+from .paged_cache import (PagedConfig, PoolPlan, family_for,  # noqa: F401
+                          init_pools, plan_for)
 from .prefix import ChunkConfig, PrefixCache, PrefixConfig  # noqa: F401
 from .scheduler import SchedConfig, Scheduler           # noqa: F401

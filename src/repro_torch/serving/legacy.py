@@ -97,7 +97,10 @@ class Engine:
             return True
         return False
 
-    def _fill_slots(self) -> None:
+    def _fill_slots(self, extra_batch: Optional[Dict] = None) -> None:
+        """Prefill queued requests into free slots; ``extra_batch`` (for
+        example a vision prefix's "vision_emb" and "pos3") is merged into
+        every prefill batch."""
         for i in range(self.slots):
             # loop: a request whose FIRST token already meets eos/max_new
             # finishes at prefill and never holds the slot (the paged
@@ -109,6 +112,8 @@ class Engine:
                 if req.enc_emb is not None:
                     batch["enc_emb"] = torch.as_tensor(
                         np.asarray(req.enc_emb), device=self.device)[None]
+                if extra_batch:
+                    batch.update(extra_batch)
                 cache = model_lib.init_serve_cache(self.cfg, 1,
                                                    self.max_len, self.device)
                 logits, cache = self._prefill(self.params, batch, cache)
@@ -136,10 +141,11 @@ class Engine:
                 self.active[i] = None
                 self.caches[i] = None
 
-    def run(self) -> List[Request]:
-        """Drain the queue; returns the completed requests."""
+    def run(self, extra_batch: Optional[Dict] = None) -> List[Request]:
+        """Drain the queue; returns the completed requests.
+        ``extra_batch`` goes into every prefill batch (``_fill_slots``)."""
         tracked = list(self.queue)
         while self.queue or any(a is not None for a in self.active):
-            self._fill_slots()
+            self._fill_slots(extra_batch)
             self._decode_once()
         return [r for r in tracked if r.done]

@@ -6,3 +6,4 @@ and rescues their work; ``shard.py`` lays an engine's pools and params
 out on a mesh's ``model`` axis (``Engine(mesh=...)``).
 """
 from .router import Router, RouterConfig                 # noqa: F401
+from .shard import paged_tp, pool_specs, serving_param_specs  # noqa: F401

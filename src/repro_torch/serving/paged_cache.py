@@ -55,7 +55,7 @@ of another TP width. ``pool_bytes`` counts the global pools,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Protocol, Tuple
 
 import torch
 
@@ -73,6 +73,22 @@ class PagedConfig:
     row (per cached token); the dequant is fused into the
     paged_gather_dequant kernel. Only the ``kv`` family quantizes."""
     quantize_kv: bool = False
+
+
+class CacheFamily(Protocol):
+    """A cache family owns the pool layout of one serving state kind."""
+    name: str
+    constant_state: bool     # True: one fixed-size slot per request
+
+    def layer_pool(self, cfg, num_pages: int, page_size: int,
+                   paged: Optional[PagedConfig] = None, device="cuda",
+                   lead=()) -> Dict:
+        """One layer's pool tree (leading axis: num_pages or slots,
+        after ``lead``)."""
+
+    def bytes_per_token(self, cfg, max_len: int,
+                        paged: Optional[PagedConfig] = None) -> float:
+        """Decode-state bytes per cached token per layer."""
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -172,7 +188,7 @@ FAMILIES = {f.name: f for f in (KVFamily(), MLAFamily(), SRFFamily(),
                                 SSDFamily())}
 
 
-def attn_family_for(cfg):
+def attn_family_for(cfg) -> CacheFamily:
     """The cache family of the (self-)attention component."""
     if cfg.attn_impl == "srf":
         return FAMILIES["srf"]
@@ -248,6 +264,16 @@ def plan_for(cfg) -> PoolPlan:
                     paged_family=paged_fam, attn_family=attn_fam,
                     slot_families=tuple(slot_fams),
                     has_memory=cfg.is_encdec)
+
+
+def family_for(cfg) -> CacheFamily:
+    """The config's primary cache family: the attention component's for
+    a stack with attention, ssd for pure SSM (the full geometry of a
+    mixed stack is its :class:`PoolPlan`)."""
+    plan = plan_for(cfg)
+    if plan.attn_family is not None:
+        return FAMILIES[plan.attn_family]
+    return FAMILIES[plan.slot_families[0]]
 
 
 def init_pools(cfg, num_pages: int, page_size: int, num_slots: int = 0,

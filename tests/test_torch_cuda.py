@@ -25,12 +25,13 @@ import torch
 
 from repro_torch.kernels import circulant as kcirc
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels import paged_gather as kpg
 from repro_torch.kernels import spinner as kspin
-from repro_torch.kernels import srf_decode as kdec
 
-# ``repro_torch.kernels`` re-exports the op ``fwht`` over the module
+# ``repro_torch.kernels`` re-exports the ops ``fwht``, ``paged_gather`` and
+# ``srf_decode`` over the modules of the same names
 kfwht = importlib.import_module("repro_torch.kernels.fwht")
+kpg = importlib.import_module("repro_torch.kernels.paged_gather")
+kdec = importlib.import_module("repro_torch.kernels.srf_decode")
 
 
 @pytest.fixture

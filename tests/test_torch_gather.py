@@ -20,7 +20,9 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels import paged_gather as kpg
+
+# ``repro_torch.kernels`` re-exports the op ``paged_gather`` over the module
+kpg = importlib.import_module("repro_torch.kernels.paged_gather")
 
 # one intra-op thread: the suite's pytest-xdist workers share the
 # cores, and oversubscribed OpenMP pools spin against each other

@@ -34,9 +34,12 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import circulant as kcirc
 from repro_torch.kernels import ops
-from repro_torch.kernels import paged_gather as kpg
 from repro_torch.kernels import spinner as kspin
-from repro_torch.kernels import srf_decode as kdec
+
+# ``repro_torch.kernels`` re-exports the ops ``paged_gather`` and
+# ``srf_decode`` over the modules of the same names
+kpg = importlib.import_module("repro_torch.kernels.paged_gather")
+kdec = importlib.import_module("repro_torch.kernels.srf_decode")
 
 # one intra-op thread: the suite's pytest-xdist workers share the
 # cores, and oversubscribed OpenMP pools spin against each other
