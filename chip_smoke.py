@@ -13,8 +13,10 @@ deepseek-v2-lite-16b (MLA with MoE), qwen2-vl-2b (vision) and
 seamless-m4t-large-v2 (enc-dec), serves head-sharded over a mesh of the
 card repeated (``Engine(mesh=...)`` at TP 2, the router over sharded
 replicas), then trains full-width qwen3-4b with SRF and with full
-attention, qwen2-vl-2b with both and with the compressed cross-pod
-gradient mean (``Trainer(mesh=...)``), and ends with the dry run: its
+attention, qwen2-vl-2b with both, mamba2-2.7b, hymba-1.5b,
+seamless-m4t-large-v2, and moonshot-v1-16b-a3b and deepseek-v2-lite-16b
+at 8 layers, and qwen2-vl-2b with the compressed cross-pod gradient
+mean (``Trainer(mesh=...)``), and ends with the dry run: its
 smokes and the five ``examples/torch_*.py`` on the card, the 40-cell
 cost analysis on meta, and the analysis held to a real step.
 
@@ -78,7 +80,12 @@ result line):
      its bound, and the plain backward that training runs after each
      forward (the VJP with respect to g, x, d0, d1; seeded: x) timed.
      The key's ``exp`` features are held element by element
-     (``check_exp``), not against their largest value.
+     (``check_exp``), not against their largest value. The materialized
+     spinner the same way at the families' training shapes
+     (``_family_shapes``: hymba G=5 kv heads, n=64, query B=40960, key
+     B=8192; seamless G=16, n=64, B=4096 (encoder and decoder); moonshot
+     G=16, n=128, B=8192; deepseek's MLA + SRF G=16 heads, n=192 without
+     HD, B=8192).
    * kernels 1, 2, 4 and 5 at hymba-1.5b's shapes
      (``phase_hymba_kernels``): the spinner at n=64, m=256, G=5 kv heads
      (decode query B=40, key B=8; bf16), srf_decode at (B=8, H=25,
@@ -153,7 +160,8 @@ result line):
    8 mixed-length requests greedy and sampled (temperature 0.8): card
    tokens equal CPU tokens, and the paged engine's card tokens equal
    the legacy engine's (int8: greedy; the two quantize per token and
-   per token and head). Then full-width qwen3-4b (bf16), 8 greedy
+   per token and head). Then full-width qwen3-4b (bf16) at
+   ``CUT_LAYERS`` (12) of its 36 layers, 8 greedy
    requests (prompt 128, 16 new, 4 slots, max_len 256), full KV and
    then SRF, through the legacy engine and the paged engine on the same
    params: every request finishes with 16 tokens, no non-finite logit
@@ -178,7 +186,8 @@ result line):
    top_k 50, top_p 0.95, both replicas at seed 0): rescued ==
    undisturbed bit for bit; a preempted sequence migrated with its
    snapshot between like replicas: tokens equal to the unmigrated run,
-   card == CPU. Then full width (the params shared by every engine), 16
+   card == CPU. Then full width at ``CUT_LAYERS`` (12) of the 36
+   layers (the params shared by every engine), 16
    greedy requests of 128 + 32 tokens (max_len 256): (a) one engine of
    8 slots; (b) ``launch.serve.router`` over 2 replicas of 4 slots with
    ``FTConfig()`` on wall clocks and no migration, no fault; (c) the
@@ -194,8 +203,8 @@ result line):
    counters, the rounds and seconds from the kill to the last moved
    request's end, and the share of tokens equal to (a) and (b) printed.
    Then ``launch.serve.main`` in process with ``--replicas 2 --ft
-   --chaos raise@12:1 --metrics-out F --trace-out T`` (16 requests, 4
-   slots): one quarantine and no failed request in F, the trace's B/E
+   --chaos raise@12:1 --metrics-out F --trace-out T`` (8 requests, 4
+   slots; full depth, the CLI's own config): one quarantine and no failed request in F, the trace's B/E
    events paired and monotone in 3 process rows (2 replicas and the
    router).
    Kernel timing: ``launch.serve.main`` in process at full width with
@@ -216,10 +225,12 @@ result line):
    none); hymba's prefix scenarios (hit, partial, miss, evict, cow):
    tokens equal cold and CPU, counters equal the CPU's; hymba's chaos
    cells (raise, hang, reject, oom): tokens equal the undisturbed
-   engine's and the CPU's, counters the CPU's. Then full width, 8
-   greedy requests of 128 + 32 tokens, 8 slots, max_len 256:
+   engine's and the CPU's, counters the CPU's. Then full width at half
+   of each stack (``SERVE_CUT``: mamba2 32 of 64 layers, hymba 16 of 32),
+   8 greedy requests of 128 + 32 tokens, 8 slots, max_len 256:
    mamba2-2.7b (64 layers, 80 SSD heads of 64, state 128) through the
-   paged and the legacy engine, no kernel launched
+   paged and the legacy engine (the legacy engine, here and for hymba,
+   on the first 4 requests at 128 + 16), no kernel launched
    (``phase_serve_ssd``); hymba-1.5b (32 layers, 25
    q / 5 kv heads of 64 beside 50 SSD heads, state 16;
    ``phase_serve_hybrid``) with full KV (paged_gather exactly 64 a
@@ -239,8 +250,8 @@ result line):
    f32, 2 layers, capacity factor 8 (no routing slot drops, so paged ==
    legacy holds), in ``phase_reduced_families``'s part (1). Then full
    width, random weights, each model freed before the next:
-   moonshot-v1-16b-a3b (48 layers, 64 experts top-6 + 2 shared, 28.4 B
-   params; ``phase_serve_moe``) with full KV at 8 requests of 128 + 32
+   moonshot-v1-16b-a3b (24 of its 48 layers, ``SERVE_CUT``; 64 experts
+   top-6 + 2 shared; ``phase_serve_moe``) with full KV at 8 requests of 128 + 32
    tokens, 8 slots (paged_gather exactly 2 a layer a step), int8 pages
    and SRF at 4 x (128 + 16), 4 slots (paged_gather_dequant_kv exactly 1
    a layer a step; the spinner exactly 2 a layer a step plus the quality
@@ -262,8 +273,8 @@ result line):
    ``loss_fn`` with ``pos3`` rows apart, card == CPU. Full width:
    qwen2-vl-2b (28 layers, 12 q / 2 kv heads of 128; ``phase_serve_vlm``)
    with full KV and SRF at 8 x (128 + 32), exact launches;
-   seamless-m4t-large-v2 (24 encoder and 24 decoder layers, 16 heads of
-   64; ``phase_serve_encdec``), each request with its own 1024 x 160
+   seamless-m4t-large-v2 (12 of its 24 encoder and 12 of its 24 decoder
+   layers, ``SERVE_CUT``; 16 heads of 64; ``phase_serve_encdec``), each request with its own 1024 x 160
    features, with full KV (paged_gather exactly 2 a layer a step plus
    the memory gather, 1 a step), int8 pages and SRF at 8 x (128 + 32),
    the prefix cache (a donor, then 4 requests with its features that hit
@@ -283,10 +294,12 @@ result line):
    TP 2 pool's preemption, int8 pages at TP 2 == unsharded == CPU, and
    migration between sharded replicas (a preempted sequence with its
    snapshot, a fresh backlog). ``phase_serve_mesh``: full-width qwen3-4b
-   at TP 2 and at TP 1 beside it, 8 x (128 + 32), full KV, int8 pages,
-   SRF, seeded SRF with embed seeds: exact launches (every shard's: 144
-   gathers a step, 72 int8 K-and-V gathers, the spinner 144 a step plus
-   the probe's, srf_decode 72 a decode step), half the pools a position,
+   at ``CUT_LAYERS`` (12) of its 36 layers, at TP 2 and at TP 1 beside
+   it, 8 x (128 + 32), full KV, int8 pages,
+   SRF, seeded SRF with embed seeds: exact launches (every shard's: 4
+   gathers a layer a step, 2 int8 K-and-V gathers, the spinner 4 a layer
+   a step plus the probe's, srf_decode 2 a layer a decode step), half
+   the pools a position,
    first-token logits within ``MESH_LOGIT_TOL`` of TP 1's, tok/s, TTFT
    and token agreement printed; the FT router over 2 replicas x TP 2
    with replica 1 raising at its step 12 (1 quarantine, 0 failed);
@@ -297,7 +310,7 @@ result line):
    fed by ``data.loader.ShardedLoader`` over ``synth.full_batch`` (the
    Trainer's step without its 44 GB checkpoint): SRF attention, seeded
    SRF, then full attention. Every loss and gradient norm finite, the
-   first loss within 0.5 of ln(V_pad) + 1/2 (random weights' expected
+   first xent within 0.5 of ln(V_pad) + 1/2 (random weights' expected
    first loss), each SRF run's spinner (materialized or seeded) launched
    exactly 4 per layer a step (2 in the forward, 2 in the recompute)
    with 2 plain backward calls per layer, the plain forward and the
@@ -312,6 +325,18 @@ result line):
    Then full-width qwen2-vl-2b (``phase_train_vlm``): 3 steps at B = 2,
    seq = 2048 (a 1024-patch vision prefix, M-RoPE over ``pos3``) with SRF
    attention and 3 with full attention, checked as qwen3-4b's are.
+   Then the other families (``phase_train_families``, ``FAMILY_TRAIN``),
+   3 steps each: mamba2-2.7b (64 layers) at 2 x 4096; hymba-1.5b (32)
+   full and SRF at 2 x 4096; seamless-m4t-large-v2 (24 + 24) full and
+   SRF at 4 x 1024 over 1024 frames; moonshot-v1-16b-a3b and
+   deepseek-v2-lite-16b full width at 8 layers (1 dense + 7 MoE; the
+   whole stacks do not fit one card), full (MLA) and SRF at 2 x 4096.
+   Each run's batch and predicted peak come from the dry run of the
+   same call on meta (``_train_prediction``, by the grid workers; the
+   batch halved above 76 GiB); checked as above (the first xent, MoE
+   aux > 0, the spinner's launches 2 a self-attention layer in the
+   forward and 2 in the recompute, encoder layers included, mamba2
+   none), and the peak within 0.9-1.1x of the prediction.
    Then ``Trainer(mesh=...)`` with ``compress_dp`` on a (pod 2) mesh of
    the card repeated (``phase_train_compressed``): reduced qwen3-4b, 5
    steps, losses card == CPU within rtol 1e-4; full-width qwen2-vl-2b,
@@ -338,7 +363,11 @@ result line):
 7. Print the card (nvidia-smi name, power limit), one JSON line with a
    record per kernel, and the result line. The spinner records carry
    their training fields (``train_*``: the training run's launches and
-   plain backward calls, and the kernel at the training shapes), and
+   plain backward calls, and the kernel at the training shapes; the
+   materialized one also ``train_families_*``, each SRF family run's
+   forward launches and plain backward calls, and
+   ``train_<config>_<query | key>_*``, the kernel at the families'
+   training shapes), and
    the spinner, srf_decode and int8-gather records their dispatch
    fields (``dispatch_*``: p50, p99 and count from the timed serve
    run), fwht and circulant_project one timed dispatch; the spinner,
@@ -780,33 +809,63 @@ def phase_seeded_spinner(gen):
 
 # the SRF feature maps of one full-width training step (qwen3-4b: 8 kv
 # heads, batch 8 x seq 64; the 4 query heads of a kv head grouped onto
-# it): (label, rows per group, epilogue)
-TRAIN_SHAPES = [("train query", 8 * 4 * 64, "identity"),
-                ("train key", 8 * 64, "exp")]
+# it): (label, G, rows per group, n, epilogue, HD); m = 256, bf16
+TRAIN_SHAPES = [("train query", 8, 8 * 4 * 64, 128, "identity", True),
+                ("train key", 8, 8 * 64, 128, "exp", True)]
+
+
+def _family_shapes():
+    """The SRF feature maps of ``phase_train_families``' SRF runs at their
+    batches (``FAMILY_TRAIN``): per config the queries (a kv head's
+    query heads grouped onto it) and the keys; seamless's encoder and
+    decoder self-attention share one shape (B x 1024 rows either way);
+    deepseek's MLA + SRF maps every head's n = 192 rows, without HD."""
+    from repro_torch.configs import registry
+    from repro_torch.models import attention as attn_lib
+    out = []
+    for label, arch, attn, over, b, seq in FAMILY_TRAIN:
+        if attn != "srf":
+            continue
+        cfg = registry.get(arch, attn_impl=attn, **over)
+        sc = attn_lib.srf_cfg(cfg)
+        g = 1 if cfg.is_mla else cfg.n_heads // cfg.n_kv_heads
+        heads = cfg.n_heads if cfg.is_mla else cfg.n_kv_heads
+        tag = label.split()[0]
+        out += [(f"{tag} query", heads, b * g * seq, sc.head_dim,
+                 "identity", sc.use_hd),
+                (f"{tag} key", heads, b * seq, sc.head_dim, "exp",
+                 sc.use_hd)]
+    return out
 
 
 def phase_spinner_train(gen):
-    """Both spinner kernels at the training shapes (G = 8, n = 128, m =
-    256, bf16): the forward against its plain version and timed beside
-    it and its bound, and the backward that training runs after it (the
-    plain version's VJP: g, x, d0, d1 materialized; x seeded) timed by
-    events."""
+    """Both spinner kernels at qwen3-4b's training shapes (G = 8, n = 128,
+    m = 256, bf16), the materialized one also at the families' training
+    shapes (``_family_shapes``): the forward against its plain version
+    and timed beside it and its bound, and the backward that training
+    runs after it (the plain version's VJP: g, x and, with HD, d0, d1
+    materialized; x seeded) timed by events."""
     from repro_torch.kernels import ref, seedgen, spinner as kspin
-    n, m, gsz, dtype = 128, 256, 8, torch.bfloat16
+    m, dtype = 256, torch.bfloat16
     records = {}
-    for label, bsz, epi in TRAIN_SHAPES:
-        x, p = spinner_inputs("circulant", gsz, bsz, n, m, dtype, gen)
+    shapes = [(s, True) for s in TRAIN_SHAPES] + \
+        [(s, False) for s in _family_shapes()]
+    for (label, gsz, bsz, n, epi, hd), with_seeded in shapes:
+        x, p = spinner_inputs("circulant", gsz, bsz, n, m, dtype, gen,
+                              use_hd=hd)
+        d0, d1 = p.get("d0"), p.get("d1")
         seeds = torch.randint(0, 2 ** 32, (gsz,), generator=gen,
                               device="cuda", dtype=torch.int64)
         kw = dict(epilogue=epi, out_scale=m ** -0.5)
         dy = torch.randn((gsz, bsz, m), generator=gen,
                          device="cuda").to(dtype)
         leaves = [t.clone().requires_grad_()
-                  for t in (p["g"], x, p["d0"], p["d1"])]
+                  for t in (p["g"], x, d0, d1) if t is not None]
 
         def bwd():
+            ds = leaves[2:] if hd else (None, None)
             y = ref.spinner_project_ref("circulant", leaves[0], leaves[1], m,
-                                        d0=leaves[2], d1=leaves[3], **kw)
+                                        d0=ds[0], d1=ds[1], **kw)
             return torch.autograd.grad(y, leaves, dy)
         xs = x.clone().requires_grad_()
 
@@ -815,20 +874,24 @@ def phase_spinner_train(gen):
             y = ref.spinner_project_ref("circulant", gp["g"], xs, m,
                                         d0=gp["d0"], d1=gp["d1"], **kw)
             return torch.autograd.grad(y, [xs], dy)
-        for name, kernel, plain, backward, b in (
-                ("spinner", lambda: kspin.spinner_project_cuda(
-                    "circulant", p["g"], x, m, d0=p["d0"], d1=p["d1"], **kw),
+        runs = [("spinner", lambda: kspin.spinner_project_cuda(
+                    "circulant", p["g"], x, m, d0=d0, d1=d1, **kw),
                  lambda: ref.spinner_project_ref(
-                    "circulant", p["g"], x, m, d0=p["d0"], d1=p["d1"], **kw),
+                    "circulant", p["g"], x, m, d0=d0, d1=d1, **kw),
                  bwd, spinner_bound("circulant", gsz, bsz, n, m,
-                                    x.element_size(), p["g"][0].numel(), m)),
+                                    x.element_size(), p["g"][0].numel(), m,
+                                    use_hd=hd))]
+        if with_seeded:
+            runs.append(
                 ("seeded spinner", lambda: kspin.spinner_project_seeded_cuda(
                     "circulant", seeds, x, m, **kw),
                  lambda: ref.spinner_project_seeded_ref(
                     "circulant", seeds, x, m, **kw),
                  seeded_bwd, seeded_bound("circulant", gsz, bsz, n, m,
-                                          x.element_size(), m))):
-            what = f"{name} {label} bf16 (G={gsz}, B={bsz})"
+                                          x.element_size(), m)))
+        for name, kernel, plain, backward, b in runs:
+            what = (f"{name} {label} bf16 (G={gsz}, B={bsz}, n={n}"
+                    f"{'' if hd else ', no HD'})")
             err = check_exp(what, kernel(), plain(), dtype, epi)
             k_ms = device_ms(kernel)
             p_ms = device_ms(plain, launches=10, repeats=3)
@@ -1940,7 +2003,8 @@ class first_logits:
 
 
 def phase_serve_legacy():
-    """Full-width qwen3-4b (bf16, 36 layers) through the legacy engine, 8
+    """Full-width qwen3-4b (bf16) cut to ``CUT_LAYERS`` (12) of its 36
+    layers through the legacy engine, 8
     greedy requests (prompt 128, 16 new tokens, 4 slots, max_len 256),
     with full KV and then SRF; then the paged engine on the same
     requests and params. Every request finishes with 16 tokens and every
@@ -1955,10 +2019,7 @@ def phase_serve_legacy():
     for attn in ("full", "srf"):
         largs = serve_args(attn, legacy=True, **LEGACY_TRAFFIC)
         pargs = serve_args(attn, **LEGACY_TRAFFIC)
-        t0 = time.perf_counter()
-        cfg, params = serve.build(largs)
-        torch.cuda.synchronize()
-        _describe(cfg, params, t0)
+        cfg, params = _build(largs)
         res, firsts = {}, {}
         for label, a in (("legacy", largs), ("paged", pargs)):
             serve.warm(a, cfg, params)
@@ -2079,6 +2140,18 @@ SAMPLED = dict(temperature=0.9, top_k=50, top_p=0.95)
 ROUTER_TRAFFIC = dict(requests=16, prompt_len=128, max_new=32, slots=4,
                       max_len=256, seed=0, device="cuda")
 ROUTER_KINDS = {"full": KINDS, "srf": ("raise", "oom")}
+# The depth of the full-width serve runs that ``_build`` makes: qwen3-4b
+# at 12 of its 36 layers in the router, legacy and mesh phases (its
+# other serve runs build it whole), and half of each family's stack.
+# The host-bound runs' time goes largely a layer at a time, and the
+# script, which must end within 1200 s, took 1110-1180 s at full depth
+# on a slow host.
+CUT_LAYERS = 12
+SERVE_CUT = {"qwen3-4b": {"n_layers": CUT_LAYERS},
+             "mamba2-2.7b": {"n_layers": 32},
+             "hymba-1.5b": {"n_layers": 16},
+             "moonshot-v1-16b-a3b": {"n_layers": 24},
+             "seamless-m4t-large-v2": {"n_layers": 12, "enc_layers": 12}}
 CHAOS_STEP = 12        # 4 prefill steps, then 8 decode steps into wave 1
 
 
@@ -2419,8 +2492,9 @@ def _check_launches(label, cfg, res):
 
 
 def phase_serve_router(out_dir):
-    """Full-width qwen3-4b (36 layers, bf16, one set of params shared by
-    every engine), 16 greedy requests of 128 + 32 tokens: (a) one engine
+    """Full-width qwen3-4b cut to ``CUT_LAYERS`` (12) of its 36 layers
+    (bf16, one set of params shared by every engine), 16 greedy requests
+    of 128 + 32 tokens: (a) one engine
     of 8 slots; (b) an FT router over 2 replicas of 4 slots
     (``launch.serve.router``, ``FTConfig()``) with no fault; (c) the same
     router with replica 1 faulted at its step 12 (4 prefill steps, then 8
@@ -2441,10 +2515,7 @@ def phase_serve_router(out_dir):
     out = {}
     for attn, kinds in ROUTER_KINDS.items():
         args = serve_args(attn, **ROUTER_TRAFFIC)
-        t0 = time.perf_counter()
-        cfg, params = serve.build(args)
-        torch.cuda.synchronize()
-        _describe(cfg, params, t0)
+        cfg, params = _build(args)
         single = copy.copy(args)
         single.slots = 2 * args.slots
         serve.warm(single, cfg, params)
@@ -2517,7 +2588,7 @@ def phase_serve_router(out_dir):
     prom = out_dir / "metrics_router.prom"
     trace = out_dir / "trace_router.json"
     text, _ = _cli(["--arch", "qwen3-4b", "--replicas", "2", "--ft",
-                    "--chaos", f"raise@{CHAOS_STEP}:1", "--requests", "16",
+                    "--chaos", f"raise@{CHAOS_STEP}:1", "--requests", "8",
                     "--slots", "4", "--prompt-len", "128", "--max-new", "32",
                     "--max-len", "256", "--metrics-out", str(prom),
                     "--trace-out", str(trace)])
@@ -3299,11 +3370,13 @@ FAMILY_TRAFFIC = dict(requests=8, prompt_len=128, max_new=32, slots=8,
 
 
 def _agreement(a, b):
-    """Share of generated positions with equal tokens (by uid)."""
+    """Share of generated positions with equal tokens, over the requests
+    (uids) and positions both runs generated."""
     ta = {r.uid: r.out_tokens for r in a["done"]}
     tb = {r.uid: r.out_tokens for r in b["done"]}
-    same = sum(x == y for u in ta for x, y in zip(ta[u], tb[u]))
-    return same / sum(map(len, ta.values()))
+    pairs = [(x, y) for u in ta.keys() & tb.keys()
+             for x, y in zip(ta[u], tb[u])]
+    return sum(x == y for x, y in pairs) / len(pairs)
 
 
 def _family_run(label, a, cfg, params, expect=None, eng=None, reqs=None):
@@ -3389,22 +3462,22 @@ def _first_logit_gap(label, paged, legacy, f32, family):
 
 
 def phase_serve_ssd():
-    """Full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads of
+    """Full-width mamba2-2.7b (32 of its 64 layers, ``SERVE_CUT``;
+    d_model 2560, 80 SSD heads of
     64, state 128, bf16), 8 greedy requests of 128 + 32 tokens, 8 slots:
-    the paged engine, then the legacy engine on the same params. Every
-    request finishes with 32 tokens, no non-finite row, no kernel
+    the paged engine, then the legacy engine on the same params and the
+    first 4 requests at 128 + 16 (``DENSE_TRAFFIC``: 6 tok/s, so the 8
+    requests took ~40 s). Every
+    request finishes with its tokens, no non-finite row, no kernel
     launched (the family has no attention and runs no TPU kernel), no
     page allocated; tok/s, TTFT p50, peak memory, the slot pool's bytes
     and the paged/legacy token agreement printed. Returns the results."""
     from repro_torch.launch import serve
     a = serve_args(arch="mamba2-2.7b", **FAMILY_TRAFFIC)
-    t0 = time.perf_counter()
-    cfg, params = serve.build(a)
-    torch.cuda.synchronize()
-    _describe(cfg, params, t0)
+    cfg, params = _build(a)
     none = {"paged_gather": (0, True), "spinner": (0, True),
             "srf_decode": (0, True)}
-    la = serve_args(arch="mamba2-2.7b", legacy=True, **FAMILY_TRAFFIC)
+    la = serve_args(arch="mamba2-2.7b", legacy=True, **DENSE_TRAFFIC)
     res, firsts = {}, {}
     for label, args in (("paged", a), ("legacy", la)):
         serve.warm(args, cfg, params)
@@ -3427,13 +3500,15 @@ def phase_serve_ssd():
 
 
 def phase_serve_hybrid():
-    """Full-width hymba-1.5b (32 layers, d_model 1600, 25 q / 5 kv heads
+    """Full-width hymba-1.5b (16 of its 32 layers, ``SERVE_CUT``;
+    d_model 1600, 25 q / 5 kv heads
     of 64 beside 50 SSD heads of 64 with state 16, bf16), 8 greedy
     requests of 128 + 32 tokens, 8 slots: full KV on bf16 pages
     (paged_gather exactly 64 a step), int8 pages (paged_gather_dequant_kv
     exactly 32 a step), SRF (the spinner at least 64 a step, srf_decode
     exactly 32 a decode step), each beside nothing else; with full KV
-    also the legacy engine (no kernel) and the prefix cache: a donor of
+    also the legacy engine (no kernel; the first 4 requests at 128 + 16)
+    and the prefix cache: a donor of
     the 96 shared tokens, then the 8 requests, each of which resumes at
     the donor's state point (96 hit tokens a request). Returns the
     results."""
@@ -3446,10 +3521,7 @@ def phase_serve_hybrid():
                                  ("int8 pages", {"quantize_kv": True}))),
                        ("srf", (("SRF", {}),))):
         a = serve_args(attn, arch="hymba-1.5b", **FAMILY_TRAFFIC)
-        t0 = time.perf_counter()
-        cfg, params = serve.build(a)
-        torch.cuda.synchronize()
-        _describe(cfg, params, t0)
+        cfg, params = _build(a)
         n = cfg.n_layers
         for label, flags in runs:
             ra = serve_args(attn, arch="hymba-1.5b", **FAMILY_TRAFFIC,
@@ -3473,7 +3545,7 @@ def phase_serve_hybrid():
             out[label] = res
         if attn == "full":
             la = serve_args(arch="hymba-1.5b", legacy=True,
-                            **FAMILY_TRAFFIC)
+                            **DENSE_TRAFFIC)
             serve.warm(la, cfg, params)
             leng = serve.engine(la, cfg, params)
             lrec = first_logits(leng)
@@ -3573,11 +3645,14 @@ def _srf_launches(label, cfg, res, probes):
 
 
 def _build(a):
-    """Random full-width params for the serve arguments ``a``, described;
-    -> (cfg, params)."""
+    """Random full-width params for the serve arguments ``a``, at the
+    depth ``SERVE_CUT`` gives the arch (whole where it names none),
+    described; -> (cfg, params)."""
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as model_lib
     t0 = time.perf_counter()
-    cfg, params = serve.build(a)
+    cfg = dataclasses.replace(serve.config(a), **SERVE_CUT.get(a.arch, {}))
+    params = model_lib.init(cfg, seed=a.seed, device=a.device)
     torch.cuda.synchronize()
     _describe(cfg, params, t0)
     log(f"    active params a token {cfg.active_param_count() / 1e9:.3f} B "
@@ -3593,9 +3668,9 @@ def _free():
 
 
 def phase_serve_moe():
-    """Full-width moonshot-v1-16b-a3b (48 layers: 1 dense, then 47 MoE of
-    64 experts, top-6, 2 shared; 16 q / 16 kv heads of 128; bf16; 28.4 B
-    params, 56.8 GB), random weights: full KV on bf16 pages, 8 greedy
+    """Full-width moonshot-v1-16b-a3b cut to 24 of its 48 layers
+    (``SERVE_CUT``: 1 dense, then 23 MoE of 64 experts, top-6, 2 shared;
+    16 q / 16 kv heads of 128; bf16), random weights: full KV on bf16 pages, 8 greedy
     requests of 128 + 32 tokens, 8 slots (paged_gather exactly 2 a layer
     a step); int8 pages, 4 requests of 128 + 16 (paged_gather_dequant_kv
     exactly 1 a layer a step); then, the params rebuilt with SRF
@@ -3750,8 +3825,8 @@ FAMILY_LOGIT_TOL["audio"] = (0.03, 0.03)
 
 
 def phase_serve_encdec():
-    """Full-width seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
-    d_model 1024, 16 heads of 64, vocab 256206, bf16), random weights, 8
+    """Full-width seamless-m4t-large-v2 (cut to 12 of its 24 encoder and
+    12 of its 24 decoder layers, ``SERVE_CUT``; d_model 1024, 16 heads of 64, vocab 256206, bf16), random weights, 8
     greedy requests of 128 + 32 tokens, 8 slots, each request with its
     own 1024 x 160 synthetic audio features (encoded once at admission,
     batch 1, into its slot of the memory pool): full KV on bf16 pages
@@ -4194,7 +4269,8 @@ def _mesh_path(label, cfg, res, tp, probes=None):
 
 
 def phase_serve_mesh():
-    """Full-width qwen3-4b (bf16, random weights) through ``Engine(mesh=)``
+    """Full-width qwen3-4b (bf16, random weights) cut to ``CUT_LAYERS``
+    (12) of its 36 layers through ``Engine(mesh=)``
     at TP 2 on a mesh of the card repeated, and through the plain engine
     (TP 1) beside it on the same params and requests, 8 greedy requests
     of 128 + 32 tokens, 8 slots: full KV, int8 pages, SRF and seeded SRF
@@ -4218,14 +4294,15 @@ def phase_serve_mesh():
         if built is None or built[0] != (attn, seeded):
             params = built = None
             _free()
-            t0 = time.perf_counter()
             if seeded:
-                cfg = _seeded(registry.get("qwen3-4b", attn_impl="srf"))
+                t0 = time.perf_counter()
+                cfg = _seeded(registry.get("qwen3-4b", attn_impl="srf",
+                                           n_layers=CUT_LAYERS))
                 params = model_lib.init(cfg, seed=a.seed, device="cuda")
+                torch.cuda.synchronize()
+                _describe(cfg, params, t0)
             else:
-                cfg, params = serve.build(a)
-            torch.cuda.synchronize()
-            _describe(cfg, params, t0)
+                cfg, params = _build(a)
             built = ((attn, seeded), cfg, params)
         _, cfg, params = built
         runs, rows = {}, {}
@@ -4339,19 +4416,21 @@ def _loader(cfg, batch, seq, seed=0):
 
 
 def _train_run(attn, seeded=False, arch="qwen3-4b", batch_size=TRAIN_BATCH,
-               seq=TRAIN_SEQ, n_steps=TRAIN_STEPS):
-    """``n_steps`` steps of full-width, full-depth ``arch`` (bf16, remat
-    full) as the Trainer takes them: ``make_train_step`` fed by
-    ``ShardedLoader`` over ``synth.full_batch`` (B = ``batch_size``,
-    ``seq`` tokens), each step timed by ``profile_train.timed``. Counts
-    are zeroed just before the steps and read just after."""
+               seq=TRAIN_SEQ, n_steps=TRAIN_STEPS, over=None):
+    """``n_steps`` steps of full-width ``arch`` (bf16, remat full; full
+    depth unless ``over`` cuts it) as the Trainer takes them:
+    ``make_train_step`` fed by ``ShardedLoader`` over ``synth.full_batch``
+    (B = ``batch_size``, ``seq`` tokens), each step timed by
+    ``profile_train.timed``. Counts are zeroed just before the steps and
+    read just after. -> the run's record: cfg, per-step losses, xent,
+    aux, grad norms and seconds, peak memory (GiB), launch counts."""
     from repro_torch.configs import registry
     from repro_torch.data.loader import device_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_train import timed
     from repro_torch.models import transformer as model_lib
     from repro_torch.optim import adamw
-    cfg = registry.get(arch, attn_impl=attn)
+    cfg = registry.get(arch, attn_impl=attn, **(over or {}))
     if seeded:
         cfg = _seeded(cfg)
     t0 = time.perf_counter()
@@ -4365,79 +4444,118 @@ def _train_run(attn, seeded=False, arch="qwen3-4b", batch_size=TRAIN_BATCH,
     it = iter(loader)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    losses, gnorms, times = [], [], []
+    run = dict(cfg=cfg, losses=[], xent=[], aux=[], gnorms=[], times=[])
     for i in range(n_steps):
         step_i, host = next(it)
         assert step_i == i
         batch = device_batch(host, "cuda")
         (params, state, m), sec = timed(fn, params, state, i, batch)
-        times.append(sec)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-    counts = ops.launch_counts()
+        run["times"].append(sec)
+        for key, name in (("losses", "loss"), ("xent", "xent"),
+                          ("aux", "aux"), ("gnorms", "grad_norm")):
+            run[key].append(float(m[name]))
+    run["counts"] = ops.launch_counts()
     loader.stop()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del params, state, m
-    gc.collect()
-    torch.cuda.empty_cache()
-    return cfg, losses, gnorms, times, peak, counts
+    _free()
+    return run
 
 
 TRAIN_RUNS = (("srf", False), ("srf", True), ("full", False))
 
 
-def _train_checks(run, attn, seeded, cfg, losses, gnorms, times, peak,
-                  counts, batch_size, seq, n_steps):
-    """A training run's report and checks (``phase_train_full``'s): every
-    loss and gradient norm finite, the first loss within 0.5 of ln(V_pad)
-    + 1/2, SRF's spinner (materialized or seeded) launched 2 a layer in
-    the forward and 2 in the recompute a step, its plain backward 2 a
-    layer a step, nothing else; step ms, tokens/s, bf16-peak share over
-    the median of steps 2 on. Returns the record."""
+def _attn_layers(cfg) -> int:
+    """Layers whose self-attention runs in a training forward, from the
+    layer plan (``transformer._layer_plan``: the segments whose layers
+    own an "attn" state) and the enc-dec encoder's layers."""
+    from repro_torch.models import transformer as model_lib
+    return sum(count for _, count, comps in model_lib._layer_plan(cfg)
+               if "attn" in comps) + cfg.enc_layers
+
+
+def _train_checks(label, attn, seeded, r, batch_size, seq, n_steps,
+                  predicted=None):
+    """A training run's report and checks (``_train_run``'s record
+    ``r``): every loss, xent, aux and gradient norm finite, the first
+    xent within 0.5 of ln(V_pad) + 1/2 (xent, not the loss: an MoE loss
+    adds 0.01 aux), an MoE run's aux > 0; SRF's spinner (materialized or
+    seeded) launched 2 a self-attention layer (``_attn_layers``) in the
+    forward and 2 in the recompute a step, its plain backward 2 a layer a
+    step, nothing else (an SSD run nothing at all); step ms, tokens/s,
+    bf16-peak share (active params) over the median of steps 2 on. With
+    ``predicted`` (the dry run's peak bytes of the same call): the peak
+    under the card's 80 GiB and within 0.9-1.1x of the prediction.
+    Returns the record."""
     from repro_torch.launch.profile_train import step_rates
+    cfg, losses, xent, aux, gnorms, times, peak, counts = (
+        r[k] for k in ("cfg", "losses", "xent", "aux", "gnorms", "times",
+                       "peak", "counts"))
     rates = step_rates(cfg, batch_size, seq, statistics.median(times[1:]))
-    log(f"  train {run}: losses {[round(x, 4) for x in losses]}, "
+    log(f"  train {label}: losses {[round(x, 4) for x in losses]}, xent "
+        f"{[round(x, 4) for x in xent]}, aux {[round(x, 4) for x in aux]}, "
         f"grad norms {[round(x, 3) for x in gnorms]}")
     log(f"    step {rates['step_ms']:.1f} ms (median of steps 2-"
         f"{n_steps}; first {1e3 * times[0]:.1f} ms), "
         f"{rates['tokens_s']:.1f} training tokens/s, peak memory "
         f"{peak:.2f} GiB, 6*N*tokens/step at "
         f"{100 * rates['bf16_peak_share']:.2f}% of bf16 dense peak "
-        f"(N = {cfg.param_count():,})")
+        f"(N = {cfg.active_param_count():,} active of "
+        f"{cfg.param_count():,})")
     log(f"    launches: {counts}")
-    if not all(math.isfinite(x) for x in losses + gnorms):
-        raise AssertionError(f"train {run}: non-finite loss or grad "
-                             f"norm: {losses} {gnorms}")
+    if not all(math.isfinite(x) for x in losses + xent + aux + gnorms):
+        raise AssertionError(f"train {label}: non-finite loss, xent, aux "
+                             f"or grad norm: {losses} {xent} {aux} "
+                             f"{gnorms}")
     centre = math.log(cfg.padded_vocab) + 0.5
-    log(f"    first loss {losses[0]:.4f}: {losses[0] - centre:+.4f} from "
+    log(f"    first xent {xent[0]:.4f}: {xent[0] - centre:+.4f} from "
         f"ln(V_pad) + 1/2 = {centre:.4f}, "
-        f"{losses[0] - math.log(cfg.vocab):+.4f} from ln(V) = "
+        f"{xent[0] - math.log(cfg.vocab):+.4f} from ln(V) = "
         f"{math.log(cfg.vocab):.4f}")
-    if not abs(losses[0] - centre) <= 0.5:
-        raise AssertionError(f"train {run}: first loss {losses[0]} not "
+    if not abs(xent[0] - centre) <= 0.5:
+        raise AssertionError(f"train {label}: first xent {xent[0]} not "
                              f"within 0.5 of {centre}")
-    per_step = 2 * cfg.n_layers * (2 if cfg.remat == "full" else 1)
+    if cfg.is_moe and not min(aux) > 0:
+        raise AssertionError(f"train {label}: MoE aux {aux} not > 0")
+    layers = _attn_layers(cfg)
+    per_step = 2 * layers * (2 if cfg.remat == "full" else 1)
     key = "spinner_seeded" if seeded else "spinner"
     expect = {k: 0 for k in counts}
-    if attn == "srf":
+    if attn == "srf" and layers:
         expect[key] = per_step * n_steps
-        expect[key + "_bwd"] = 2 * cfg.n_layers * n_steps
+        expect[key + "_bwd"] = 2 * layers * n_steps
     bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
     if bad:
-        raise AssertionError(f"train {run}: launches (got, expected) "
+        raise AssertionError(f"train {label}: launches (got, expected) "
                              f"{bad}")
-    if attn == "srf":
+    if expect.get(key):
         log(f"    {key}: {counts[key] // n_steps} forward launches "
             f"a step ({per_step // 2} in the forward, {per_step // 2} "
-            f"in the recompute), {counts[key + '_bwd'] // n_steps} "
-            f"plain backward calls a step")
-    return dict(losses=losses, peak_gib=peak, counts=counts, **rates)
+            f"in the recompute: 2 a layer of {layers} self-attention "
+            f"layers), {counts[key + '_bwd'] // n_steps} plain backward "
+            f"calls a step")
+    else:
+        log("    no kernel launched, as the path needs")
+    out = dict(losses=losses, xent=xent, aux=aux, peak_gib=peak,
+               counts=counts, **rates)
+    if predicted is not None:
+        ratio = peak * 2 ** 30 / predicted
+        log(f"    peak {peak:.3f} GiB against the dry run's "
+            f"{predicted / 2 ** 30:.3f} GiB for the same call (ratio "
+            f"{ratio:.3f})")
+        if not (peak < 80 and 0.9 <= ratio <= 1.1):
+            raise AssertionError(f"train {label}: peak {peak:.3f} GiB, "
+                                 f"predicted {predicted / 2 ** 30:.3f} GiB "
+                                 f"(ratio {ratio:.3f}; limits 80 GiB and "
+                                 f"0.9-1.1)")
+        out.update(predicted_gib=predicted / 2 ** 30, peak_ratio=ratio)
+    return out
 
 
 def phase_train_full():
     """Full-width, full-depth qwen3-4b trains TRAIN_STEPS steps with SRF
     attention, with seeded SRF, then with full attention (freeing between
-    runs). Every loss and gradient norm finite; the first loss within 0.5
+    runs). Every loss and gradient norm finite; the first xent within 0.5
     of ln(V_pad) + 1/2, the expected first loss of random weights (the
     head's N(0, 1/d) columns on unit-RMS rows give unit-variance logits:
     E[logsumexp] = ln V_pad + 1/2; ln(151936) = 11.93 alone sits 0.50
@@ -4449,11 +4567,10 @@ def phase_train_full():
     over the median of steps 2 on (``_train_checks``)."""
     out = {}
     for attn, seeded in TRAIN_RUNS:
-        run = attn + (" seeded" if seeded else "")
-        cfg, losses, gnorms, times, peak, counts = _train_run(attn, seeded)
-        out[run] = _train_checks(run, attn, seeded, cfg, losses, gnorms,
-                                 times, peak, counts, TRAIN_BATCH,
-                                 TRAIN_SEQ, TRAIN_STEPS)
+        label = attn + (" seeded" if seeded else "")
+        out[label] = _train_checks(label, attn, seeded,
+                                   _train_run(attn, seeded), TRAIN_BATCH,
+                                   TRAIN_SEQ, TRAIN_STEPS)
     return out
 
 
@@ -4468,12 +4585,98 @@ def phase_train_vlm():
     3 with full attention; ``_train_checks`` on each."""
     out = {}
     for attn in ("srf", "full"):
-        cfg, losses, gnorms, times, peak, counts = _train_run(
-            attn, **VLM_TRAIN)
         out[attn] = _train_checks(
-            f"qwen2-vl-2b {attn}", attn, False, cfg, losses, gnorms, times,
-            peak, counts, VLM_TRAIN["batch_size"], VLM_TRAIN["seq"],
-            VLM_TRAIN["n_steps"])
+            f"qwen2-vl-2b {attn}", attn, False, _train_run(attn, **VLM_TRAIN),
+            VLM_TRAIN["batch_size"], VLM_TRAIN["seq"], VLM_TRAIN["n_steps"])
+    return out
+
+
+# phase_train_families: (label, arch, attention, config overrides, B, seq).
+# seq 4096 is the reference's train_4k length (configs/shapes.py) at a
+# batch one card holds; seamless trains 1024 decoder tokens over its
+# config's 1024 encoder frames. moonshot (28.4 B params) and deepseek
+# (15.7 B) do not fit one card with grads and AdamW moments: full width,
+# 8 layers (1 dense + 7 MoE). Width, heads, experts, top-k, vocabulary
+# and ssm_chunk are never cut.
+CUT8 = {"n_layers": 8}
+FAMILY_TRAIN = [
+    ("ssd", "mamba2-2.7b", "full", {}, 2, 4096),
+    ("hybrid full", "hymba-1.5b", "full", {}, 2, 4096),
+    ("hybrid srf", "hymba-1.5b", "srf", {}, 2, 4096),
+    ("encdec full", "seamless-m4t-large-v2", "full", {}, 4, 1024),
+    ("encdec srf", "seamless-m4t-large-v2", "srf", {}, 4, 1024),
+    ("moe full", "moonshot-v1-16b-a3b", "full", CUT8, 2, 4096),
+    ("moe srf", "moonshot-v1-16b-a3b", "srf", CUT8, 2, 4096),
+    ("mla", "deepseek-v2-lite-16b", "full", CUT8, 2, 4096),
+    ("mla srf", "deepseek-v2-lite-16b", "srf", CUT8, 2, 4096),
+]
+FAMILY_TRAIN_STEPS = 3
+FIT_GIB = 76          # a run predicted above it halves its batch
+
+
+def _train_prediction(run):
+    """A grid worker: the dry run of a ``FAMILY_TRAIN`` run's train step
+    (``dryrun.step_call(cfg, "train", B, seq, "meta")`` under
+    ``cost_analysis.analyze``), its batch halved while the predicted
+    peak (argument bytes + the peak of live bytes) exceeds ``FIT_GIB``.
+    -> {label, batch, predicted bytes, the analysis, halvings}."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import cost_analysis as H
+    from repro_torch.launch import dryrun
+    label, arch, attn, over, b, seq = run
+    t0 = time.perf_counter()
+    cfg = registry.get(arch, attn_impl=attn, **over)
+    halved = []
+    while True:
+        fn, args = dryrun.step_call(cfg, "train", b, seq, "meta")
+        an = H.analyze(fn, *args)
+        del fn, args
+        predicted = an["arg_bytes"] + an["peak_bytes"]
+        if predicted <= FIT_GIB * 2 ** 30 or b == 1:
+            break
+        halved.append((b, predicted))
+        b //= 2
+    return dict(label=label, batch=b, predicted=predicted, analysis=an,
+                halved=halved, run_s=time.perf_counter() - t0)
+
+
+def phase_train_families(predictions):
+    """Full-width training of the SSD, hybrid, enc-dec, MoE and MLA
+    families (``FAMILY_TRAIN``; bf16, remat full, random weights from a
+    seeded generator, 3 steps each, freed between runs): each run's batch
+    and predicted peak from the dry run of the same call
+    (``_train_prediction``, computed by the grid workers from the top of
+    the script), then ``_train_run`` and ``_train_checks`` with that
+    prediction: finite losses, xent, aux and grad norms, the first xent
+    at ln(V_pad) + 1/2, MoE aux > 0, the spinner's forward, recompute and
+    plain-backward launches by the layer plan (mamba2: no launch at
+    all), the peak within 0.9-1.1x of the prediction and under 80 GiB;
+    step ms, tokens/s and bf16-peak share (active params) printed.
+    Returns the records."""
+    t0 = time.perf_counter()
+    preds = {p["label"]: p for p in predictions.get(timeout=900)}
+    log(f"  dry-run predictions of the {len(preds)} runs (waited "
+        f"{time.perf_counter() - t0:.1f} s)")
+    out = {}
+    for label, arch, attn, over, b, seq in FAMILY_TRAIN:
+        pred = preds[label]
+        cut = f", cut to {over}" if over else ""
+        log(f"  {label}: {arch}, attention {attn}, B = {pred['batch']} x "
+            f"{seq}{cut}; predicted peak {pred['predicted'] / 2 ** 30:.3f} "
+            f"GiB (meta analysis {pred['run_s']:.1f} s)")
+        for hb, hp in pred["halved"]:
+            log(f"    B = {hb} predicted {hp / 2 ** 30:.3f} GiB > "
+                f"{FIT_GIB} GiB: batch halved")
+        r = _train_run(attn, arch=arch, batch_size=pred["batch"], seq=seq,
+                       n_steps=FAMILY_TRAIN_STEPS, over=over)
+        out[label] = _train_checks(f"{arch} {attn}{cut}", attn, False, r,
+                                   pred["batch"], seq, FAMILY_TRAIN_STEPS,
+                                   pred["predicted"])
+        out[label].update(arch=arch, attn=attn, batch=pred["batch"],
+                          seq=seq, over=dict(over),
+                          meta_flops=pred["analysis"]["flops"])
+    log(f"  {len(out)} family training runs in "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4683,10 +4886,13 @@ def _grid_cell(cell):
 
 
 def start_grid():
-    """The 40 single-pod cells at full width on meta (``dryrun.run_cell``),
-    in ``GRID_WORKERS`` spawned CPU processes that run beside the card's
-    phases and make no CUDA context: -> (pool, async result). The
-    slowest first (train cells, then the SSD and hybrid families)."""
+    """The dry runs of ``phase_train_families``' nine train calls
+    (``_train_prediction``, first: phase 5 waits for them), then the 40
+    single-pod cells at full width on meta (``dryrun.run_cell``), in
+    ``GRID_WORKERS`` spawned CPU processes that run beside the card's
+    phases and make no CUDA context: -> (pool, async cells, async
+    predictions). The cells' slowest first (train cells, then the SSD
+    and hybrid families)."""
     import multiprocessing
     from repro_torch.configs import registry, shapes
     slow = ("mamba2-2.7b", "hymba-1.5b")
@@ -4695,7 +4901,9 @@ def start_grid():
                                   c[0] not in slow))
     pool = multiprocessing.get_context("spawn").Pool(
         GRID_WORKERS, _grid_init, (str(ROOT / "src"),))
-    return pool, pool.map_async(_grid_cell, cells, chunksize=1)
+    predictions = pool.map_async(_train_prediction, FAMILY_TRAIN,
+                                 chunksize=1)
+    return pool, pool.map_async(_grid_cell, cells, chunksize=1), predictions
 
 
 def _example(name):
@@ -4936,78 +5144,89 @@ def run_phases(build, grid) -> int:
     workers running)."""
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    log("phase 1: build")
     t0 = time.perf_counter()
+
+    def phase(title):
+        log(f"{title} ({time.perf_counter() - t0:.1f} s into the phases)")
+
+    def run(fn, *args):
+        """``fn(*args)``, its seconds logged after it."""
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"  [{fn.__name__}: {time.perf_counter() - t:.1f} s]")
+        return out
+    phase("phase 1: build")
     libs = build.build(["spinner", "srf_decode", "paged_gather", "fwht",
                         "circulant"])
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    log("phase 2: kernels against their plain versions")
-    spin = phase_spinner(gen)
-    seeded = phase_seeded_spinner(gen)
-    spin_train = phase_spinner_train(gen)
-    dec = phase_srf_decode(gen)
-    gather = phase_paged_gather(gen)
-    fwht = phase_fwht(gen)
-    circ = phase_circulant(gen)
-    phase_sampler(gen)
-    hymba_k = phase_hymba_kernels(gen)
-    moe_k = phase_moe_mla_kernels(gen)
-    vlm_k = phase_vlm_encdec_kernels(gen)
-    mesh_k = phase_mesh_kernels(gen)
+    phase("phase 2: kernels against their plain versions")
+    spin = run(phase_spinner, gen)
+    seeded = run(phase_seeded_spinner, gen)
+    spin_train = run(phase_spinner_train, gen)
+    dec = run(phase_srf_decode, gen)
+    gather = run(phase_paged_gather, gen)
+    fwht = run(phase_fwht, gen)
+    circ = run(phase_circulant, gen)
+    run(phase_sampler, gen)
+    hymba_k = run(phase_hymba_kernels, gen)
+    moe_k = run(phase_moe_mla_kernels, gen)
+    vlm_k = run(phase_vlm_encdec_kernels, gen)
+    mesh_k = run(phase_mesh_kernels, gen)
 
-    log("phase 3: the kernel-estimation library")
-    phase_estimators(gen)
+    phase("phase 3: the kernel-estimation library")
+    run(phase_estimators, gen)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 4: serve")
-    phase_reduced_agreement()
-    phase_reduced_seeded_agreement()
-    kv = phase_serve_kv()
+    phase("phase 4: serve")
+    run(phase_reduced_agreement)
+    run(phase_reduced_seeded_agreement)
+    kv = run(phase_serve_kv)
     gc.collect()
     torch.cuda.empty_cache()
-    srf = phase_serve_srf()
+    srf = run(phase_serve_srf)
     gc.collect()
     torch.cuda.empty_cache()
-    seeded_srf = phase_serve_seeded()
+    seeded_srf = run(phase_serve_seeded)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_reduced_legacy()
-    phase_serve_legacy()
+    run(phase_reduced_legacy)
+    run(phase_serve_legacy)
     out_dir = ROOT / "chiprun_out" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    router_int8 = phase_reduced_router()
-    router = phase_serve_router(out_dir)
-    timing = phase_kernel_timing(out_dir)
+    router_int8 = run(phase_reduced_router)
+    router = run(phase_serve_router, out_dir)
+    timing = run(phase_kernel_timing, out_dir)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_reduced_families()
-    phase_serve_ssd()
-    hybrid = phase_serve_hybrid()
-    dense = phase_serve_dense_configs()
+    run(phase_reduced_families)
+    run(phase_serve_ssd)
+    hybrid = run(phase_serve_hybrid)
+    dense = run(phase_serve_dense_configs)
     gc.collect()
     torch.cuda.empty_cache()
-    moe = phase_serve_moe()
-    mla = phase_serve_mla()
-    vlm = phase_serve_vlm()
-    encdec = phase_serve_encdec()
+    moe = run(phase_serve_moe)
+    mla = run(phase_serve_mla)
+    vlm = run(phase_serve_vlm)
+    encdec = run(phase_serve_encdec)
     _free()
-    phase_reduced_mesh()
-    mesh = phase_serve_mesh()
+    run(phase_reduced_mesh)
+    mesh = run(phase_serve_mesh)
 
-    log("phase 5: train")
-    train = phase_train_full()
-    train_vlm = phase_train_vlm()
-    phase_train_compressed(train_vlm)
-    phase_train_resume()
-    phase_train_agreement()
+    phase("phase 5: train")
+    train = run(phase_train_full)
+    train_vlm = run(phase_train_vlm)
+    families = run(phase_train_families, grid[2])
+    run(phase_train_compressed, train_vlm)
+    run(phase_train_resume)
+    run(phase_train_agreement)
     _free()
 
-    log("phase 6: the dry run")
-    phase_dryrun(grid, out_dir)
+    phase("phase 6: the dry run")
+    run(phase_dryrun, grid, out_dir)
 
     log(_card())
     src = "src/repro_torch/kernels/csrc/"
@@ -5023,12 +5242,35 @@ def run_phases(build, grid) -> int:
                "train_launches_of": run,
                "train_shape": "G=8, n=128, m=256, bf16; query B=2048 "
                               "identity, key B=512 exp"}
-        for label, _, _ in TRAIN_SHAPES:
+        for label, *_ in TRAIN_SHAPES:
             rec = spin_train[(name, label)]
             tag = label.split()[1]
             out.update({f"train_{tag}_{k}": rec[k] for k in (
                 "ms", "plain_ms", "bwd_ms", "bound_ms", "bound_by")})
             out[f"train_{tag}_max_abs_err"] = rec["err"]
+        return out
+
+    def train_families():
+        """The spinner in the families' training runs: each SRF run's
+        forward launches and plain backward calls, and the kernel at each
+        family's training shapes (``_family_shapes``)."""
+        out = {"train_families_launches": {
+            label: {"forward": r["counts"]["spinner"],
+                    "backward": r["counts"]["spinner_bwd"]}
+            for label, r in families.items() if r["attn"] == "srf"},
+            "train_families_of": f"phase_train_families, "
+                                 f"{FAMILY_TRAIN_STEPS} steps a run, full "
+                                 f"width (moonshot and deepseek at 8 "
+                                 f"layers)"}
+        for label, gsz, bsz, n, epi, hd in _family_shapes():
+            rec = spin_train[("spinner", label)]
+            tag = label.replace(" ", "_")
+            out.update({f"train_{tag}_{k}": rec[k] for k in (
+                "ms", "plain_ms", "bwd_ms", "bound_ms", "bound_by")})
+            out[f"train_{tag}_max_abs_err"] = rec["err"]
+            out[f"train_{tag}_shape"] = (f"G={gsz}, B={bsz}, n={n}, m=256, "
+                                         f"{'HD' if hd else 'no HD'}, bf16, "
+                                         f"{epi}")
         return out
     def dispatch(run, name):
         """kernel_dispatch_seconds of the timed serve run (ms; synced
@@ -5046,9 +5288,10 @@ def run_phases(build, grid) -> int:
         """Launches of the full-width router run (b): 2 replicas, no
         fault."""
         return {"router_launches": router[attn]["b"]["counts"][key],
-                "router_launches_of": f"full-width {attn} router run (b), "
-                                      f"2 replicas x 4 slots, 16 requests "
-                                      f"x (128 + 32) tokens, no fault"}
+                "router_launches_of": f"full-width {attn} router run (b) at "
+                                      f"{CUT_LAYERS} layers, 2 replicas "
+                                      f"x 4 slots, 16 requests x (128 + "
+                                      f"32) tokens, no fault"}
     def hymba(name, run, key, shape):
         """The kernel at hymba-1.5b's shapes (``phase_hymba_kernels``) and
         its launches in that serve run."""
@@ -5058,15 +5301,16 @@ def run_phases(build, grid) -> int:
         out["hymba_max_abs_err"] = rec["err"]
         out["hymba_library_ms"] = rec.get("library_ms")
         out["hymba_launches"] = hybrid[run]["counts"][key]
-        out["hymba_launches_of"] = f"full-width hymba-1.5b {run}, 8 " \
-                                   f"requests x (128 + 32) tokens"
+        out["hymba_launches_of"] = f"full-width hymba-1.5b at 16 of 32 " \
+                                   f"layers, {run}, 8 requests x (128 + " \
+                                   f"32) tokens"
         out["hymba_shape"] = shape
         return out
     hg = "R=8, M=16, P=16, D=5*64, N=257, 32 layer pools cycled"
 
-    moe_of = "full-width serve runs: 8 requests x (128 + 32) tokens " \
-        "(moonshot full KV, deepseek MLA), 4 x (128 + 16) (int8 pages, " \
-        "SRF, MLA+SRF)"
+    moe_of = "full-width serve runs (moonshot at 24 of 48 layers, " \
+        "deepseek whole): 8 requests x (128 + 32) tokens (moonshot full " \
+        "KV, deepseek MLA), 4 x (128 + 16) (int8 pages, SRF, MLA+SRF)"
 
     def family(prefix, rec, runs, shape, of=moe_of):
         """The kernel at a config's shape (``phase_moe_mla_kernels``,
@@ -5084,12 +5328,14 @@ def run_phases(build, grid) -> int:
         return out
     mg = "R=8, M=16, P=16, N=257"
     vl_of = "full-width qwen2-vl-2b serve runs, 8 requests x (128 + 32)"
-    sm_of = "full-width seamless-m4t-large-v2 serve runs, 8 requests x " \
-        "(128 + 32), each with its own 1024 x 160 features"
+    sm_of = "full-width seamless-m4t-large-v2 serve runs at 12 + 12 of " \
+        "its 24 + 24 layers, 8 requests x (128 + 32), each with its own " \
+        "1024 x 160 features"
     vl_g = mg + ", D=2*128, 28 layer pools cycled, bf16"
     sm_g = mg + ", D=16*64, 24 layer pools cycled"
-    tp2_of = "full-width qwen3-4b at TP 2 on a mesh of the card repeated " \
-        "(every shard's launches), 8 requests x (128 + 32)"
+    tp2_of = f"full-width qwen3-4b at {CUT_LAYERS} layers, TP 2 on a mesh " \
+        f"of the card repeated (every shard's launches), 8 requests x " \
+        f"(128 + 32)"
 
     def tp2(prefix, key, runs, kernel, shape):
         """The kernel at its TP 2 shard shape (``phase_mesh_kernels``)
@@ -5110,6 +5356,7 @@ def run_phases(build, grid) -> int:
                      "spinner_bwd"],
                  "qwen2vl_train_of": "full-width qwen2-vl-2b SRF training, "
                                      "3 steps of B=2 x 2048",
+                 **train_families(),
                  **dispatch("srf", "spinner_project"),
                  **routed("srf", "spinner"),
                  **hymba("spinner decode query", "SRF", "spinner",
@@ -5231,9 +5478,10 @@ def run_phases(build, grid) -> int:
                           "shard and the replicated memory"),
                  "tp2_router_launches": mesh["router"]["counts"][
                      "paged_gather"],
-                 "tp2_router_launches_of": "full-width full-KV router, 2 "
-                                           "replicas x TP 2, 8 requests, "
-                                           "replica 1 raising at step 12"},
+                 "tp2_router_launches_of": f"full-width full-KV router at "
+                                           f"{CUT_LAYERS} layers, 2 replicas "
+                                           f"x TP 2, 8 requests, replica 1 "
+                                           f"raising at step 12"},
                 decode + ", bf16"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",

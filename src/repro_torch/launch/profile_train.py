@@ -65,12 +65,15 @@ def timed(fn, *args):
 
 def step_rates(cfg, batch: int, seq: int, step_s: float) -> dict:
     """Step ms, training tokens/s, and the share of the card's bf16 dense
-    peak that 6·N·tokens a step reaches (N = ``cfg.param_count()``; the
-    recompute's extra forward not counted)."""
+    peak that 6·N·tokens a step reaches. N is
+    ``cfg.active_param_count()``, the params a token passes through: an
+    MoE config's routed top-k and shared experts, not all of them; for
+    any other config it equals ``cfg.param_count()``. The recompute's
+    extra forward is not counted."""
     tokens = batch * seq
     return {"step_ms": 1e3 * step_s, "tokens_s": tokens / step_s,
-            "bf16_peak_share": 6 * cfg.param_count() * tokens / step_s
-            / PEAK_BF16_FLOP_PER_S}
+            "bf16_peak_share": 6 * cfg.active_param_count() * tokens
+            / step_s / PEAK_BF16_FLOP_PER_S}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -2,12 +2,13 @@
 
 Port of ``repro.models.ssm``: scalar-per-head decay A, per-step dt,
 shared B/C (one group), a depthwise causal conv on (x, B, C), a gated
-RMSNorm and the out projection. Train and prefill run the chunk-parallel
-scan (``_chunk_scan``: O(L c) a head with chunk c); decode is one
-recurrent state update. The decode state (B, nh, state, hd) does not
-grow with the sequence: the same O(1)-in-L serving story as SRF
-attention. Plain PyTorch ops, as the reference's are jnp ops: no TPU
-kernel computes the scan.
+RMSNorm and the out projection. Train and prefill run the
+chunk-parallel scan (``_chunk_scan``: O(L c) a head with chunk c; under
+autograd each chunk's body is checkpointed, as the reference's
+``jax.checkpoint(step)``); decode is one recurrent state update. The
+decode state (B, nh, state, hd) does not grow with the sequence: the
+same O(1)-in-L serving story as SRF attention. Plain PyTorch ops, as
+the reference's are jnp ops: no TPU kernel computes the scan.
 
 Like the port's attention, every cached path writes its state IN PLACE
 and the functions return the block's output alone: ``ssm_apply`` in
@@ -32,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from . import layers
 
@@ -114,6 +116,36 @@ def _decay_rate(p) -> torch.Tensor:
     return -torch.exp(p["a_log"].float())              # (nh,) negative
 
 
+def _chunk_body(state: torch.Tensor, xc: torch.Tensor, bc: torch.Tensor,
+                cc: torch.Tensor, dtac: torch.Tensor, dtc: torch.Tensor,
+                tri: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the scan from ``state``: the chunk's slices of xs,
+    bs, cs, dt * a and dt (``_chunk_scan``'s shapes with L = c) and the
+    (c, c) lower-triangle mask -> (y (B, c, nh, hd) f32, state')."""
+    cum = torch.cumsum(dtac, dim=1)                       # (B, c, nh) <= 0
+    # intra-chunk: G[b,i,j,h] = (C_i.B_j) exp(cum_i - cum_j) dt_j, j <= i
+    scores = torch.einsum("bis,bjs->bij", cc, bc)
+    diff = cum[:, :, None, :] - cum[:, None, :, :]        # (B, c, c, nh)
+    # min(diff, 0) before exp: the masked (j > i) region has diff > 0 and
+    # would overflow; the kept region has diff <= 0, unchanged. Its
+    # gradient splits ties (diff = 0: the diagonal) half and half, as
+    # the reference's jnp.minimum does, so the two backwards round alike
+    gate = torch.where(tri[None, :, :, None],
+                       torch.exp(torch.minimum(diff, diff.new_zeros(()))),
+                       0.0)
+    g = (scores[..., None] * gate * dtc[:, None, :, :]).to(xc.dtype)
+    y = torch.einsum("bijh,bjhd->bihd", g, xc).float()
+    # inter-chunk: y_i += C_i . (exp(cum_i) S)
+    y = y + torch.einsum("bis,bhsd->bihd", cc.float(), state) \
+        * torch.exp(cum)[..., None]
+    # S' = exp(cum_T) S + sum_j exp(cum_T - cum_j) dt_j B_j (x) x_j
+    tot = cum[:, -1]                                      # (B, nh)
+    w = torch.exp(tot[:, None, :] - cum) * dtc            # (B, c, nh)
+    state = torch.exp(tot)[:, :, None, None] * state + torch.einsum(
+        "bjs,bjhd->bhsd", bc.float(), xc.float() * w[..., None])
+    return y, state
+
+
 def _chunk_scan(xs: torch.Tensor, bs: torch.Tensor, cs: torch.Tensor,
                 dt: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +157,14 @@ def _chunk_scan(xs: torch.Tensor, bs: torch.Tensor, cs: torch.Tensor,
     tensors are zero-padded to a chunk multiple: dt = 0 makes a padded
     step an exact identity for the state, and padded outputs are cut.
     The (B, c, c, nh) gate is masked and exponentiated in f32 and
-    contracted in the activation dtype, as the reference does."""
+    contracted in the activation dtype, as the reference does.
+
+    Under autograd (grad enabled and an input that requires grad) each
+    chunk's body runs under a non-reentrant ``torch.utils.checkpoint``,
+    as the reference's scan runs ``jax.checkpoint(step)``: the backward
+    recomputes a chunk's (B, c, c, nh) gate and (B, c, c) scores one
+    chunk at a time instead of keeping every chunk's alive. Without
+    autograd (serving) the body runs plainly; the values are the same."""
     b, l = xs.shape[:2]
     c = min(chunk, l)
     pad = -l % c
@@ -134,28 +173,15 @@ def _chunk_scan(xs: torch.Tensor, bs: torch.Tensor, cs: torch.Tensor,
         bs, cs, dt = (F.pad(t, (0, 0, 0, pad)) for t in (bs, cs, dt))
     dta = dt * a
     tri = torch.ones((c, c), dtype=torch.bool, device=xs.device).tril()
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xs, bs, cs, dt, a, state))
     ys = []
     for i in range(0, l + pad, c):
-        xc, bc, cc = xs[:, i:i + c], bs[:, i:i + c], cs[:, i:i + c]
-        dtc = dt[:, i:i + c]
-        cum = torch.cumsum(dta[:, i:i + c], dim=1)        # (B, c, nh) <= 0
-        # intra-chunk: G[b,i,j,h] = (C_i.B_j) exp(cum_i - cum_j) dt_j, j <= i
-        scores = torch.einsum("bis,bjs->bij", cc, bc)
-        diff = cum[:, :, None, :] - cum[:, None, :, :]    # (B, c, c, nh)
-        # clamp before exp: the masked (j > i) region has diff > 0 and
-        # would overflow; the kept region has diff <= 0, unchanged
-        gate = torch.where(tri[None, :, :, None],
-                           torch.exp(torch.clamp(diff, max=0.0)), 0.0)
-        g = (scores[..., None] * gate * dtc[:, None, :, :]).to(xc.dtype)
-        y = torch.einsum("bijh,bjhd->bihd", g, xc).float()
-        # inter-chunk: y_i += C_i . (exp(cum_i) S)
-        y = y + torch.einsum("bis,bhsd->bihd", cc.float(), state) \
-            * torch.exp(cum)[..., None]
-        # S' = exp(cum_T) S + sum_j exp(cum_T - cum_j) dt_j B_j (x) x_j
-        tot = cum[:, -1]                                  # (B, nh)
-        w = torch.exp(tot[:, None, :] - cum) * dtc        # (B, c, nh)
-        state = torch.exp(tot)[:, :, None, None] * state + torch.einsum(
-            "bjs,bjhd->bhsd", bc.float(), xc.float() * w[..., None])
+        args = (state, xs[:, i:i + c], bs[:, i:i + c], cs[:, i:i + c],
+                dta[:, i:i + c], dt[:, i:i + c], tri)
+        y, state = ckpt.checkpoint(_chunk_body, *args, use_reentrant=False,
+                                   preserve_rng_state=False) \
+            if remat else _chunk_body(*args)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :l], state
 

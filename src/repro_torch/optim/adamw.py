@@ -7,9 +7,13 @@ wd*p)`` in f32, one cast back to the param dtype). Not
 ``torch.optim.AdamW``, which keeps its moments in the param's dtype and
 applies the decay before the step.
 
-``update`` writes params and moments IN PLACE, one leaf at a time, so
-at most one leaf's f32 temporaries exist at once (the untied head of a
-full-width model is 389 M elements).
+``update`` writes params and moments IN PLACE, one leaf at a time, and
+a leaf of more than ``UPDATE_CHUNK`` elements a block of leading-axis
+rows at a time, so the f32 temporaries stay one block's size: the
+untied head of a full-width model is 389 M elements, and a MoE
+segment's stacked expert leaf (layers, experts, d, ffe) 7 x 184 M at 8
+of moonshot's layers. The update is elementwise, so the blocks give the
+same bits; only the gradient norm of such a leaf sums its blocks' sums.
 """
 from __future__ import annotations
 
@@ -52,11 +56,25 @@ def init(params) -> Dict:
                                  device=count.device)}
 
 
+UPDATE_CHUNK = 1 << 27       # elements of a leaf updated (or squared) at once
+
+
+def _blocks(x: torch.Tensor):
+    """Views of ``x`` of at most ``UPDATE_CHUNK`` elements (a block of
+    leading-axis rows; a row is never split), or ``x`` itself when it is
+    that small."""
+    if x.numel() <= UPDATE_CHUNK or x.dim() == 0:
+        return [x]
+    rows = max(1, UPDATE_CHUNK // (x.numel() // x.shape[0]))
+    return [x[i:i + rows] for i in range(0, x.shape[0], rows)]
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (None leaves,
-    the gradients of integer params, count nothing)."""
-    sq = [torch.sum(torch.square(x.float())) for x in tree_lib.leaves(tree)
-          if x is not None]
+    the gradients of integer params, count nothing; a leaf past
+    ``UPDATE_CHUNK`` elements squared a block at a time)."""
+    sq = [torch.sum(torch.square(b.float())) for x in tree_lib.leaves(tree)
+          if x is not None for b in _blocks(x)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -79,14 +97,22 @@ def update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()
                                tree_lib.leaves(params), mask):
         if g is None:
             continue
-        g = g.float() * scale
-        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        del g
-        step = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-        pf = p.float()
-        if m:
-            step += cfg.weight_decay * pf
-        p.copy_(pf - lr * step)
+        for args in zip(*map(_blocks, (g, mu, nu, p))):
+            _step(*args, m, scale, c1, c2, lr, cfg)
     return params, {"mu": state["mu"], "nu": state["nu"],
                     "count": count}, {"grad_norm": gnorm}
+
+
+def _step(g, mu, nu, p, decay: bool, scale, c1, c2, lr,
+          cfg: AdamWConfig) -> None:
+    """One leaf's (or block's) AdamW step, ``mu``, ``nu`` and ``p`` in
+    place."""
+    g = g.float() * scale
+    mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    del g
+    step = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+    pf = p.float()
+    if decay:
+        step += cfg.weight_decay * pf
+    p.copy_(pf - lr * step)
