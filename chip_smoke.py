@@ -41,16 +41,20 @@ result line):
      shapes' ``exp`` outputs (the keys' features, spanning decades)
      element by element: |kernel - plain| <= rtol (|plain| +
      mean|plain|), rtol 1e-4 in f32, 2e-2 in bf16 (``check_exp``).
-   * paged_gather (bf16, f32, int8 pools) and paged_gather_dequant (int8
+   * paged_gather (bf16, f32, int8 pools; one pool, and two pools in
+     one launch through paged_gather_kv) and paged_gather_dequant (int8
      -> bf16, f32; one pool, and a layer's K and V in one launch through
      paged_gather_dequant_kv) at the full-width decode shape (R=8, M=16,
      P=16, D=1024), a prefill-sized shape (R=32, M=64) and ragged shapes
      (row bytes not a multiple of 16, ids out of range), int32 and int64
-     tables; the dequant kernel also on pool views off 16-byte alignment
-     (its vector and scalar paths), a page of 64 rows (larger than a ring
-     stage) and rows of 32768 int8 (cut within the row): bit-equal
-     (torch.equal). Times: the dequant gather for one pool, and for K
-     and V in one launch beside two single-pool launches.
+     tables; the copy gather also on a pair of rows of 512 and 64 (MLA's
+     latents), a pair of pages of 16 and 4 rows, and pairs with one pool
+     8 bytes off 16-byte alignment (narrower units); the dequant kernel also on pool views off 16-byte
+     alignment (its vector and scalar paths), a page of 64 rows (larger
+     than a ring stage) and rows of 32768 int8 (cut within the row):
+     bit-equal (torch.equal). Times: each gather for one pool, and for K
+     and V in one launch beside two single-pool launches; the copy gather
+     also beside two ``pool[tables]`` calls.
    * the seeded spinner at the seeded serving shapes (circulant n=128,
      m=256, G = 8 kv heads x 8 requests = 64 groups; decode query B=4,
      decode key B=1, prefill query B=64, prefill key B=16; bf16 and f32),
@@ -89,7 +93,7 @@ result line):
    * kernels 1, 2, 4 and 5 at hymba-1.5b's shapes
      (``phase_hymba_kernels``): the spinner at n=64, m=256, G=5 kv heads
      (decode query B=40, key B=8; bf16), srf_decode at (B=8, H=25,
-     m=256, dv=64), paged_gather on bf16 rows of D=5*64=320 and
+     m=256, dv=64), paged_gather_kv on bf16 rows of D=5*64=320 and
      paged_gather_dequant_kv on int8 rows of 320 (R=8, M=16, P=16,
      N=257, 32 layer pools cycled; bit-equal), timed beside their plain
      versions and bounds.
@@ -99,25 +103,26 @@ result line):
      key B=8, prefill query and key B=128; bf16 and f32; the route
      ``ops.kernel_takes`` picks must be the kernel) and moonshot's (n=128,
      HD, G=16, B=8, bf16); srf_decode at (B=8, H=16, m=256, dv=128);
-     paged_gather on bf16 rows of D=512 and D=64 (deepseek's latents c
-     and kpe, 27 layer pools) and D=2048 (moonshot, 48 pools), bit-equal
-     to the plain version and to ``pool[tables]``, also on pool views 2
-     and 8 bytes off 16-byte alignment; paged_gather_dequant_kv on int8
+     paged_gather_kv on bf16 rows of D=512 and D=64 (deepseek's latents c
+     and kpe in one launch, 27 layer pools) and on K and V of D=2048
+     (moonshot, 48 pools), bit-equal to the plain version, the one-pool
+     entry also to ``pool[tables]`` and on pool views 2 and 8 bytes off
+     16-byte alignment; paged_gather_dequant_kv on int8
      rows of 2048; timed beside their plain versions and bounds.
    * kernels 1, 2, 4 and 5 at the vision and enc-dec configs' shapes
      (``phase_vlm_encdec_kernels``): the spinner at qwen2-vl's decode
      query and key (n=128, HD, G=2 kv heads, B=48 and 8), seamless's
      (n=64, HD, G=16, B=8) and its encoder's (B=1024 frames a request);
      srf_decode at (B=8, H=12, dv=128) and (B=8, H=16, dv=64);
-     paged_gather on rows of D=256 (28 pools) and D=1024 (24 pools) and
-     on the encoder-memory pool (a 2 MiB page of 1024 x 1024 bf16 a
+     paged_gather_kv on K and V of D=256 (28 pools) and D=1024 (24 pools)
+     and the one-pool paged_gather on the encoder-memory pool (a 2 MiB page of 1024 x 1024 bf16 a
      slot, R=8, M=1), bit-equal to the plain version and to
      ``pool[tables]``; paged_gather_dequant_kv on int8 rows of 1024.
    * kernels 1-5 at the shapes one shard of qwen3-4b served at TP 2
      launches (``phase_mesh_kernels``): the spinner at G=4 kv heads (query
      B=32, key B=8), the seeded spinner at the shard's seeds (G=32, query
-     B=4, key B=1), srf_decode at (B=8, H=16, dv=128), paged_gather on
-     rows of D=4*128=512 (qwen3-4b, 36 pools; seamless's 8*64, 24 pools)
+     B=4, key B=1), srf_decode at (B=8, H=16, dv=128), paged_gather_kv on
+     K and V of D=4*128=512 (qwen3-4b, 36 pools; seamless's 8*64, 24 pools)
      and paged_gather_dequant_kv on int8 rows of 512; the gathers
      bit-equal and timed beside ``pool[tables]``.
    Times: CUDA events over back-to-back launches queued behind a device
@@ -138,8 +143,8 @@ result line):
    warm, in one engine); then with SRF attention. Every count is set to
    0 just before each run and read just after; a run fails unless every
    request finishes with 32 tokens, every sampled logit row is finite,
-   and its kernels launched as the path needs (full KV: paged_gather
-   exactly 72 per step on bf16 pages, or paged_gather_dequant_kv exactly
+   and its kernels launched as the path needs (full KV: paged_gather_kv
+   exactly 36 per step on bf16 pages, or paged_gather_dequant_kv exactly
    36 per step on int8 pages, a layer's K and V in one launch; the other
    gathers never; SRF: the spinner at least 72 per step and srf_decode
    36 per decode step). The prefix run must serve prompt tokens from the
@@ -194,8 +199,8 @@ result line):
    same with replica 1 faulted at its step 12 (full KV: raise, hang,
    reject, oom; SRF: raise, oom). Each run: every request done once with
    32 tokens and finite logit rows, kernels as the path needs summed
-   over the replicas' steps (full KV paged_gather exactly 72 a step; SRF
-   the spinner at least 72 a step and srf_decode exactly 36 a decode
+   over the replicas' steps (full KV paged_gather_kv exactly 1 a layer a
+   step; SRF the spinner at least 2 a layer a step and srf_decode exactly 36 a decode
    step; nothing else, no plain route), no leak after ``heal()`` and
    ``revive(1)``; (b) quarantines nothing; each (c) quarantines replica
    1 once, fails nothing, rescues or replays a request, and every token
@@ -233,8 +238,8 @@ result line):
    on the first 4 requests at 128 + 16), no kernel launched
    (``phase_serve_ssd``); hymba-1.5b (32 layers, 25
    q / 5 kv heads of 64 beside 50 SSD heads, state 16;
-   ``phase_serve_hybrid``) with full KV (paged_gather exactly 64 a
-   step), int8 pages (paged_gather_dequant_kv exactly 32 a step), SRF
+   ``phase_serve_hybrid``) with full KV (paged_gather_kv exactly 1 a
+   layer a step), int8 pages (paged_gather_dequant_kv exactly 32 a step), SRF
    (the spinner at least 64 a step, srf_decode exactly 32 a decode
    step), the legacy engine with full KV, and the prefix cache (a donor
    of the 96 shared tokens, then the 8 requests: 768 hit tokens). Each
@@ -243,8 +248,8 @@ result line):
    agree within ``FAMILY_LOGIT_TOL``, each engine's with an f32 copy's
    prefill too. Then qwen2.5-14b, mistral-nemo-12b and internlm2-20b at
    full width, one after another (``phase_serve_dense_configs``): full
-   KV, 4 greedy requests of 128 + 16 tokens, paged_gather exactly 2 a
-   layer a step; tok/s, TTFT p50, peak memory.
+   KV, 4 greedy requests of 128 + 16 tokens, paged_gather_kv exactly 1
+   a layer a step; tok/s, TTFT p50, peak memory.
    The MoE and MLA families: reduced moonshot-v1-16b-a3b (full KV, int8
    pages, SRF) and deepseek-v2-lite-16b (MLA latent pages, MLA + SRF),
    f32, 2 layers, capacity factor 8 (no routing slot drops, so paged ==
@@ -252,13 +257,14 @@ result line):
    width, random weights, each model freed before the next:
    moonshot-v1-16b-a3b (24 of its 48 layers, ``SERVE_CUT``; 64 experts
    top-6 + 2 shared; ``phase_serve_moe``) with full KV at 8 requests of 128 + 32
-   tokens, 8 slots (paged_gather exactly 2 a layer a step), int8 pages
+   tokens, 8 slots (paged_gather_kv exactly 1 a layer a step), int8 pages
    and SRF at 4 x (128 + 16), 4 slots (paged_gather_dequant_kv exactly 1
    a layer a step; the spinner exactly 2 a layer a step plus the quality
    probe's, srf_decode exactly 1 a layer a decode step);
    deepseek-v2-lite-16b (27 layers, MLA kv_lora 512, 15.7 B params;
    ``phase_serve_mla``) with MLA latent pages at 8 x (128 + 32)
-   (paged_gather exactly 2 a layer a step: c and kpe), the legacy engine
+   (paged_gather_kv exactly 1 a layer a step: c and kpe), the legacy
+   engine
    on the first 4 requests at 128 + 16 (no kernel; first-token logits
    within ``FAMILY_LOGIT_TOL["mla"]`` of the paged engine's), and MLA +
    SRF at 4 x (128 + 16). Each run prints tok/s, TTFT p50, peak memory
@@ -275,8 +281,8 @@ result line):
    with full KV and SRF at 8 x (128 + 32), exact launches;
    seamless-m4t-large-v2 (12 of its 24 encoder and 12 of its 24 decoder
    layers, ``SERVE_CUT``; 16 heads of 64; ``phase_serve_encdec``), each request with its own 1024 x 160
-   features, with full KV (paged_gather exactly 2 a layer a step plus
-   the memory gather, 1 a step), int8 pages and SRF at 8 x (128 + 32),
+   features, with full KV (paged_gather_kv exactly 1 a layer a step plus
+   the memory's one-pool paged_gather, 1 a step), int8 pages and SRF at 8 x (128 + 32),
    the prefix cache (a donor, then 4 requests with its features that hit
    its 96 tokens and 4 with their own that hit nothing) and the legacy
    engine on the first 4 requests (first-token logits within
@@ -296,8 +302,8 @@ result line):
    snapshot, a fresh backlog). ``phase_serve_mesh``: full-width qwen3-4b
    at ``CUT_LAYERS`` (12) of its 36 layers, at TP 2 and at TP 1 beside
    it, 8 x (128 + 32), full KV, int8 pages,
-   SRF, seeded SRF with embed seeds: exact launches (every shard's: 4
-   gathers a layer a step, 2 int8 K-and-V gathers, the spinner 4 a layer
+   SRF, seeded SRF with embed seeds: exact launches (every shard's: 2
+   K-and-V gathers a layer a step, bf16 or int8, the spinner 4 a layer
    a step plus the probe's, srf_decode 2 a layer a decode step), half
    the pools a position,
    first-token logits within ``MESH_LOGIT_TOL`` of TP 1's, tok/s, TTFT
@@ -350,7 +356,7 @@ result line):
    ``cuda:0`` (pipeline, serve_mesh, serve_chaos, serve_prefix,
    serve_seeded; each ``ok``, its path's kernels launched) and the five
    examples on the card at their defaults (quickstart and kernel_approx
-   launch the spinner, serve_lm full KV paged_gather and SRF the spinner
+   launch the spinner, serve_lm full KV paged_gather_kv and SRF the spinner
    and srf_decode, train_lm's loss falls). (b) One line per cell
    (flops, bytes, t_roofline, bottleneck, peak_bytes, fits_hbm: analysis
    over datasheet peaks, not card timings), the records in
@@ -378,7 +384,14 @@ result line):
    its serve runs (``hymba_*``), paged_gather its launches in the dense
    configs' runs (``dense_*``); the same four their time at the MoE and
    MLA shapes and their launches in those serve runs (``moonshot_*``,
-   ``deepseek_*``; paged_gather's kpe shape ``deepseek_kpe_*``).
+   ``deepseek_*``; paged_gather's: the latents c and kpe in one launch).
+   The paged_gather record times the kernel as the serve runs launch it,
+   a layer's two pools in one ``paged_gather_kv`` launch, beside two
+   one-pool launches (``two_single_launches_ms``), the one-pool entry
+   (``one_pool_*``) and two plain and two ``pool[tables]`` calls, at the
+   decode shape and (``prefill``) the prefill shape; its launches are
+   the ``paged_gather_kv`` counter's, but the memory gather's
+   (``seamless_memory_*``), which the one-pool entry makes.
    The same four carry ``qwen2vl_*`` and ``seamless_*`` fields: their
    time at those configs' shapes and their launches in their serve runs
    (the spinner also ``*_key`` and ``seamless_encoder*``, paged_gather
@@ -1068,16 +1081,96 @@ def _dequant_paths(gen):
                            kq, ks, vq, vs, t)
 
 
+def _pair_exact(label, a, b, t):
+    """paged_gather_kv on pools ``a`` and ``b`` (one launch) bit-equal to
+    two plain calls."""
+    from repro_torch.kernels import ref
+    kpg = _kernel_module("paged_gather")
+    ga, gb = kpg.paged_gather_kv_cuda(a, b, t)
+    exact(f"paged_gather_kv {label} first pool", ga,
+          ref.paged_gather_ref(a, t))
+    exact(f"paged_gather_kv {label} second pool", gb,
+          ref.paged_gather_ref(b, t))
+
+
+def _pair_paths(gen):
+    """The copy gather's pairs beyond one shape: MLA's latents (rows of
+    512 and 64), a pair whose pages differ in rows too, and pairs whose
+    second pool lies 8 bytes off 16-byte alignment (narrower units in the
+    same kernel), each pair's unit printed."""
+    kpg = _kernel_module("paged_gather")
+    dev = "cuda"
+    for label, n, (pa, da), (pb, db), r, m, off in (
+            ("c+kpe (512, 64)", 257, (16, 512), (16, 64), 8, 16, 0),
+            ("pages 16 x 512 and 4 x 64", 257, (16, 512), (4, 64), 8, 16,
+             0),
+            ("K and V, V at +8 bytes", 257, (16, 1024), (16, 1024), 8, 16,
+             8),
+            ("ragged (13, 4), V at +8 bytes", 7, (3, 13), (3, 4), 3, 5, 8)):
+        tables = torch.randint(-3, n + 3, (r, m), generator=gen, device=dev)
+        for tdt in (torch.int64, torch.int32):
+            for dtype in (torch.bfloat16, torch.float32, torch.int8):
+                a = _layer_pools(1, n, pa, da, dtype, gen)[0]
+                b = _layer_pools(1, n, pb, db, dtype, gen)[0]
+                b = _offset(b, off // dtype.itemsize)
+                plan = kpg.gather_plan(((pa, da), (pb, db)), r * m,
+                                       dtype.itemsize,
+                                       (0, b.data_ptr() % 16))
+                _pair_exact(f"{label} {str(dtype)[6:]} {str(tdt)[6:]}, "
+                            f"{plan.unit}-byte units (N={n}, R={r}, M={m})",
+                            a, b, tables.to(tdt))
+
+
+def _pair_times(label, tables, pools_a, pools_b, p, da, db):
+    """One paged_gather_kv launch against two one-pool launches, two plain
+    calls and two ``pool[tables]`` calls, cycling through the layers'
+    pools; the pair's bound is the two pools' gathers. Returns the
+    record (the one-pool kernel's numbers, on the first pool, as
+    ``one_pool_*``)."""
+    from repro_torch.kernels import ref
+    kpg = _kernel_module("paged_gather")
+    layers = list(zip(pools_a, pools_b))
+    rows = tables.numel() * p
+    pair_ms = device_ms(_cycle(lambda a: kpg.paged_gather_kv_cuda(
+        a[0], a[1], tables), layers))
+    two_ms = device_ms(_cycle(lambda a: [kpg.paged_gather_cuda(x, tables)
+                                         for x in a], layers))
+    one_ms = device_ms(_cycle(lambda a: kpg.paged_gather_cuda(a[0], tables),
+                              layers))
+    plain = device_ms(_cycle(lambda a: [ref.paged_gather_ref(x, tables)
+                                        for x in a], layers))
+    lib = device_ms(_cycle(lambda a: [x[tables] for x in a], layers))
+    one_lib = device_ms(_cycle(lambda a: a[0][tables], layers))
+    one_b, one_by = kernel_bound("gather", rows, da, 2)
+    b_b = kernel_bound("gather", rows, db, 2)[0]
+    pair_b = one_b + b_b
+    log(f"    {label} paged_gather_kv bf16 (D={da} and {db}): one launch "
+        f"{pair_ms:.5f} ms ({100 * pair_b / pair_ms:.0f}% of bound)  two "
+        f"one-pool launches {two_ms:.5f} ms  two pool[tables] {lib:.5f} ms  "
+        f"two plain {plain:.5f} ms  bound {pair_b:.5f} ms ({one_by})")
+    log(f"    {label} paged_gather bf16, one pool (D={da}): kernel "
+        f"{one_ms:.5f} ms ({100 * one_b / one_ms:.0f}% of bound)  "
+        f"pool[tables] {one_lib:.5f} ms  bound {one_b:.5f} ms")
+    return dict(err=0.0, ms=pair_ms, plain_ms=plain, library_ms=lib,
+                bound_ms=pair_b, bound_by=one_by, one_pool_ms=one_ms,
+                one_pool_library_ms=one_lib, one_pool_bound_ms=one_b,
+                two_single_launches_ms=two_ms)
+
+
 def phase_paged_gather(gen):
     """Both gathers, bit-equal (torch.equal) to their plain versions at
     the full-width decode shape (R=8 rows, M=16 pages of P=16 tokens,
     D = 8 kv heads x 128; N=257 pages, the engine's default pool), a
     prefill-sized shape (R=32, M=64) and ragged shapes (row bytes not a
-    multiple of 16, ids out of range on both sides); the int8 gather for
-    one pool and for a layer's K and V in one launch, and on its other
-    paths (``_dequant_paths``). Times at the decode and prefill shapes:
-    the int8 gather for one pool, and for K and V in one launch beside
-    two single-pool launches (how the attention gathered them before)."""
+    multiple of 16, ids out of range on both sides): the copy gather for
+    one pool and for two pools in one launch (``paged_gather_kv``; also
+    MLA's rows of 512 and 64 and a pool off 16-byte alignment,
+    ``_pair_paths``), the int8 gather for one pool and for a layer's K
+    and V in one launch, and on its other paths (``_dequant_paths``).
+    Times at the decode and prefill shapes: each gather for one pool, and
+    for K and V in one launch beside two single-pool launches (how the
+    attention gathered them before), the copy gather also beside two
+    ``pool[tables]`` calls."""
     from repro_torch.kernels import ref
     kpg = _kernel_module("paged_gather")
     dev = "cuda"
@@ -1095,10 +1188,13 @@ def phase_paged_gather(gen):
             t = tables.to(tdt)
             what = f"(N={n}, P={p}, D={d}, R={r}, M={m}, {str(tdt)[6:]})"
             for dtype in (torch.bfloat16, torch.float32, torch.int8):
-                pool = _layer_pools(1, n, p, d, dtype, gen)[0]
+                pool, other = _layer_pools(2, n, p, d, dtype, gen)
                 k = kpg.paged_gather_cuda(pool, t)
                 pl = ref.paged_gather_ref(pool, t)
                 exact(f"paged_gather {label} {str(dtype)[6:]} {what}", k, pl)
+                _pair_exact(f"{label} {str(dtype)[6:]} {what}", pool, other,
+                            t)
+                del pool, other
             kq, vq = _layer_pools(2, n, p, d, torch.int8, gen)
             ks, vs = (torch.rand((n, p, 1), generator=gen, device=dev) / 127
                       for _ in range(2))
@@ -1107,14 +1203,9 @@ def phase_paged_gather(gen):
             continue
         # times: cycling through 36 layers' pools, as one decode step does
         nl = 36
-        pools = _layer_pools(nl, n, p, d, torch.bfloat16, gen)
+        pools = _layer_pools(2 * nl, n, p, d, torch.bfloat16, gen)
         rows = r * m * p
-        g_ms = device_ms(_cycle(lambda a: kpg.paged_gather_cuda(a, tables),
-                                pools))
-        g_plain = device_ms(_cycle(lambda a: ref.paged_gather_ref(a, tables),
-                                   pools))
-        g_lib = device_ms(_cycle(lambda a: a[tables], pools))
-        g_b, g_by = kernel_bound("gather", rows, d, 2)
+        copy = _pair_times(label, tables, pools[::2], pools[1::2], p, d, d)
         del pools
         qpools = _layer_pools(2 * nl, n, p, d, torch.int8, gen)
         scs = [torch.rand((n, p, 1), generator=gen, device=dev) / 127
@@ -1138,9 +1229,6 @@ def phase_paged_gather(gen):
         # one pool: int8 pages and f32 scales read once, bf16 written once
         one_b, one_by = kernel_bound("gather_dequant", rows, d, 2)
         kv_b, kv_by = kernel_bound("gather_dequant", rows, d, 2, pools=2)
-        log(f"    {label} paged_gather bf16: kernel {g_ms:.5f} ms  plain "
-            f"{g_plain:.5f} ms  pool[tables] {g_lib:.5f} ms  bound "
-            f"{g_b:.5f} ms ({g_by})")
         log(f"    {label} paged_gather_dequant int8->bf16, one pool: kernel "
             f"{one_ms:.5f} ms ({100 * one_b / one_ms:.0f}% of bound)  plain "
             f"{one_plain:.5f} ms  bound {one_b:.5f} ms ({one_by})")
@@ -1149,14 +1237,13 @@ def phase_paged_gather(gen):
             f"two single launches {two_ms:.5f} ms  plain {kv_plain:.5f} ms  "
             f"bound {kv_b:.5f} ms ({kv_by})")
         records[label] = {
-            "paged_gather": dict(err=0.0, ms=g_ms, plain_ms=g_plain,
-                                 library_ms=g_lib, bound_ms=g_b,
-                                 bound_by=g_by),
+            "paged_gather": copy,
             "paged_gather_dequant": dict(
                 err=0.0, ms=kv_ms, plain_ms=kv_plain, library_ms=None,
                 bound_ms=kv_b, bound_by=kv_by, one_pool_ms=one_ms,
                 one_pool_plain_ms=one_plain, one_pool_bound_ms=one_b,
                 two_single_launches_ms=two_ms)}
+    _pair_paths(gen)
     _dequant_paths(gen)
     return records
 
@@ -1607,7 +1694,7 @@ def _expect_launches(label, counts, expect):
     it says ({name: (n, exact)}); every other gather, fwht,
     circulant_project and the seeded spinner (kernel and plain route) 0,
     and the spinner's plain route never."""
-    for name in ("paged_gather", "paged_gather_dequant",
+    for name in ("paged_gather", "paged_gather_kv", "paged_gather_dequant",
                  "paged_gather_dequant_kv", "spinner_seeded",
                  "spinner_seeded_plain_on_cuda", "fwht", "fwht_plain_on_cuda",
                  "circulant_project"):
@@ -1659,10 +1746,10 @@ def phase_serve_kv():
     cfg, params = serve.build(args)
     torch.cuda.synchronize()
     _describe(cfg, params, t0)
-    per_step = 2 * cfg.n_layers
+    per_step = cfg.n_layers
     out = {}
-    # bf16 pages: paged_gather for K and for V of every layer (72 a step);
-    # int8 pages: one paged_gather_dequant_kv launch a layer (36 a step)
+    # bf16 pages: one paged_gather_kv launch a layer for K and V (36 a
+    # step); int8 pages: one paged_gather_dequant_kv launch a layer
     for label, flags in (("bf16 pages", {}),
                          ("int8 pages", {"quantize_kv": True})):
         a = serve_args(**TRAFFIC, **flags)
@@ -1677,9 +1764,8 @@ def phase_serve_kv():
         _serve_line(label, res, steps,
                     torch.cuda.max_memory_allocated() / 2 ** 30)
         log(f"    launches: {counts}")
-        gathers = ({"paged_gather_dequant_kv": (cfg.n_layers * steps, True)}
-                   if a.quantize_kv else
-                   {"paged_gather": (per_step * steps, True)})
+        gathers = {("paged_gather_dequant_kv" if a.quantize_kv else
+                     "paged_gather_kv"): (per_step * steps, True)}
         _check_serve(label, res, a, counts, {
             **gathers, "spinner": (0, True), "srf_decode": (0, True)})
         out[label] = counts
@@ -1703,8 +1789,8 @@ def phase_serve_kv():
     log(f"    launches: {counts}")
     for res in (cold, warm):
         _check_serve("prefix cache", res, a, counts, {
-            "paged_gather": (per_step * steps, True), "spinner": (0, True),
-            "srf_decode": (0, True)})
+            "paged_gather_kv": (per_step * steps, True),
+            "spinner": (0, True), "srf_decode": (0, True)})
     v = eng.metrics.value_sum
     stats = {c: int(v(c)) for c in (
         "prefix_lookups_total", "prefix_hits_total",
@@ -2214,7 +2300,7 @@ def _undisturbed(cfg, params, device, blue, quant, **samp):
 def _check_path_launches(label, counts, path):
     """Every kernel of ``path`` launched, no other kernel and no plain
     route."""
-    other = {"paged_gather", "paged_gather_dequant",
+    other = {"paged_gather", "paged_gather_kv", "paged_gather_dequant",
              "paged_gather_dequant_kv", "spinner", "srf_decode",
              "spinner_seeded", "spinner_plain_on_cuda",
              "spinner_seeded_plain_on_cuda"} - path
@@ -2359,7 +2445,7 @@ def phase_reduced_router():
                                      f"{c}")
             path = ({"spinner", "srf_decode"} if "attn_impl" in over else
                     {"paged_gather_dequant_kv"} if quant else
-                    {"paged_gather"})
+                    {"paged_gather_kv"})
             _check_path_launches(name, counts, path)
             dequant_kv += counts["paged_gather_dequant_kv"]
             log(f"  {name}: card tokens == CPU tokens == undisturbed "
@@ -2476,7 +2562,8 @@ def _router_run(label, args, cfg, params, chaos=None, meshes=None):
 
 def _check_launches(label, cfg, res):
     """Kernel launches summed over the replicas' steps: full KV
-    paged_gather exactly 72 a step; SRF the spinner at least 72 a step
+    paged_gather_kv exactly 1 a layer a step; SRF the spinner at least 2
+    a layer a step
     and srf_decode exactly 36 a decode step; every other kernel and the
     plain routes never."""
     steps, dsteps = res["steps"], res["dsteps"]
@@ -2485,7 +2572,7 @@ def _check_launches(label, cfg, res):
         want = {"spinner": (2 * n * steps, False),
                 "srf_decode": (n * dsteps, True)}
     else:
-        want = {"paged_gather": (2 * n * steps, True), "spinner": (0, True),
+        want = {"paged_gather_kv": (n * steps, True), "spinner": (0, True),
                 "srf_decode": (0, True)}
     _expect_launches(f"{label} ({steps} steps, {dsteps} decode)",
                      res["counts"], want)
@@ -2664,6 +2751,7 @@ def _prom_dispatch(path):
 DISPATCH_NAMES = {"spinner": "spinner_project",
                   "spinner_seeded": "spinner_project_seeded",
                   "srf_decode": "srf_decode", "paged_gather": "paged_gather",
+                  "paged_gather_kv": "paged_gather_kv",
                   "paged_gather_dequant": "paged_gather_dequant",
                   "paged_gather_dequant_kv": "paged_gather_dequant_kv",
                   "fwht": "fwht", "circulant_project": "circulant_project"}
@@ -2790,7 +2878,8 @@ def phase_hymba_kernels(gen):
                                          m, h["hd"], gen)
     nl, npg, pg = h["layers"], h["pages"], h["page"]
     d, r, w = h["kv_heads"] * h["hd"], h["rows"], h["width"]
-    out["paged_gather"] = _gather_case("hymba", nl, npg, pg, d, r, w, gen)
+    out["paged_gather"] = _gather_case("hymba K and V", nl, npg, pg, d, r, w,
+                                       gen, d_b=d)
     out["paged_gather_dequant"] = _dequant_kv_case("hymba", nl, npg, pg, d,
                                                    r, w, gen)
     torch.cuda.empty_cache()
@@ -2833,12 +2922,17 @@ def _spinner_case(label, gsz, bsz, n, m, dtype, epi, use_hd, gen):
     return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def _gather_case(label, n_layers, npg, pg, d, r, w, gen, tables=None):
-    """paged_gather on bf16 rows of D: bit-equal to the plain version and
-    to ``pool[tables]``, also on pool views 2 and 8 bytes off 16-byte
-    alignment; timed cycling through ``n_layers`` layer pools beside the
-    plain version, ``pool[tables]`` and the bound. ``tables``: (R, M)
-    page ids (default: drawn from 1..N-1)."""
+def _gather_case(label, n_layers, npg, pg, d, r, w, gen, tables=None,
+                 d_b=None):
+    """The copy gather on bf16 rows of D: the one-pool kernel bit-equal to
+    the plain version and to ``pool[tables]``, also on pool views 2 and 8
+    bytes off 16-byte alignment. With ``d_b``, the layer's second pool
+    (rows of ``d_b``; K and V: D): ``paged_gather_kv`` bit-equal to two
+    plain calls, also with the second pool 8 bytes off, and timed beside
+    two one-pool launches, two plain calls and two ``pool[tables]``
+    (``_pair_times``); without, the one-pool kernel timed beside its
+    plain version and ``pool[tables]``. Layer pools cycled; ``tables``:
+    (R, M) page ids (default: drawn from 1..N-1)."""
     from repro_torch.kernels import ref
     kpg = _kernel_module("paged_gather")
     if tables is None:
@@ -2854,6 +2948,14 @@ def _gather_case(label, n_layers, npg, pg, d, r, w, gen, tables=None):
               ref.paged_gather_ref(pool, tables))
         exact(f"{label} paged_gather bf16 {what}, {how}, against "
               f"pool[tables]", got, pool[tables].reshape(got.shape))
+    if d_b is not None:
+        others = _layer_pools(n_layers, npg, pg, d_b, torch.bfloat16, gen)
+        for how, elems in (("aligned", 0), ("second pool at +8 bytes", 4)):
+            _pair_exact(f"{label} bf16 {what} and D={d_b}, {how}", pools[0],
+                        _offset(others[0], elems), tables)
+        rec = _pair_times(label, tables, pools, others, pg, d, d_b)
+        del pools, others
+        return rec
     rows = r * w * pg
     g_ms = device_ms(_cycle(lambda a: kpg.paged_gather_cuda(a, tables),
                             pools))
@@ -2906,13 +3008,13 @@ def phase_moe_mla_kernels(gen):
     out["srf_decode"] = _srf_decode_case("moe/mla", h["rows"], h["heads"],
                                          m, h["dv"], gen)
     npg, pg, r, w = h["pages"], h["page"], h["rows"], h["width"]
-    for key, label, layers, d in (
-            ("paged_gather c", "deepseek latent c", h["mla_layers"],
-             h["kv_lora"]),
-            ("paged_gather kpe", "deepseek kpe", h["mla_layers"], h["rope"]),
-            ("paged_gather kv", "moonshot K", h["kv_layers"],
-             gsz * h["kv_n"])):
-        out[key] = _gather_case(label, layers, npg, pg, d, r, w, gen)
+    for key, label, layers, d, d_b in (
+            ("paged_gather c+kpe", "deepseek latents c and kpe",
+             h["mla_layers"], h["kv_lora"], h["rope"]),
+            ("paged_gather kv", "moonshot K and V", h["kv_layers"],
+             gsz * h["kv_n"], gsz * h["kv_n"])):
+        out[key] = _gather_case(label, layers, npg, pg, d, r, w, gen,
+                                d_b=d_b)
     out["paged_gather_dequant"] = _dequant_kv_case(
         "moonshot", h["kv_layers"], npg, pg, gsz * h["kv_n"], r, w, gen)
     torch.cuda.empty_cache()
@@ -3029,12 +3131,13 @@ def phase_vlm_encdec_kernels(gen):
     out["seamless srf_decode"] = _srf_decode_case(
         "seamless", r, h["sm_heads"], m, h["sm_hd"], gen)
     npg, pg, w = h["pages"], h["page"], h["width"]
+    vl_d, sm_d = h["vl_kv"] * h["vl_hd"], h["sm_heads"] * h["sm_hd"]
     out["qwen2vl paged_gather"] = _gather_case(
-        "qwen2-vl K", h["vl_layers"], npg, pg, h["vl_kv"] * h["vl_hd"], r, w,
-        gen)
+        "qwen2-vl K and V", h["vl_layers"], npg, pg, vl_d, r, w, gen,
+        d_b=vl_d)
     out["seamless paged_gather"] = _gather_case(
-        "seamless K", h["sm_layers"], npg, pg, h["sm_heads"] * h["sm_hd"], r,
-        w, gen)
+        "seamless K and V", h["sm_layers"], npg, pg, sm_d, r, w, gen,
+        d_b=sm_d)
     # the 8 rows' slots are distinct, as a batch's requests' are; the
     # pools cycled hold 8 x 16 MiB read a call, past the 50 MB L2
     slots = (torch.randperm(r, generator=gen, device="cuda") + 1)[:, None]
@@ -3074,18 +3177,18 @@ FAMILIES_REDUCED = [("mamba2 ssd", "mamba2-2.7b", {}, False),
                     ("seamless SRF", "seamless-m4t-large-v2",
                      {"attn_impl": "srf"}, False)]
 # the kernels each reduced cell's card run must launch (and no other)
-FAMILY_PATHS = {"mamba2 ssd": set(), "hymba full KV": {"paged_gather"},
+FAMILY_PATHS = {"mamba2 ssd": set(), "hymba full KV": {"paged_gather_kv"},
                 "hymba int8 pages": {"paged_gather_dequant_kv"},
                 "hymba SRF": {"spinner", "srf_decode"},
-                "moonshot full KV": {"paged_gather"},
+                "moonshot full KV": {"paged_gather_kv"},
                 "moonshot int8 pages": {"paged_gather_dequant_kv"},
                 "moonshot SRF": {"spinner", "srf_decode"},
-                "deepseek MLA": {"paged_gather"},
+                "deepseek MLA": {"paged_gather_kv"},
                 "deepseek MLA+SRF": {"spinner", "srf_decode"},
-                "qwen2-vl full KV": {"paged_gather"},
+                "qwen2-vl full KV": {"paged_gather_kv"},
                 "qwen2-vl SRF": {"spinner", "srf_decode"},
                 # enc-dec: the memory pool's gather a step beside the rest
-                "seamless full KV": {"paged_gather"},
+                "seamless full KV": {"paged_gather_kv", "paged_gather"},
                 "seamless int8 pages": {"paged_gather_dequant_kv",
                                         "paged_gather"},
                 "seamless SRF": {"spinner", "srf_decode", "paged_gather"}}
@@ -3230,7 +3333,7 @@ def phase_reduced_families():
         ref = _reduced_chaos(f"reduced hymba chaos {kind} (CPU)", cfg, cpu,
                              "cpu", blue, kind, False)
         _check_path_launches(f"reduced hymba chaos {kind}", counts,
-                             {"paged_gather"})
+                             {"paged_gather_kv"})
         if res["tokens"] != base or res["tokens"] != ref["tokens"] or \
                 res["counters"] != ref["counters"] or \
                 res["extra"] != {i: base[i] for i in range(2)}:
@@ -3504,8 +3607,8 @@ def phase_serve_hybrid():
     d_model 1600, 25 q / 5 kv heads
     of 64 beside 50 SSD heads of 64 with state 16, bf16), 8 greedy
     requests of 128 + 32 tokens, 8 slots: full KV on bf16 pages
-    (paged_gather exactly 64 a step), int8 pages (paged_gather_dequant_kv
-    exactly 32 a step), SRF (the spinner at least 64 a step, srf_decode
+    (paged_gather_kv exactly 32 a step), int8 pages
+    (paged_gather_dequant_kv exactly 32 a step), SRF (the spinner at least 64 a step, srf_decode
     exactly 32 a decode step), each beside nothing else; with full KV
     also the legacy engine (no kernel; the first 4 requests at 128 + 16)
     and the prefix cache: a donor of
@@ -3535,7 +3638,7 @@ def phase_serve_hybrid():
                               eng=eng)
             del eng
             steps, dec = res["steps"], res["decode_steps"]
-            want = {"full KV": {"paged_gather": (2 * n * steps, True)},
+            want = {"full KV": {"paged_gather_kv": (n * steps, True)},
                     "int8 pages": {"paged_gather_dequant_kv":
                                    (n * steps, True)},
                     "SRF": {"spinner": (2 * n * steps, False),
@@ -3571,8 +3674,8 @@ def phase_serve_hybrid():
                               "shared tokens, then the 8 requests)", pa, cfg,
                               params, eng=eng, reqs=reqs)
             _expect_launches("hymba-1.5b prefix cache", res["counts"], {
-                **none, "paged_gather": (2 * n * (_steps(eng) - steps0),
-                                         True)})
+                **none, "paged_gather_kv": (n * (_steps(eng) - steps0),
+                                            True)})
             v = eng.metrics.value_sum
             stats = {c: int(v(c)) for c in PREFIX_COUNTERS}
             log(f"    prefix counters: {stats}; the same 8 requests cold: "
@@ -3604,8 +3707,8 @@ def phase_serve_dense_configs():
     """qwen2.5-14b, mistral-nemo-12b and internlm2-20b at full width
     (bf16, random weights), one after another, the params and pools of
     each freed before the next: full KV on bf16 pages, 4 greedy requests
-    of 128 + 16 tokens, 4 slots. paged_gather exactly 2 a layer a step,
-    nothing else; tok/s, TTFT p50 and peak memory printed."""
+    of 128 + 16 tokens, 4 slots. paged_gather_kv exactly 1 a layer a
+    step, nothing else; tok/s, TTFT p50 and peak memory printed."""
     from repro_torch.launch import serve
     out = {}
     for arch in DENSE_CONFIGS:
@@ -3617,7 +3720,7 @@ def phase_serve_dense_configs():
         serve.warm(a, cfg, params)
         res = _family_run(f"{arch} full KV", a, cfg, params)
         _expect_launches(arch, res["counts"], {
-            "paged_gather": (2 * cfg.n_layers * res["steps"], True),
+            "paged_gather_kv": (cfg.n_layers * res["steps"], True),
             "spinner": (0, True), "srf_decode": (0, True)})
         out[arch] = res
         del params
@@ -3671,8 +3774,8 @@ def phase_serve_moe():
     """Full-width moonshot-v1-16b-a3b cut to 24 of its 48 layers
     (``SERVE_CUT``: 1 dense, then 23 MoE of 64 experts, top-6, 2 shared;
     16 q / 16 kv heads of 128; bf16), random weights: full KV on bf16 pages, 8 greedy
-    requests of 128 + 32 tokens, 8 slots (paged_gather exactly 2 a layer
-    a step); int8 pages, 4 requests of 128 + 16 (paged_gather_dequant_kv
+    requests of 128 + 32 tokens, 8 slots (paged_gather_kv exactly 1 a
+    layer a step); int8 pages, 4 requests of 128 + 16 (paged_gather_dequant_kv
     exactly 1 a layer a step); then, the params rebuilt with SRF
     attention, SRF at 4 x (128 + 16) (``_srf_launches``). Nothing else
     launched, no plain route; tok/s, TTFT p50, peak memory and pool
@@ -3697,10 +3800,10 @@ def phase_serve_moe():
             if label == "SRF":
                 _srf_launches(f"{arch} SRF", cfg, res, probes)
             else:
-                key = "paged_gather" if label == "full KV" \
+                key = "paged_gather_kv" if label == "full KV" \
                     else "paged_gather_dequant_kv"
                 _expect_launches(f"{arch} {label}", res["counts"], {
-                    key: ((2 if label == "full KV" else 1) * n * steps, True),
+                    key: (n * steps, True),
                     "spinner": (0, True), "srf_decode": (0, True)})
             out[label] = res
         del params
@@ -3712,8 +3815,8 @@ def phase_serve_mla():
     """Full-width deepseek-v2-lite-16b (27 layers: 1 dense, then 26 MoE;
     MLA with kv_lora 512, qk 128 + 64 rope, v 128, 16 heads; bf16; 15.7
     B params), random weights: MLA latent pages, 8 greedy requests of
-    128 + 32 tokens, 8 slots (paged_gather exactly 2 a layer a step: the
-    latents c and kpe); the legacy engine on the first 4 of them, 128 +
+    128 + 32 tokens, 8 slots (paged_gather_kv exactly 1 a layer a step:
+    the latents c and kpe in one launch); the legacy engine on the first 4 of them, 128 +
     16 tokens, 4 slots (no kernel launched); then, the params rebuilt
     with SRF attention, MLA + SRF at 4 x (128 + 16) (``_srf_launches``).
     The two engines' first-token logits agree within
@@ -3734,7 +3837,7 @@ def phase_serve_mla():
     res = _family_run(f"{arch} MLA", a, cfg, params, eng=eng)
     del eng
     _expect_launches(f"{arch} MLA", res["counts"], {
-        **none, "paged_gather": (2 * n * res["steps"], True)})
+        **none, "paged_gather_kv": (n * res["steps"], True)})
     out["MLA"] = res
     la = serve_args(arch=arch, legacy=True, **DENSE_TRAFFIC)
     serve.warm(la, cfg, params)
@@ -3765,8 +3868,8 @@ def phase_serve_vlm():
     """Full-width qwen2-vl-2b (28 layers, d_model 1536, 12 q / 2 kv heads
     of 128, bf16; served as a text LM with 1-D RoPE, as the reference's
     engines serve it), random weights, 8 greedy requests of 128 + 32
-    tokens, 8 slots: full KV on bf16 pages (paged_gather exactly 2 a layer
-    a step), then, the params rebuilt with SRF attention, SRF
+    tokens, 8 slots: full KV on bf16 pages (paged_gather_kv exactly 1 a
+    layer a step), then, the params rebuilt with SRF attention, SRF
     (``_srf_launches``). Nothing else launched; tok/s, TTFT p50, peak
     memory and pool bytes printed. Returns the results."""
     from repro_torch.launch import serve
@@ -3784,7 +3887,7 @@ def phase_serve_vlm():
             _srf_launches(f"{arch} SRF", cfg, res, probes)
         else:
             _expect_launches(f"{arch} full KV", res["counts"], {
-                "paged_gather": (2 * cfg.n_layers * res["steps"], True),
+                "paged_gather_kv": (cfg.n_layers * res["steps"], True),
                 "spinner": (0, True), "srf_decode": (0, True)})
         out[label] = res
         del params
@@ -3830,8 +3933,8 @@ def phase_serve_encdec():
     greedy requests of 128 + 32 tokens, 8 slots, each request with its
     own 1024 x 160 synthetic audio features (encoded once at admission,
     batch 1, into its slot of the memory pool): full KV on bf16 pages
-    (paged_gather exactly 2 a layer a step for K and V plus 1 a step for
-    the memory), int8 pages (paged_gather_dequant_kv 1 a layer a step,
+    (paged_gather_kv exactly 1 a layer a step for K and V plus the
+    one-pool paged_gather 1 a step for the memory), int8 pages (paged_gather_dequant_kv 1 a layer a step,
     paged_gather 1 a step), SRF (the spinner 2 a layer a step, 2 an
     encoder layer a request at admission, plus the probe's; srf_decode 1
     a layer a decode step; paged_gather 1 a step); the prefix cache (a
@@ -3886,7 +3989,8 @@ def phase_serve_encdec():
                 want = {"paged_gather_dequant_kv": (n * steps, True),
                         "paged_gather": (steps, True)}
             else:
-                want = {"paged_gather": (2 * n * steps + steps, True)}
+                want = {"paged_gather_kv": (n * steps, True),
+                        "paged_gather": (steps, True)}
             _expect_launches(f"{arch} {label}", res["counts"],
                              {**none, **want})
             log(f"    launches as the path needs: {want}")
@@ -3915,7 +4019,8 @@ def phase_serve_encdec():
                               params, eng=eng, reqs=reqs)
             st = _steps(eng) - steps0
             _expect_launches(f"{arch} prefix cache", res["counts"], {
-                **none, "paged_gather": (2 * n * st + st, True)})
+                **none, "paged_gather_kv": (n * st, True),
+                "paged_gather": (st, True)})
             v = eng.metrics.value_sum
             stats = {c: int(v(c)) for c in PREFIX_COUNTERS}
             hit = sorted(r.uid for r in reqs if r.trace.count("prefix_hit"))
@@ -4029,10 +4134,12 @@ def phase_mesh_kernels(gen):
                                          gen)
     npg, pg, w = h["pages"], h["page"], h["width"]
     d = g * n
-    out["paged_gather"] = _gather_case("qwen3-4b TP 2 shard K", h["layers"],
-                                       npg, pg, d, r, w, gen)
+    out["paged_gather"] = _gather_case("qwen3-4b TP 2 shard K and V",
+                                       h["layers"], npg, pg, d, r, w, gen,
+                                       d_b=d)
     out["seamless paged_gather"] = _gather_case(
-        "seamless TP 2 shard K", h["sm_layers"], npg, pg, d, r, w, gen)
+        "seamless TP 2 shard K and V", h["sm_layers"], npg, pg, d, r, w, gen,
+        d_b=d)
     out["paged_gather_dequant"] = _dequant_kv_case(
         "qwen3-4b TP 2 shard", h["layers"], npg, pg, d, r, w, gen)
     torch.cuda.empty_cache()
@@ -4071,23 +4178,25 @@ def _mesh_serve(eng, work):
 
 def _mesh_launches(label, fam, cfg, counts, engines, tp):
     """The sharded path's launches summed over ``engines``' steps: each
-    shard gathers its own K and V (2 x TP a layer a step; enc-dec plus the
-    replicated memory, 1 a step), int8 pages one dequant launch a shard
-    and layer, SRF srf_decode TP a layer a decode step and the spinner at
-    least 2 x TP a layer a step; MLA latents and SSD degrade (2 gathers a
-    layer a step, nothing)."""
+    shard gathers its own K and V in one launch (TP a layer a step;
+    enc-dec plus the replicated memory, 1 one-pool gather a step), int8
+    pages one dequant launch a shard and layer, SRF srf_decode TP a layer
+    a decode step and the spinner at least 2 x TP a layer a step; MLA
+    latents and SSD degrade (1 gather of c and kpe a layer a step,
+    nothing)."""
     steps = sum(_steps(e) for e in engines)
     dsteps = sum(int(e.stats["decode_steps"]) for e in engines)
     n = cfg.n_layers
-    want = {"kv": {"paged_gather": (2 * tp * n * steps, True)},
+    want = {"kv": {"paged_gather_kv": (tp * n * steps, True)},
             "int8": {"paged_gather_dequant_kv": (tp * n * steps, True),
-                     "paged_gather": (0, True)},
+                     "paged_gather_kv": (0, True)},
             "srf": {"spinner": (2 * tp * n * steps, False),
                     "srf_decode": (tp * n * dsteps, True)},
-            "mla": {"paged_gather": (2 * n * steps, True)},
+            "mla": {"paged_gather_kv": (n * steps, True)},
             "ssd": {},
-            "hybrid": {"paged_gather": (2 * tp * n * steps, True)},
-            "encdec": {"paged_gather": ((2 * tp * n + 1) * steps, True)}}[fam]
+            "hybrid": {"paged_gather_kv": (tp * n * steps, True)},
+            "encdec": {"paged_gather_kv": (tp * n * steps, True),
+                       "paged_gather": (steps, True)}}[fam]
     _expect_launches(f"{label} ({steps} steps)", counts, want)
     return steps
 
@@ -4245,13 +4354,13 @@ def _warm_mesh(a, cfg, params, mesh):
 
 def _mesh_path(label, cfg, res, tp, probes=None):
     """The launches of one full-width run at TP ``tp`` (every shard's own):
-    full KV paged_gather 2 x TP a layer a step, int8 pages one
+    full KV paged_gather_kv TP a layer a step, int8 pages one
     ``paged_gather_dequant_kv`` a shard and layer a step, SRF the spinner
     (materialized or seeded) 2 x TP a layer a step plus the quality
     probe's and srf_decode TP a layer a decode step; nothing else."""
     n, steps, dsteps = cfg.n_layers, res["steps"], res["decode_steps"]
     if label == "full KV":
-        want = {"paged_gather": (2 * tp * n * steps, True)}
+        want = {"paged_gather_kv": (tp * n * steps, True)}
     elif label == "int8 pages":
         want = {"paged_gather_dequant_kv": (tp * n * steps, True)}
     else:
@@ -4363,7 +4472,7 @@ def phase_serve_mesh():
         raise AssertionError(f"mesh router: kill {c['kill'].get('replica')}"
                              f", counters {cnt}")
     _expect_launches("mesh router", c["counts"], {
-        "paged_gather": (2 * 2 * cfg.n_layers * c["steps"], True),
+        "paged_gather_kv": (2 * cfg.n_layers * c["steps"], True),
         "spinner": (0, True), "srf_decode": (0, True)})
     log(f"  full KV router, 2 replicas x TP 2 of 4 slots, 8 requests, "
         f"replica 1 raise@{CHAOS_STEP}: {c['tok_s']:.2f} tok/s, TTFT p50 "
@@ -4928,9 +5037,10 @@ def _launched(label, counts, need, plain_ok=False):
                              f"plain routes {plain} on the card: {got}")
 
 
-SMOKE_KERNELS = {"pipeline": ("spinner",), "serve_mesh": ("paged_gather",),
-                 "serve_chaos": ("paged_gather",),
-                 "serve_prefix": ("paged_gather",),
+SMOKE_KERNELS = {"pipeline": ("spinner",),
+                 "serve_mesh": ("paged_gather_kv",),
+                 "serve_chaos": ("paged_gather_kv",),
+                 "serve_prefix": ("paged_gather_kv",),
                  "serve_seeded": ("spinner_seeded", "srf_decode")}
 
 
@@ -4939,7 +5049,7 @@ def _dryrun_card(out_dir):
     five ``examples/torch_*.py`` on the card at their defaults (their own
     output in ``examples.log``), each run's launches printed: every smoke
     its path's kernels, quickstart and kernel_approx the spinner (ldr's
-    plain route allowed), serve_lm full KV paged_gather and SRF the
+    plain route allowed), serve_lm full KV paged_gather_kv and SRF the
     spinner and srf_decode; train_lm's loss falls."""
     import contextlib
     from repro_torch.kernels import ops
@@ -4959,7 +5069,7 @@ def _dryrun_card(out_dir):
                  lambda m: m.main(["--device", "cuda"])),
                 ("kernel_approx", ("spinner",), True,
                  lambda m: m.main(["--device", "cuda"])),
-                ("serve_lm full KV", ("paged_gather",), False,
+                ("serve_lm full KV", ("paged_gather_kv",), False,
                  lambda m: m.run("full", "cuda")),
                 ("serve_lm SRF", ("spinner", "srf_decode"), False,
                  lambda m: m.run("srf", "cuda")),
@@ -5115,7 +5225,7 @@ def _record(name, source, replaces, launches, rec, shape):
     extra = {k: v for k, v in rec.items() if k.startswith((
         "one_pool_", "two_single_", "train_", "dispatch_", "router_",
         "hymba_", "dense_", "moonshot_", "deepseek_", "qwen2vl_",
-        "seamless_", "tp2_"))}
+        "seamless_", "tp2_", "prefill"))}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["err"], "ms": rec["ms"],
@@ -5428,61 +5538,64 @@ def run_phases(build, grid) -> int:
                 "B=8, H=32, m=256, dv=128, f32"),
         _record("paged_gather", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:28",
-                kv["bf16 pages"]["paged_gather"],
+                kv["bf16 pages"]["paged_gather_kv"],
                 {**gather["decode"]["paged_gather"],
-                 **routed("full", "paged_gather"),
-                 **hymba("paged_gather", "full KV", "paged_gather",
-                         hg + ", bf16"),
-                 "dense_launches": {a: dense[a]["counts"]["paged_gather"]
+                 "prefill": gather["prefill"]["paged_gather"],
+                 **routed("full", "paged_gather_kv"),
+                 **hymba("paged_gather", "full KV", "paged_gather_kv",
+                         hg + ", bf16, K and V in one launch"),
+                 "dense_launches": {a: dense[a]["counts"]["paged_gather_kv"]
                                     for a in DENSE_CONFIGS},
                  "dense_launches_of": "full width, 4 requests x (128 + "
                                       "16) tokens each",
                  **family("moonshot", moe_k["paged_gather kv"],
-                          {"full KV": (moe["full KV"], "paged_gather")},
-                          mg + ", D=16*128, 48 layer pools cycled, bf16"),
-                 **family("deepseek", moe_k["paged_gather c"],
-                          {"MLA": (mla["MLA"], "paged_gather")},
-                          mg + ", D=512 (latent c), 27 layer pools "
-                          "cycled, bf16"),
-                 **family("deepseek_kpe", moe_k["paged_gather kpe"],
-                          {"MLA": (mla["MLA"], "paged_gather")},
-                          mg + ", D=64 (rope key kpe), 27 layer pools "
-                          "cycled, bf16"),
+                          {"full KV": (moe["full KV"], "paged_gather_kv")},
+                          mg + ", D=16*128, K and V in one launch, 48 layer "
+                          "pools cycled, bf16"),
+                 **family("deepseek", moe_k["paged_gather c+kpe"],
+                          {"MLA": (mla["MLA"], "paged_gather_kv")},
+                          mg + ", the latents c (D=512) and kpe (D=64) in "
+                          "one launch, 27 layer pools cycled, bf16"),
                  **family("qwen2vl", vlm_k["qwen2vl paged_gather"],
-                          {"full KV": (vlm["full KV"], "paged_gather")},
-                          vl_g, vl_of),
+                          {"full KV": (vlm["full KV"], "paged_gather_kv")},
+                          vl_g + ", K and V in one launch", vl_of),
                  **family("seamless", vlm_k["seamless paged_gather"],
-                          {run: (encdec[run], "paged_gather") for run in
-                           ("full KV", "int8 pages", "SRF",
-                            "prefix cache")},
-                          sm_g + ", bf16", sm_of + " (full KV: K, V and "
-                          "the memory; int8 pages and SRF: the memory "
-                          "alone)"),
+                          {run: (encdec[run], "paged_gather_kv") for run in
+                           ("full KV", "prefix cache")},
+                          sm_g + ", bf16, K and V in one launch",
+                          sm_of + " (K and V: 1 a layer a step)"),
                  **family("seamless_memory",
                           vlm_k["seamless memory gather"],
                           {run: (encdec[run], "paged_gather") for run in
-                           ("int8 pages", "SRF")},
-                          "the encoder-memory pool: N=9 slots, P=1024 "
-                          "(enc_len), D=1024 (d_model), R=8 distinct slots, M=1 (a 2 MiB "
-                          "page through a width-1 table), 8 pools cycled, "
-                          "bf16", sm_of + " (the memory gather alone: 1 a "
-                          "step)"),
-                 **tp2("tp2", "paged_gather", ("full KV",), "paged_gather",
-                       mg + ", D=4*128 (a shard's kv heads), 36 layer pools "
+                           ("full KV", "int8 pages", "SRF",
+                            "prefix cache")},
+                          "the one-pool entry on the encoder-memory pool: "
+                          "N=9 slots, P=1024 (enc_len), D=1024 (d_model), "
+                          "R=8 distinct slots, M=1 (a 2 MiB page through a "
+                          "width-1 table), 8 pools cycled, bf16",
+                          sm_of + " (the memory gather: 1 a step)"),
+                 **tp2("tp2", "paged_gather", ("full KV",),
+                       "paged_gather_kv", mg + ", D=4*128 (a shard's kv "
+                       "heads), K and V in one launch, 36 layer pools "
                        "cycled, bf16"),
                  **family("tp2_seamless", mesh_k["seamless paged_gather"],
-                          {"full KV": (mesh["seamless"], "paged_gather")},
-                          mg + ", D=8*64 (a shard's heads), 24 layer pools "
-                          "cycled, bf16", "full-width seamless-m4t-large-v2 "
-                          "at TP 2, 8 requests x (128 + 32): K, V of each "
-                          "shard and the replicated memory"),
+                          {"full KV": (mesh["seamless"], "paged_gather_kv")},
+                          mg + ", D=8*64 (a shard's heads), K and V in one "
+                          "launch, 24 layer pools cycled, bf16",
+                          "full-width seamless-m4t-large-v2 at TP 2, 8 "
+                          "requests x (128 + 32): K and V of each shard "
+                          "(the replicated memory: the one-pool entry)"),
                  "tp2_router_launches": mesh["router"]["counts"][
-                     "paged_gather"],
+                     "paged_gather_kv"],
                  "tp2_router_launches_of": f"full-width full-KV router at "
                                            f"{CUT_LAYERS} layers, 2 replicas "
                                            f"x TP 2, 8 requests, replica 1 "
                                            f"raising at step 12"},
-                decode + ", bf16"),
+                decode + ", bf16, a layer's K and V in one launch "
+                "(paged_gather_kv, as the bf16 serve run launches it); "
+                "plain_ms and library_ms: two plain and two pool[tables] "
+                "calls; one_pool_*: the one-pool entry (paged_gather) on K; "
+                "prefill: R=32, M=64, N=2049"),
         _record("paged_gather_dequant", src + "paged_gather.cu",
                 "src/repro/kernels/paged_gather.py:33",
                 kv["int8 pages"]["paged_gather_dequant_kv"],

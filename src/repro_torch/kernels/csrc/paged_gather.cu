@@ -12,21 +12,45 @@
 //
 // What bounds both on this card: bytes. They are copies with no reuse; at
 // the full-width decode shape (R = 8, M = 16, P = 16, D = 8 * 128) the
-// bf16 gather reads 4.19 MB and writes 4.19 MB (2.5 us at 3.35 TB/s), the
-// int8 one reads 2.10 MB of pages and 8 KB of scales and writes 4.19 MB of
-// bf16 (1.88 us; a layer's K and V together 3.76 us).
+// bf16 gather reads 4.19 MB and writes 4.19 MB (2.5 us at 3.35 TB/s; a
+// layer's K and V together 5.0 us), the int8 one reads 2.10 MB of pages
+// and 8 KB of scales and writes 4.19 MB of bf16 (1.88 us; K and V 3.76
+// us).
 //
-// The copy kernel (paged_gather_kernel). The grid's x axis walks the
-// (r, j) page slots, so the table id is read once per block (into shared
-// memory) and no block depends on another:
-//  * a page is P*D contiguous elements on both sides, so the gather is a
-//    batched copy of contiguous chunks: each block copies one CHUNK of one
-//    page with 16-byte (uint4) accesses, UNROLL loads issued before the
-//    stores, so a 128-thread block keeps 8 KB in flight; the grid's y axis
-//    splits a page into chunks so the decode shape runs 512 blocks;
-//  * it is dtype-agnostic: it moves bytes, in the widest unit (16, 8, 4, 2
-//    or 1 bytes) that divides the page's byte size and both base
-//    addresses, down to single bytes; it never leaves the kernel.
+// The copy kernel (paged_gather_kernel). Its first version gave each
+// 128-thread block one chunk of one page (4 x 128 units of the widest
+// width, 8 KB when rows allow 16 bytes): 0.0047-0.0050 ms against the
+// 0.0025 ms of its bytes at D = 1024, 7% of its bound at D = 64, the
+// launch, the id -> page chain and the tail setting its time; and the
+// attention paid that twice a layer (K, then V). The design here keeps
+// its blocks and pays the fixed costs once a layer:
+//  * one launch covers one pool, or two pools that share the table and
+//    differ in row width, page size and base (a layer's K and V; MLA's
+//    latents c and kpe): the grid is (page slots, chunks of a page of
+//    pool 0 + chunks of a page of pool 1), blockIdx.y picks the pool by a
+//    select, and each pool's blocks write its own output. Blocks run in
+//    the first version's order, chunk-major (chunk 0 of every slot, then
+//    chunk 1, ...): a page id that recurs in a table (the null page,
+//    shared prefix pages) is read again while its chunk is in L2;
+//  * every thread reads its slot's page id itself (one broadcast load a
+//    warp), so no block waits on a __syncthreads before its first page
+//    load;
+//  * the unit is the widest of 16, 8, 4, 2 and 1 bytes that divides both
+//    pools' pages and all four bases (paged_gather.gather_plan), so one
+//    ragged or misaligned pool runs in the same kernel at a narrower
+//    unit. A call never falls back to anything outside the kernel.
+// Measured against it on an H100 and dropped (launch/time_kernels.py,
+// launch/sweep_gather.py; PERF.md): persistent blocks walking a strided
+// list of items with the next item's page id read ahead (at every
+// decode shape one item a block, so the loop never acted; one pool
+// 0.0053 against 0.0050 ms), and a TMA ring (1-D bulk copies into
+// shared-memory stages with full and empty mbarriers, drained by
+// consumer warps with streaming stores or by the bulk store): slower at
+// every decode shape, where one or two 8 KB items a block leave the
+// ring's extra hop as latency, and at the prefill shape (K and V 0.0856
+// against 0.0797 ms).
+// It is dtype-agnostic (it moves bytes), so its output is bit-equal to
+// pool[tables] in every dtype.
 //
 // The dequant kernel (paged_gather_dequant_kernel). Its first version (one
 // block per 512 units of one page, 16 int8 a thread) reached 35-37% of its
@@ -88,85 +112,14 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int UNROLL = 4;
-constexpr long long CHUNK = (long long)THREADS * UNROLL;   // units per block
+enum Path { TMA = 0, VECTOR = 1, SCALAR = 2 };
+constexpr int MAX_STAGES = 8;
 
 __device__ __forceinline__ long long page_id(const void* tables, int idx64,
                                              long long rm, long long n) {
   long long id = idx64 ? ((const long long*)tables)[rm]
                        : (long long)((const int*)tables)[rm];
   return id < 0 ? 0 : (id >= n ? n - 1 : id);
-}
-
-// One block: units [y * CHUNK, (y + 1) * CHUNK) of page slot x = r * M + j.
-template <typename U>
-__global__ void __launch_bounds__(THREADS)
-paged_gather_kernel(const U* __restrict__ pool,
-                    const void* __restrict__ tables, int idx64,
-                    U* __restrict__ out, long long n_pages,
-                    long long page_units) {
-  __shared__ long long src_page;
-  const long long rm = blockIdx.x;
-  if (threadIdx.x == 0) src_page = page_id(tables, idx64, rm, n_pages);
-  __syncthreads();
-  const U* src = pool + src_page * page_units;
-  U* dst = out + rm * page_units;
-  const long long base = (long long)blockIdx.y * CHUNK + threadIdx.x;
-  U buf[UNROLL];
-#pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const long long i = base + (long long)u * THREADS;
-    if (i < page_units) buf[u] = __ldg(src + i);
-  }
-#pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const long long i = base + (long long)u * THREADS;
-    if (i < page_units) dst[i] = buf[u];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dequant gather
-// ---------------------------------------------------------------------------
-
-enum Path { TMA = 0, VECTOR = 1, SCALAR = 2 };
-constexpr int MAX_STAGES = 8;
-
-// The kernel's one parameter, read in place (__grid_constant__): pools
-// are picked by a select, never by a runtime array index, which would copy
-// the struct to local memory in every thread.
-struct DequantArgs {
-  const int8_t* pool0;
-  const int8_t* pool1;
-  const float* scales0;
-  const float* scales1;
-  const void* tables;
-  void* out;            // n_pools * RM * P * D outputs, pool-major
-  int idx64, n_pools, rm, n_pages, P, D;
-  int chunk_rows;       // c: rows of a chunk (c | P; 1 when rows are cut)
-  int chunk_cols;       // w: columns of a chunk (w | D)
-  int chunks;           // chunks a page: P * D / (c * w)
-  int items;            // n_pools * rm * chunks
-  int stages, stage_bytes, slot_bytes;
-};
-
-// Where work item w reads: its pool, its page slot (r * M + j), the first
-// element of its chunk within the page, and the chunk's first row.
-struct Item {
-  int pool, slot, start, row0;
-};
-
-__device__ __forceinline__ Item item_of(const DequantArgs& a, int w) {
-  const int per_pool = a.rm * a.chunks;
-  Item it;
-  it.pool = w >= per_pool;
-  const int rem = w - it.pool * per_pool;
-  it.slot = rem / a.chunks;
-  const int j = rem - it.slot * a.chunks;
-  it.start = j * a.chunk_rows * a.chunk_cols;
-  it.row0 = it.start / a.D;
-  return it;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -208,6 +161,129 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
                   "r"(smem_addr(bar))
                : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// copy gather
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS = 128;
+constexpr int UNROLL = 4;
+constexpr int CHUNK = THREADS * UNROLL;           // units a block
+constexpr int MAX_CHUNKS = 65535;                 // gridDim.y at most
+
+// The kernel's one parameter, read in place (__grid_constant__); the
+// pools are picked by a select, never by a runtime array index.
+struct GatherArgs {
+  const void* pool0;
+  const void* pool1;
+  void* out0;
+  void* out1;
+  const void* tables;
+  int idx64;
+  int n_pages0, n_pages1;
+  int units0, units1;     // units a page of each pool
+  int cpp0;               // chunks a page of pool 0: blockIdx.y below it
+};
+
+// One block: chunk y of page slot x = r * M + j, of pool 0 for y < cpp0,
+// else chunk y - cpp0 of pool 1; UNROLL loads a thread issued before
+// their stores.
+template <typename U>
+__global__ void __launch_bounds__(THREADS)
+paged_gather_kernel(const __grid_constant__ GatherArgs a) {
+  const int slot = blockIdx.x;
+  const bool second = (int)blockIdx.y >= a.cpp0;
+  const int y = second ? (int)blockIdx.y - a.cpp0 : (int)blockIdx.y;
+  const int units = second ? a.units1 : a.units0;
+  const long long page =
+      page_id(a.tables, a.idx64, slot, second ? a.n_pages1 : a.n_pages0);
+  const U* src =
+      static_cast<const U*>(second ? a.pool1 : a.pool0) + page * units;
+  U* dst = static_cast<U*>(second ? a.out1 : a.out0) + (long long)slot * units;
+  const int base = y * CHUNK + (int)threadIdx.x;
+  U buf[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int i = base + u * THREADS;
+    if (i < units) buf[u] = __ldg(src + i);
+  }
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int i = base + u * THREADS;
+    if (i < units) dst[i] = buf[u];
+  }
+}
+
+// The shared body of both entry points: checks the unit it is given
+// (paged_gather.gather_plan) against the pages and bases, and launches
+// once for every pool (pool 1 unused when n_pools == 1).
+int gather(GatherArgs& a, int n_pools, long long rm, long long page0,
+           long long page1, int unit, cudaStream_t st) {
+  const uintptr_t bases = (uintptr_t)a.pool0 | (uintptr_t)a.out0 |
+                          (uintptr_t)a.pool1 | (uintptr_t)a.out1;
+  if (!(unit == 1 || unit == 2 || unit == 4 || unit == 8 || unit == 16) ||
+      page0 % unit != 0 || page1 % unit != 0 || bases % unit != 0)
+    return (int)cudaErrorInvalidValue;
+  a.units0 = (int)(page0 / unit);
+  a.units1 = (int)(page1 / unit);
+  a.cpp0 = (a.units0 + CHUNK - 1) / CHUNK;
+  const int chunks =
+      a.cpp0 + (n_pools == 2 ? (a.units1 + CHUNK - 1) / CHUNK : 0);
+  if (chunks > MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)rm, (unsigned)chunks);
+  switch (unit) {
+    case 16: paged_gather_kernel<uint4><<<grid, THREADS, 0, st>>>(a); break;
+    case 8: paged_gather_kernel<uint2><<<grid, THREADS, 0, st>>>(a); break;
+    case 4:
+      paged_gather_kernel<unsigned int><<<grid, THREADS, 0, st>>>(a);
+      break;
+    case 2:
+      paged_gather_kernel<unsigned short><<<grid, THREADS, 0, st>>>(a);
+      break;
+    default: paged_gather_kernel<unsigned char><<<grid, THREADS, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dequant gather
+// ---------------------------------------------------------------------------
+
+// The kernel's one parameter, read in place (__grid_constant__): pools
+// are picked by a select, never by a runtime array index, which would copy
+// the struct to local memory in every thread.
+struct DequantArgs {
+  const int8_t* pool0;
+  const int8_t* pool1;
+  const float* scales0;
+  const float* scales1;
+  const void* tables;
+  void* out;            // n_pools * RM * P * D outputs, pool-major
+  int idx64, n_pools, rm, n_pages, P, D;
+  int chunk_rows;       // c: rows of a chunk (c | P; 1 when rows are cut)
+  int chunk_cols;       // w: columns of a chunk (w | D)
+  int chunks;           // chunks a page: P * D / (c * w)
+  int items;            // n_pools * rm * chunks
+  int stages, stage_bytes, slot_bytes;
+};
+
+// Where work item w reads: its pool, its page slot (r * M + j), the first
+// element of its chunk within the page, and the chunk's first row.
+struct Item {
+  int pool, slot, start, row0;
+};
+
+__device__ __forceinline__ Item item_of(const DequantArgs& a, int w) {
+  const int per_pool = a.rm * a.chunks;
+  Item it;
+  it.pool = w >= per_pool;
+  const int rem = w - it.pool * per_pool;
+  it.slot = rem / a.chunks;
+  const int j = rem - it.slot * a.chunks;
+  it.start = j * a.chunk_rows * a.chunk_cols;
+  it.row0 = it.start / a.D;
+  return it;
 }
 
 __device__ __forceinline__ float s8(uint32_t word, int byte) {
@@ -415,17 +491,6 @@ __global__ void paged_gather_dequant_kernel(const __grid_constant__
   }
 }
 
-template <typename U>
-int launch_gather(const void* pool, const void* tables, int idx64, void* out,
-                  long long rm, long long n_pages, long long page_bytes,
-                  cudaStream_t st) {
-  const long long units = page_bytes / (long long)sizeof(U);
-  const dim3 grid((unsigned)rm, (unsigned)((units + CHUNK - 1) / CHUNK));
-  paged_gather_kernel<U><<<grid, THREADS, 0, st>>>(
-      (const U*)pool, tables, idx64, (U*)out, n_pages, units);
-  return (int)cudaGetLastError();
-}
-
 // Shared memory of a TMA plan: the stages, their scale slots, two
 // mbarriers and one int a stage.
 int tma_smem(const DequantArgs& a) {
@@ -515,30 +580,52 @@ DequantArgs dequant_args(const void* tables, int idx64, void* out,
 
 }  // namespace
 
-// pool: N pages of page_bytes contiguous bytes each; tables: RM = R * M page
-// ids, int32 (idx64 = 0) or int64 (idx64 = 1); out: RM pages. All device
-// pointers; pool and out are not aliased. Returns the cudaError_t of the
-// launch (0 = cudaSuccess).
+// The copy gather. unit: the bytes a thread moves at once (16, 8, 4, 2 or
+// 1), from paged_gather.gather_plan; it must divide every page and base.
+// tables: RM = R * M page ids, int32 (idx64 = 0) or int64 (idx64 = 1).
+// All device pointers; pools and outputs are not aliased. Returns the
+// cudaError_t of the launch (0 = cudaSuccess).
+
+// pool: N pages of page_bytes contiguous bytes each; out: RM pages.
 extern "C" int paged_gather(const void* pool, const void* tables, int idx64,
                             void* out, long long RM, long long N,
-                            long long page_bytes, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                            long long page_bytes, int unit, void* stream) {
   if (RM <= 0 || page_bytes <= 0) return 0;
-  const uintptr_t a = (uintptr_t)pool | (uintptr_t)out | (uintptr_t)page_bytes;
-  if (a % 16 == 0)
-    return launch_gather<uint4>(pool, tables, idx64, out, RM, N, page_bytes,
-                                st);
-  if (a % 8 == 0)
-    return launch_gather<uint2>(pool, tables, idx64, out, RM, N, page_bytes,
-                                st);
-  if (a % 4 == 0)
-    return launch_gather<unsigned int>(pool, tables, idx64, out, RM, N,
-                                       page_bytes, st);
-  if (a % 2 == 0)
-    return launch_gather<unsigned short>(pool, tables, idx64, out, RM, N,
-                                         page_bytes, st);
-  return launch_gather<unsigned char>(pool, tables, idx64, out, RM, N,
-                                      page_bytes, st);
+  if (page_bytes >= (1LL << 30) || N >= (1LL << 31) || RM >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  GatherArgs a = {};
+  a.pool0 = a.pool1 = pool;
+  a.out0 = a.out1 = out;
+  a.tables = tables;
+  a.idx64 = idx64;
+  a.n_pages0 = a.n_pages1 = (int)N;
+  return gather(a, 1, RM, page_bytes, page_bytes, unit,
+                (cudaStream_t)stream);
+}
+
+// Two pools through one table in one launch (a layer's K and V, or MLA's
+// c and kpe): pool_a of N_a pages of page_a bytes into out_a, pool_b of
+// N_b pages of page_b bytes into out_b, RM pages each.
+extern "C" int paged_gather_kv(const void* pool_a, const void* pool_b,
+                               const void* tables, int idx64, void* out_a,
+                               void* out_b, long long RM, long long N_a,
+                               long long N_b, long long page_a,
+                               long long page_b, int unit, void* stream) {
+  if (RM <= 0) return 0;
+  if (page_a <= 0 || page_b <= 0 || page_a >= (1LL << 30) ||
+      page_b >= (1LL << 30) || N_a >= (1LL << 31) || N_b >= (1LL << 31) ||
+      RM >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  GatherArgs a = {};
+  a.pool0 = pool_a;
+  a.pool1 = pool_b;
+  a.out0 = out_a;
+  a.out1 = out_b;
+  a.tables = tables;
+  a.idx64 = idx64;
+  a.n_pages0 = (int)N_a;
+  a.n_pages1 = (int)N_b;
+  return gather(a, 2, RM, page_a, page_b, unit, (cudaStream_t)stream);
 }
 
 // pool (N, P, D) int8, scales (N, P, 1) f32, tables as above, out (RM, P, D)

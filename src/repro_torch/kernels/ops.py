@@ -37,8 +37,8 @@ Every dispatcher runs its kernel or plain version through
 ``obs.profiling.dispatch`` under the reference's kernel name
 (``spinner_project``, ``spinner_project_seeded``, ``srf_decode``,
 ``paged_gather``, ``paged_gather_dequant``, ``fwht``,
-``circulant_project``; the port's own ``paged_gather_dequant_kv`` under
-that name): with ``--kernel-timing`` each dispatch is timed into
+``circulant_project``; the port's own ``paged_gather_kv`` and
+``paged_gather_dequant_kv`` under those names): with ``--kernel-timing`` each dispatch is timed into
 ``kernel_dispatch_seconds{kernel=...}``; otherwise the wrapper only
 calls it. The grad refusals run before it, outside the timed region.
 
@@ -56,6 +56,7 @@ are the kernels' own. Launch counts live on the kernel wrappers
 ``spinner.spinner_project_seeded_cuda.launches``,
 ``srf_decode.srf_decode_cuda.launches``,
 ``paged_gather.paged_gather_cuda.launches``,
+``paged_gather.paged_gather_kv_cuda.launches``,
 ``paged_gather.paged_gather_dequant_cuda.launches``,
 ``paged_gather.paged_gather_dequant_kv_cuda.launches``,
 ``fwht.fwht_cuda.launches``,
@@ -85,6 +86,7 @@ def launch_counts() -> Dict[str, int]:
     return {"spinner": _spin.spinner_project_cuda.launches,
             "srf_decode": _dec.srf_decode_cuda.launches,
             "paged_gather": _pg.paged_gather_cuda.launches,
+            "paged_gather_kv": _pg.paged_gather_kv_cuda.launches,
             "paged_gather_dequant": _pg.paged_gather_dequant_cuda.launches,
             "paged_gather_dequant_kv":
                 _pg.paged_gather_dequant_kv_cuda.launches,
@@ -103,6 +105,7 @@ def reset_counts() -> None:
     _spin.spinner_project_cuda.launches = 0
     _dec.srf_decode_cuda.launches = 0
     _pg.paged_gather_cuda.launches = 0
+    _pg.paged_gather_kv_cuda.launches = 0
     _pg.paged_gather_dequant_cuda.launches = 0
     _pg.paged_gather_dequant_kv_cuda.launches = 0
     _spin.spinner_project_seeded_cuda.launches = 0
@@ -216,6 +219,39 @@ def _paged_gather_call(pool, tables):
                               lambda: _pg.paged_gather_cuda(pool, tables))
     return _prof.dispatch("paged_gather",
                           lambda: _ref.paged_gather_ref(pool, tables))
+
+
+def paged_gather_kv(pool_a: torch.Tensor, pool_b: torch.Tensor,
+                    tables: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two pools (N_a, P_a, D_a) and (N_b, P_b, D_b) of one dtype through
+    one table (R, M), as (a, b): :func:`paged_gather` of each (a layer's
+    K and V, or MLA's c and kpe; pages may differ); on the card one
+    launch."""
+    r, w = tables.shape
+    pools = (pool_a, pool_b)
+
+    def cost():
+        parts = [_kcost.gather(r * w * t.shape[1], t.shape[2],
+                               t.element_size()) for t in pools]
+        return tuple(map(sum, zip(*parts)))
+    return _counted(
+        "paged_gather_kv", cost,
+        lambda: _paged_gather_kv_call(pool_a, pool_b, tables),
+        lambda: tuple(t.new_empty((r, w * t.shape[1], t.shape[2]))
+                      for t in pools),
+        (pool_a, pool_b, tables))
+
+
+def _paged_gather_kv_call(pool_a, pool_b, tables):
+    if pool_a.is_cuda:
+        _no_grad_needed("paged_gather_kv", pool_a, pool_b)
+        return _prof.dispatch("paged_gather_kv",
+                              lambda: _pg.paged_gather_kv_cuda(
+                                  pool_a, pool_b, tables))
+    return _prof.dispatch("paged_gather_kv", lambda: (
+        _ref.paged_gather_ref(pool_a, tables),
+        _ref.paged_gather_ref(pool_b, tables)))
 
 
 def paged_gather_dequant(pool: torch.Tensor, scales: torch.Tensor,

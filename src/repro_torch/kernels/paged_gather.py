@@ -2,22 +2,25 @@
 
     out[r, j*P:(j+1)*P, :] = pool[clamp(tables[r, j], 0, N-1)]
 
-from a (N, P, D) pool of any dtype, and the int8 variant that multiplies
+from a (N, P, D) pool of any dtype, for one pool or for two pools that
+share the table in one launch (a layer's K and V, MLA's latents c and
+kpe: their row widths may differ), and the int8 variant that multiplies
 each page row by its f32 scale and writes bf16 or f32, for one pool or
 for a layer's K and V pools in one launch.
 
 Counterparts of ``repro.kernels.paged_gather.paged_gather_pallas`` and
-``paged_gather_dequant_pallas`` (the K and V launch is two calls of the
-latter). CUDA tensors only; ``kernels.ops`` routes CPU tensors to the
+``paged_gather_dequant_pallas`` (a two-pool launch is two calls of
+either). CUDA tensors only; ``kernels.ops`` routes CPU tensors to the
 plain versions (``kernels.ref``). Each wrapper counts its launches in
-``.launches``. :func:`dequant_plan` is the dequant kernel's launch plan,
-pure Python so that the CPU tests reach it.
+``.launches``. :func:`gather_plan` and :func:`dequant_plan` are the two
+kernels' launch plans, pure Python so that the CPU tests reach them.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +37,13 @@ STAGES = 4              # ring depth: 4 x 16 KB + scales, 3 blocks an SM
 BLOCKS_PER_SM = 3
 CONSUMERS = 256         # converting threads a block (warps 1-8 on TMA)
 H100_SMS = 132
+
+# The copy gather's blocks (csrc/paged_gather.cu: THREADS x UNROLL units
+# a block).
+COPY_THREADS = 128
+COPY_CHUNK_UNITS = 4 * COPY_THREADS
+COPY_MAX_CHUNKS = 65535  # chunks of a launch's pages, gridDim.y at most
+UNITS = (16, 8, 4, 2, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +67,44 @@ class DequantPlan:
     grid: int
     threads: int
     smem_bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """How one copy-gather launch runs: every thread moves ``unit`` bytes
+    at once (the widest of ``UNITS`` that divides every pool's page and
+    every base), a block of ``threads`` copies one ``chunk`` of bytes of
+    one page slot (a page's last chunk may be shorter),
+    ``chunks_per_page[p]`` a page of pool p; ``grid`` is (page slots,
+    chunks of a page of every pool), ``items`` its blocks."""
+    unit: int
+    chunk: int
+    chunks_per_page: Tuple[int, ...]
+    items: int
+    grid: Tuple[int, int]
+    threads: int
+
+
+@functools.lru_cache(maxsize=None)
+def gather_plan(pages: Tuple[Tuple[int, int], ...], rm: int, itemsize: int,
+                addr_mod16: Optional[Tuple[int, ...]] = None) -> GatherPlan:
+    """The launch plan of one or two pools through ``rm`` page slots:
+    ``pages[p]`` = (P, D) of pool p, elements of ``itemsize`` bytes.
+    ``addr_mod16[p]``: pool p's base and its output's, or-ed, modulo 16
+    (default: aligned). Cached: the attention asks for a few plans, once
+    a layer a step."""
+    sizes = [p * d * itemsize for p, d in pages]
+    mods = tuple(addr_mod16) if addr_mod16 is not None else (0,) * len(sizes)
+    if not 1 <= len(sizes) <= 2 or len(mods) != len(sizes):
+        raise ValueError(f"gather_plan: one or two pools, got pages "
+                         f"{tuple(pages)} and bases {mods}")
+    unit = next(u for u in UNITS
+                if all(b % u == 0 for b in sizes) and
+                all(m % u == 0 for m in mods))
+    chunk = unit * COPY_CHUNK_UNITS
+    per_page = tuple(-(-b // chunk) for b in sizes)
+    return GatherPlan(unit, chunk, per_page, rm * sum(per_page),
+                      (rm, sum(per_page)), COPY_THREADS)
 
 
 def _divisors_down(n: int, cap: int):
@@ -124,8 +172,11 @@ def dequant_plan(P: int, D: int, n_pools: int, rm: int,
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("paged_gather")
-    lib.paged_gather.argtypes = [_P, _P, _I, _P, _L, _L, _L, _P]
+    lib.paged_gather.argtypes = [_P, _P, _I, _P, _L, _L, _L, _I, _P]
     lib.paged_gather.restype = ctypes.c_int
+    lib.paged_gather_kv.argtypes = [_P, _P, _P, _I, _P, _P, *[_L] * 5, _I,
+                                    _P]
+    lib.paged_gather_kv.restype = ctypes.c_int
     plan = [_I] * 9
     lib.paged_gather_dequant.argtypes = [_P, _P, _P, _I, _P, _I, _L, _L, _I,
                                          _I, *plan, _P]
@@ -163,6 +214,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _gather_plan(pools, outs, tables) -> GatherPlan:
+    """The plan of a copy gather of ``pools`` into ``outs``; refuses what
+    the kernel's 32-bit indices and grid cannot take."""
+    plan = gather_plan(tuple((t.shape[1], t.shape[2]) for t in pools),
+                       tables.numel(), pools[0].element_size(),
+                       tuple((t.data_ptr() | o.data_ptr()) % 16
+                             for t, o in zip(pools, outs)))
+    if plan.grid[1] > COPY_MAX_CHUNKS or any(
+            t.shape[0] >= 2 ** 31
+            or t.shape[1] * t.shape[2] * t.element_size() >= 2 ** 30
+            for t in pools):
+        raise ValueError(f"paged_gather kernel: pages of "
+                         f"{[tuple(t.shape) for t in pools]} exceed its "
+                         f"32-bit indices or its grid")
+    return plan
+
+
 def paged_gather_cuda(pool: torch.Tensor, tables: torch.Tensor
                       ) -> torch.Tensor:
     """pool (N, P, D), any dtype; tables (R, M) int32/int64 page ids ->
@@ -174,15 +242,58 @@ def paged_gather_cuda(pool: torch.Tensor, tables: torch.Tensor
     out = torch.empty((r, m * p, d), dtype=pool.dtype, device=pool.device)
     if out.numel() == 0:
         return out
+    plan = _gather_plan((pool,), (out,), tables)
     rc = _lib().paged_gather(pool.data_ptr(), tables.data_ptr(),
                              int(tables.dtype == torch.int64),
                              out.data_ptr(), r * m, n,
-                             p * d * pool.element_size(), _stream(pool))
+                             p * d * pool.element_size(), plan.unit,
+                             _stream(pool))
     if rc != 0:
         raise RuntimeError(f"paged_gather kernel launch failed: "
                            f"cudaError {rc}")
     paged_gather_cuda.launches += 1
     return out
+
+
+def paged_gather_kv_cuda(pool_a: torch.Tensor, pool_b: torch.Tensor,
+                         tables: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two pools through one table in one launch (a layer's K and V, or
+    MLA's c and kpe): pool_a (N_a, P_a, D_a) and pool_b (N_b, P_b, D_b) of
+    one dtype, tables (R, M) -> (a (R, M*P_a, D_a), b (R, M*P_b, D_b)),
+    views of one buffer (b's starts on 16 bytes).
+    ``paged_gather_kv_cuda.launches`` counts launches."""
+    for pool in (pool_a, pool_b):
+        _check("paged_gather_kv", pool, tables)
+    if pool_b.dtype != pool_a.dtype or pool_b.device != pool_a.device:
+        raise ValueError(f"paged_gather_kv kernel takes two pools of one "
+                         f"dtype on one device, got {pool_a.dtype} on "
+                         f"{pool_a.device} and {pool_b.dtype} on "
+                         f"{pool_b.device}")
+    r, m = tables.shape
+    (na_, pa, da), (nb_, pb, db) = pool_a.shape, pool_b.shape
+    size = pool_a.element_size()
+    na, nb = r * m * pa * da, r * m * pb * db
+    off = -(-na * size // 16) * 16 // size
+    buf = torch.empty(off + nb, dtype=pool_a.dtype, device=pool_a.device)
+    a = buf[:na].view(r, m * pa, da)
+    b = buf[off:off + nb].view(r, m * pb, db)
+    if na == 0 and nb == 0:
+        return a, b
+    if na == 0 or nb == 0:
+        raise ValueError(f"paged_gather_kv kernel: one pool has empty pages "
+                         f"({tuple(pool_a.shape)}, {tuple(pool_b.shape)})")
+    plan = _gather_plan((pool_a, pool_b), (a, b), tables)
+    rc = _lib().paged_gather_kv(
+        pool_a.data_ptr(), pool_b.data_ptr(), tables.data_ptr(),
+        int(tables.dtype == torch.int64), a.data_ptr(), b.data_ptr(), r * m,
+        na_, nb_, pa * da * size, pb * db * size, plan.unit,
+        _stream(pool_a))
+    if rc != 0:
+        raise RuntimeError(f"paged_gather_kv kernel launch failed: "
+                           f"cudaError {rc}")
+    paged_gather_kv_cuda.launches += 1
+    return a, b
 
 
 def _check_dequant(name, pools, scales, tables, out_dtype):
@@ -290,5 +401,6 @@ def paged_gather_dequant_kv_cuda(k_pool: torch.Tensor,
 
 
 paged_gather_cuda.launches = 0
+paged_gather_kv_cuda.launches = 0
 paged_gather_dequant_cuda.launches = 0
 paged_gather_dequant_kv_cuda.launches = 0

@@ -23,6 +23,9 @@ untraced and once with the profiler on, and prints:
 * device time by kernel name, the ``TOP`` largest, and apart from them
   every row of the port's own CUDA kernels (``PORT_KERNELS``: the paged
   gathers, the spinner, the seeded spinner, srf_decode), however small.
+  The bf16 copy gather's rows are ``paged_gather_kernel<unit>``: one
+  launch serves one pool or a layer's two (``paged_gather_kv``),
+  ``<uint4>`` on 16-byte aligned pages.
 
 Requires a CUDA device; there is no CPU fallback.
 """
@@ -42,6 +45,8 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer as model_lib
 
 TOP = 15                            # kernel rows printed
+# substrings of the kernels' names: "paged_gather_kernel" matches every
+# instantiation of the copy gather (one pool or two, every unit)
 PORT_KERNELS = ("paged_gather_kernel", "paged_gather_dequant_kernel",
                 "spinner_kernel", "seeded_spinner_kernel",
                 "srf_decode_kernel")

@@ -1,4 +1,4 @@
-"""Time the spinner, seeded spinner, circulant and int8 paged gather
+"""Time the spinner, seeded spinner, circulant and paged gather
 kernels of one checkout on the card, at the serving shapes and the
 library shape, and print one JSON line.
 
@@ -23,12 +23,17 @@ reference's token loop (``ssm._token_scan``), each as host ms a call
 events around queued calls would time the host). It reads private
 functions, so it times only checkouts that have them.
 
-The int8 gather (``paged_gather_dequant``, int8 -> bf16) is timed at the
-full-width decode shape (R = 8, M = 16, P = 16, D = 1024, N = 257) and a
-prefill shape (R = 32, M = 64, N = 2049), cycling through 36 layers'
-pools so pages come from HBM: one pool a call, and a layer's K and V
-(``paged_gather_dequant_kv`` where the checkout has it, else two calls of
-the single-pool kernel, as the parent's attention made them).
+The gathers, the bf16 copy (``paged_gather``) and the int8 one
+(``paged_gather_dequant``, int8 -> bf16), are timed at the full-width
+decode shape (R = 8, M = 16, P = 16, D = 1024, N = 257) and a prefill
+shape (R = 32, M = 64, N = 2049), cycling through 36 layers' pools so
+pages come from HBM: one pool a call, and a layer's K and V in one
+launch (``paged_gather_kv`` and ``paged_gather_dequant_kv`` where the
+checkout has them, else two calls of the single-pool kernel, as an
+older attention made them). At the decode shape also the host ms of a
+layer's K and V through ``kernels.ops`` as the attention calls it (one
+``ops.paged_gather_kv``, else two ``ops.paged_gather``), over 2000
+calls: the launches are host-bound, so it times the host.
 
 Times: CUDA events over back-to-back launches queued behind a device
 sleep, median of the repeats (``chip_smoke.device_ms``). Inputs come
@@ -128,7 +133,7 @@ def main() -> int:
     # ``repro_torch.kernels`` re-exports the op ``paged_gather`` over the
     # module
     kpg = importlib.import_module("repro_torch.kernels.paged_gather")
-    from repro_torch.kernels import spinner as kspin
+    from repro_torch.kernels import ops as kops, spinner as kspin
     t0 = time.perf_counter()
     build.build([{"gather": "paged_gather"}.get(g, g)
                  for g in sorted(groups - {"ssd_scan"})])
@@ -174,6 +179,36 @@ def main() -> int:
 
         res[f"dequant {label} one pool"] = device_ms(torch, single, 100, 5)
         res[f"dequant {label} K and V"] = device_ms(torch, pair, 100, 5)
+        del layers
+        layers = [[torch.randn((n, GATHER_P, GATHER_D), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(2)] for _ in range(LAYERS)]
+        it = itertools.cycle(layers)
+
+        def copy_single():
+            kpg.paged_gather_cuda(next(it)[0], tables)
+
+        def copy_pair():
+            k, v = next(it)
+            if hasattr(kpg, "paged_gather_kv_cuda"):
+                kpg.paged_gather_kv_cuda(k, v, tables)
+            else:
+                kpg.paged_gather_cuda(k, tables)
+                kpg.paged_gather_cuda(v, tables)
+
+        res[f"bf16 {label} one pool"] = device_ms(torch, copy_single, 100, 5)
+        res[f"bf16 {label} K and V"] = device_ms(torch, copy_pair, 100, 5)
+
+        def ops_pair():
+            k, v = next(it)
+            if hasattr(kops, "paged_gather_kv"):
+                kops.paged_gather_kv(k, v, tables)
+            else:
+                kops.paged_gather(k, tables)
+                kops.paged_gather(v, tables)
+
+        if label == "decode":
+            res["bf16 decode K and V host"] = host_ms(torch, ops_pair, 2000)
         del layers
         torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):

@@ -11,9 +11,9 @@ Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init``,
 
 * ``attn_impl="full"`` (the configs' default): the chunk's k/v rows are
   scattered into the request's KV pages (bf16/f32, or int8 with one f32
-  scale per token), then the whole table width is gathered back through
-  the paged_gather / paged_gather_dequant CUDA kernels and attended with
-  an f32 softmax (``_paged_full``). In training, causal softmax
+  scale per token), then the whole table width of K and V is gathered
+  back in one launch of the paged_gather_kv / paged_gather_dequant_kv
+  CUDA kernels and attended with an f32 softmax (``_paged_full``). In training, causal softmax
   attention (``_softmax_attn``, query-chunked as the reference chunks
   it; plain PyTorch ops, as the reference's is plain jnp).
 * ``attn_impl="srf"``: the per-request state is one constant-size page
@@ -31,7 +31,8 @@ Port of ``repro.models.attention``: ``srf_cfg``, ``attn_init``,
   wide, stored before RoPE); every step decompresses the whole history
   into per-head keys [c·wuk | rope(kpe)] and values c·wuv. Paged, the
   latents are scattered into their own pages (the ``mla`` family) and
-  gathered back through paged_gather (rows of kv_lora and of qk_rope),
+  gathered back through one paged_gather_kv launch (rows of kv_lora and
+  of qk_rope),
   the history roped at read time at positions 0..T-1; scale
   1/sqrt(qk_nope + qk_rope). With SRF, the chunk's own keys and values
   feed one P-model per query head, and the state is the SRF slot of
@@ -295,6 +296,19 @@ def _paged_hist(pool_arr: torch.Tensor, tables: torch.Tensor
     return hist.view((tables.shape[0], -1) + tuple(pool_arr.shape[2:]))
 
 
+def _paged_hist_kv(pool_a: torch.Tensor, pool_b: torch.Tensor,
+                   tables: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_paged_hist` of a layer's two pools that share the table (K
+    and V, or MLA's c and kpe; their rows may differ), in one
+    paged_gather_kv launch."""
+    a, b = kops.paged_gather_kv(_flat_pages(pool_a), _flat_pages(pool_b),
+                                tables)
+    lead = (tables.shape[0], -1)
+    return (a.view(lead + tuple(pool_a.shape[2:])),
+            b.view(lead + tuple(pool_b.shape[2:])))
+
+
 def _paged_hist_dq_kv(pool: Dict[str, torch.Tensor], tables: torch.Tensor,
                       dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 variant of :func:`_paged_hist` for a layer's K and V: (N, P,
@@ -371,8 +385,7 @@ def _paged_full(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         _paged_scatter(pool["k"], kt, tables, positions, q_valid)
         _paged_scatter(pool["v"], vt, tables, positions, q_valid)
-        kf = _paged_hist(pool["k"], tables)
-        vf = _paged_hist(pool["v"], tables)
+        kf, vf = _paged_hist_kv(pool["k"], pool["v"], tables)
     kf = kf.transpose(1, 2).to(q.dtype)                # (B, Hkv, T, hd)
     vf = vf.transpose(1, 2).to(q.dtype)
     return _paged_softmax(q, kf, vf, 1.0 / math.sqrt(cfg.head_dim),
@@ -662,8 +675,8 @@ def _mla_attention(p, cfg, x: torch.Tensor, positions: torch.Tensor,
         for name, rows in (("c", c_new), ("kpe", kpe_new)):
             _paged_scatter(pool[name], rows, tables, positions,
                            cache["q_valid"])
-        cc = _paged_hist(pool["c"], tables).to(x.dtype)
-        kk = _paged_hist(pool["kpe"], tables).to(x.dtype)
+        cc, kk = _paged_hist_kv(pool["c"], pool["kpe"], tables)
+        cc, kk = cc.to(x.dtype), kk.to(x.dtype)
         t = cc.shape[1]
         kpos = torch.arange(t, device=x.device)[None].expand(b, t)
         q, k, v = _mla_qkv(p, cfg, x, cc, kk, positions, kpos)

@@ -136,6 +136,69 @@ def test_kernels_count_by_formula():
     assert a.result()["bytes"] == kcost.gather(2 * 2 * 16, 32, 4)[1]
 
 
+def test_pair_gather_counts_both_pools():
+    """paged_gather_kv counts the two pools' gathers (rows of 32 and of
+    8), on meta an empty output of each pool's shape."""
+    tables = torch.tensor([[1, 2], [3, 0]])
+    want = kcost.gather(2 * 2 * 16, 32, 4)[1] + \
+        kcost.gather(2 * 2 * 16, 8, 4)[1]
+    for device in ("cpu", "meta"):
+        a, b = (torch.randn(9, 16, d, device=device) for d in (32, 8))
+        with H.Analysis() as an:
+            got = ops.paged_gather_kv(a, b, tables)
+        r = an.result()
+        assert (r["flops"], r["bytes"]) == (0.0, want)
+        assert r["kernel/paged_gather_kv"] == 1
+        assert [g.shape for g in got] == [(2, 32, 32), (2, 32, 8)]
+        if device == "cpu":
+            for g, pool in zip(got, (a, b)):
+                assert torch.equal(g, ref.paged_gather_ref(pool, tables))
+
+
+def _paged_step_result(cfg, params):
+    """The cost analysis of one paged step (a chunk of 3 tokens on 2
+    rows) of ``cfg``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import paged_cache
+    pools = paged_cache.init_pools(cfg, 9, 4, num_slots=4, device="cpu")
+    tok = torch.arange(6).reshape(2, 3)
+    return H.analyze(lambda: T.paged_step(
+        params, cfg, pools, tok, torch.arange(3).repeat(2, 1),
+        torch.ones(2, 3, dtype=torch.bool), torch.tensor([[1, 2], [3, 4]]),
+        torch.tensor([1, 2])))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite-16b"],
+                         ids=["full KV", "MLA"])
+def test_paged_step_bytes_equal_the_two_single_gathers(arch, monkeypatch):
+    """A layer's two pools gathered in one launch cost the bytes of the
+    two single-pool gathers the attention made before: the paged step's
+    analysis is the same but for the kernel counts."""
+    from repro_torch.configs import registry
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    cfg = registry.reduced(arch)
+    params = T.init(cfg, seed=0, device="cpu")
+    pair = _paged_step_result(cfg, params)
+    monkeypatch.setattr(attention, "_paged_hist_kv", lambda a, b, t: (
+        attention._paged_hist(a, t), attention._paged_hist(b, t)))
+    single = _paged_step_result(cfg, params)
+    assert pair["kernel/paged_gather_kv"] == cfg.n_layers
+    assert single["kernel/paged_gather"] == 2 * cfg.n_layers
+    for key in ("flops", "bytes", "peak_bytes"):
+        assert pair[key] == single[key], key
+
+
+def test_decode_cell_bytes_unchanged():
+    """qwen3-4b's decode_32k dry-run cell on meta: the flops and bytes it
+    counted before a layer's K and V went through one gather launch."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell("qwen3-4b", "decode_32k")
+    assert rec["ok"], rec.get("traceback")
+    assert (rec["global_flops"], rec["global_bytes"]) == (3503686680576.0,
+                                                          7929189463252.0)
+
+
 def test_spinner_counts_forward_by_formula_and_backward_op_by_op():
     """Under an analysis the spinner runs its autograd Function on any
     device: the forward by formula, the plain VJP backward counted op by

@@ -7,7 +7,7 @@ the dispatchers' gradients on the CPU, runs everywhere). On the card
     PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
 The two spinner ops differentiate on the card (kernel forward, plain
-VJP backward); the other five dispatchers refuse an input that requires
+VJP backward); the other six dispatchers refuse an input that requires
 grad. Tolerances: spinner, seeded spinner and srf_decode f32 max|kernel -
 plain| <= 1e-4 * max|plain|, bf16 2e-2 (the sign epilogue where |y| is
 beyond f32 summation-order noise of 0); the paged gathers bit for bit
@@ -146,6 +146,47 @@ def test_paged_gathers_bit_equal_on_card(cuda_device):
                         before + 1
                     assert torch.equal(got_k, want_k), (n, p, d, tdt, out)
                     assert torch.equal(got_v, want_v), (n, p, d, tdt, out)
+
+
+@pytest.mark.cuda
+def test_pair_gather_bit_equal_on_card(cuda_device):
+    """paged_gather_kv (two pools through one table, one launch) and the
+    one-pool paged_gather, bit for bit against the plain version: pairs
+    of equal and of unequal row widths (MLA's 512 and 64), pages of
+    different rows, ragged rows, a second pool 8 bytes off 16-byte
+    alignment (a narrower unit for both pools), ids out of range on both
+    sides, int32 and int64 tables, bf16, f32 and int8 pools."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    for n, (pa, da), (pb, db), r, m in (
+            (33, (16, 1024), (16, 1024), 4, 8),
+            (33, (16, 512), (16, 64), 8, 16),
+            (9, (64, 1024), (64, 64), 3, 4),
+            (9, (16, 512), (4, 64), 3, 4),
+            (7, (3, 13), (3, 4), 3, 5)):
+        tables = torch.randint(-2, n + 2, (r, m), generator=gen,
+                               device=cuda_device)
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            a = torch.randn((n, pa, da), generator=gen,
+                            device=cuda_device).mul(50).to(dtype)
+            b = torch.randn((n, pb, db), generator=gen,
+                            device=cuda_device).mul(50).to(dtype)
+            for second in (b, _offset_view(b, 8 // dtype.itemsize)):
+                plan = kpg.gather_plan(((pa, da), (pb, db)), r * m,
+                                       dtype.itemsize,
+                                       (0, second.data_ptr() % 16))
+                pages = (pa * da * dtype.itemsize, pb * db * dtype.itemsize)
+                assert all(x % plan.unit == 0 for x in pages)
+                assert second.data_ptr() % plan.unit == 0
+                for tdt in (torch.int64, torch.int32):
+                    t = tables.to(tdt)
+                    before = kpg.paged_gather_kv_cuda.launches
+                    got_a, got_b = ops.paged_gather_kv(a, second, t)
+                    assert kpg.paged_gather_kv_cuda.launches == before + 1
+                    assert torch.equal(got_a, ref.paged_gather_ref(a, t))
+                    assert torch.equal(got_b,
+                                       ref.paged_gather_ref(second, t))
+                    assert torch.equal(kpg.paged_gather_cuda(second, t),
+                                       got_b)
 
 
 @pytest.mark.cuda
@@ -397,6 +438,8 @@ def _grad_cases(dev):
             s.clone(), z.clone(), leaf(1, 2, 16), torch.rand(
                 (1, 2, 16), device=dev), torch.randn((1, 2, 8), device=dev))),
         ("paged_gather", lambda: ops.paged_gather(leaf(5, 4, 8), tables)),
+        ("paged_gather_kv", lambda: ops.paged_gather_kv(
+            torch.randn((5, 4, 8), device=dev), leaf(5, 4, 2), tables)),
         ("paged_gather_dequant", lambda: ops.paged_gather_dequant(
             pool, leaf(5, 4, 1), tables)),
         ("paged_gather_dequant_kv", lambda: ops.paged_gather_dequant_kv(
@@ -418,7 +461,7 @@ def test_dispatchers_refuse_grad_on_card(cuda_device):
     while grad mode is on (those kernels have no backward, nor have the
     reference's), and launches its kernel under torch.no_grad()."""
     cases = _grad_cases(cuda_device)
-    assert len(cases) == 8
+    assert len(cases) == 9
     for name, call in cases:
         if name in GRAD_OPS:
             ops.reset_counts()
@@ -586,6 +629,7 @@ def test_kernel_timing_counts_equal_launches_on_card(cuda_device, attn,
     names = {"spinner": "spinner_project",
              "spinner_seeded": "spinner_project_seeded",
              "srf_decode": "srf_decode", "paged_gather": "paged_gather",
+             "paged_gather_kv": "paged_gather_kv",
              "paged_gather_dequant": "paged_gather_dequant",
              "paged_gather_dequant_kv": "paged_gather_dequant_kv",
              "fwht": "fwht", "circulant_project": "circulant_project"}

@@ -310,6 +310,7 @@ def test_cpu_route_leaves_launch_counters_at_zero():
     pool = torch.zeros(3, 2, 4, dtype=torch.int8)
     tables = torch.zeros(1, 2, dtype=torch.long)
     ops.paged_gather(pool, tables)
+    ops.paged_gather_kv(pool, pool[..., :3], tables)
     ops.paged_gather_dequant(pool, torch.ones(3, 2, 1), tables)
     ops.paged_gather_dequant_kv(pool, torch.ones(3, 2, 1), pool,
                                 torch.ones(3, 2, 1), tables)
@@ -322,6 +323,7 @@ def test_cpu_route_leaves_launch_counters_at_zero():
                           torch.ones(B))
     assert ops.launch_counts() == {"spinner": 0, "srf_decode": 0,
                                    "paged_gather": 0,
+                                   "paged_gather_kv": 0,
                                    "paged_gather_dequant": 0,
                                    "paged_gather_dequant_kv": 0,
                                    "spinner_seeded": 0,

@@ -391,3 +391,43 @@ def test_paged_full_matches_reference(monkeypatch, pool_kind, c):
     else:
         np.testing.assert_allclose(got, want, rtol=2 ** -6,
                                    atol=2 ** -8 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen3-4b", "float32"),
+                                        ("qwen3-4b", "bfloat16"),
+                                        ("deepseek-v2-lite-16b", "float32")],
+                         ids=["full KV f32", "full KV bf16", "MLA f32"])
+def test_paged_step_pair_gather_bit_equal_to_two_gathers(arch, dtype,
+                                                         monkeypatch):
+    """A layer's two pools (K and V; MLA's c and kpe) gathered through one
+    ``paged_gather_kv`` give the logits and pools of two single-pool
+    gathers, bit for bit, over a chunk and two decode steps."""
+    cfg = registry.reduced(arch, dtype=dtype)
+    params = T.init(cfg, seed=2, device="cpu")
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])
+    rng = np.random.default_rng(5)
+
+    def run():
+        pools = paged_cache.init_pools(cfg, 9, 4, num_slots=4, device="cpu")
+        out = []
+        for c, start in ((5, 0), (1, 5), (1, 6)):
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, c)))
+            pos = torch.arange(start, start + c).repeat(2, 1)
+            logits, pools = T.paged_step(params, cfg, pools, tok, pos,
+                                         torch.ones(2, c, dtype=torch.bool),
+                                         tables, torch.tensor([1, 2]))
+            out.append(logits)
+        return out, pools["paged"]
+
+    rng = np.random.default_rng(5)
+    got, got_pools = run()
+    monkeypatch.setattr(A, "_paged_hist_kv", lambda a, b, t: (
+        A._paged_hist(a, t), A._paged_hist(b, t)))
+    rng = np.random.default_rng(5)
+    want, want_pools = run()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got_pools, want_pools):
+        for comp in g:
+            for k in g[comp]:
+                assert torch.equal(g[comp][k], w[comp][k]), (comp, k)

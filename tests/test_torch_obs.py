@@ -116,6 +116,7 @@ def _every_dispatcher():
         "circulant_project": ops.circulant_project(
             torch.randn(2, 8, generator=gen), x, 12),
         "paged_gather": ops.paged_gather(pool, tables),
+        "paged_gather_kv": ops.paged_gather_kv(pool, pool[..., :3], tables),
         "paged_gather_dequant": ops.paged_gather_dequant(qpool, scales,
                                                          tables),
         "paged_gather_dequant_kv": ops.paged_gather_dequant_kv(
@@ -128,7 +129,8 @@ def _every_dispatcher():
 
 
 KERNELS = ["spinner_project", "spinner_project_seeded", "srf_decode",
-           "paged_gather", "paged_gather_dequant", "paged_gather_dequant_kv",
+           "paged_gather", "paged_gather_kv", "paged_gather_dequant",
+           "paged_gather_dequant_kv",
            "fwht", "circulant_project"]
 
 
@@ -156,6 +158,35 @@ def test_ops_dispatch_records_kernel_histogram():
             assert torch.equal(x, y), name
     snap = reg.snapshot()["histograms"]["kernel_dispatch_seconds"]
     assert set(snap) == {f'kernel="{k}"' for k in KERNELS}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite-16b"],
+                         ids=["full KV", "MLA"])
+def test_paged_step_dispatches_one_pair_gather_a_layer(arch):
+    """One paged step (a chunk of 3 tokens on 2 rows) of the reduced
+    config dispatches paged_gather_kv exactly once a layer (K and V, or
+    MLA's c and kpe) and paged_gather never; the dispatches are timed
+    into kernel_dispatch_seconds{kernel="paged_gather_kv"}."""
+    from repro_torch.serving import paged_cache
+    cfg = registry.reduced(arch)
+    params = T.init(cfg, seed=0, device="cpu")
+    pools = paged_cache.init_pools(cfg, 9, 4, num_slots=4, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (2, 3), generator=gen)
+    pos = torch.arange(3).repeat(2, 1)
+    reg = MetricsRegistry()
+    try:
+        profiling.enable_kernel_timing(reg)
+        logits, _ = T.paged_step(params, cfg, pools, tok, pos,
+                                 torch.ones(2, 3, dtype=torch.bool),
+                                 torch.tensor([[1, 2], [3, 4]]),
+                                 torch.tensor([1, 2]))
+    finally:
+        profiling.disable_kernel_timing()
+    assert torch.isfinite(logits).all()
+    snap = reg.snapshot()["histograms"]["kernel_dispatch_seconds"]
+    assert set(snap) == {'kernel="paged_gather_kv"'}
+    assert snap['kernel="paged_gather_kv"']["count"] == cfg.n_layers
 
 
 def test_timing_leaves_grad_paths_alone():
